@@ -6,25 +6,35 @@
 Phases, one JSON line each on stdout (warnings and build logs go to stderr):
 
 1. device  -- the card's name and power limit (``nvidia-smi``).
-2. build   -- the hand-written kernels, built with ``nvcc`` from ``csrc/``.
+2. build   -- the hand-written kernels, each built with its own ``nvcc`` from
+   ``csrc/``, all started together.
 3. kernel  -- each kernel against its plain PyTorch version on the card, at
    the serving path's shapes and the JAX tests' edge shapes, with CUDA-event
    times per call (``*_ms``, host launch cost included; ``*_graph_ms``, one
    call replayed from a CUDA graph, device time alone) and the least time
-   the card could take (``bound``).
+   the card could take (``bound``). Linear attention at ``mid_attn``'s
+   shapes; the fused IRB at every distinct IRB shape of the small UNet at
+   256², batch 1 and 8.
 4. serve   -- the main path at full width: ``ServingPipeline`` for the small
-   1-step student (``artifacts/vreg1b_gt03_ema``, grid [739]) and the 2-step
-   one (``vreg2b_gt03_ema``, [739, 259]) at 256², random weights from a seed.
-   Single requests of several sizes and a batch of 8; launch counts against
-   UNet calls; latency, images/s and peak memory at steady state.
-5. check   -- the kernel against its plain version on ``mid_attn``'s own
-   q/k/v, and the card's sampler output against the CPU's on the same
-   weights and noise.
+   1-step student (``artifacts/vreg1b_gt03_ema``, grid [739]), the 2-step
+   one (``vreg2b_gt03_ema``, [739, 259]), and the 1-step student with
+   ``use_pallas_irb=True`` (every IRB through the fused kernel), at 256²,
+   random weights from a seed. Single requests of several sizes and a batch
+   of 8; each configuration's launch counts against its UNet calls, with the
+   counts set to 0 just before it; latency, images/s and peak memory at
+   steady state.
+5. check   -- each kernel against its plain version on the main path's own
+   inputs (``mid_attn``'s q/k/v, ``decoder_blocks.3.0``'s x); on that x, the
+   Gram fold's GN2⊕FiLM affine against the statistics of h1 itself (and the
+   same fold in TF32, which that check must reject); the card's
+   sampler output against the CPU's on the same weights and noise, and the
+   fused configuration's sampler against the unfused one's on the card.
 6. profile -- only with ``--profile``: where the card's time goes when the
-   1-step student serves, from ``torch.profiler`` over five single requests
-   (480×720) and five batches of 8. Wall and device time per request, the
-   device's busy share, kernels per request, device time by kind and the
-   top kernels.
+   1-step student serves, unfused and fused, from ``torch.profiler`` over
+   five single requests (480×720) and five batches of 8. Wall and device
+   time per request, the device's busy share, kernels per request, device
+   time by kind and the top kernels; and, per configuration, the UNet
+   blocks inside which a batch of 8 reaches its highest memory peaks.
 
 Then the ``kernels`` line, the ``nvidia-smi`` line, and last
 ``{"ok": true, "device": {...}}``. Any failed check raises, and the script
@@ -36,19 +46,31 @@ repository beside it; only ``model_config.json`` and
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import os
 import subprocess
 import sys
 import time
 from collections import defaultdict
+from concurrent.futures import ThreadPoolExecutor
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
-STUDENTS = (("vreg1b_gt03_ema", (739,)), ("vreg2b_gt03_ema", (739, 259)))
+# (label, artifact, grid, use_pallas_irb)
+SERVED = (("vreg1b_gt03_ema", "vreg1b_gt03_ema", (739,), False),
+          ("vreg2b_gt03_ema", "vreg2b_gt03_ema", (739, 259), False),
+          ("vreg1b_gt03_ema+use_pallas_irb", "vreg1b_gt03_ema", (739,), True))
+IRBS_PER_UNET_CALL = 22       # small UNet: 8 encoder, 2 middle, 12 decoder
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM device memory
 F32_FLOPS_PER_S = 67e12       # H100 SXM float32 outside the tensor cores
 TOL = {"float32": 2e-5, "bfloat16": 2e-2}   # tests/test_pallas_kernels.py:43,60
+IRB_TOL = {"float32": 2e-4, "bfloat16": 5e-2}   # tests/test_pallas_kernels.py:172,252
 SAMPLER_TOL = 5e-3            # README "Testing": full sampler vs reference
+# GN2⊕FiLM from the Gram fold against the same statistics taken two-pass from
+# h1 itself, as max |Δ(h1·a2 + b2)| (values up to ~8): a float32 Gram is
+# ~2e-6 off at the widest block's shape, one with TF32-rounded inputs ~4e-4
+# (a CPU stand-in of that shape), so a TF32 fold fails this bound
+FOLD_TOL = 5e-5
 
 
 def emit(phase: str, **fields) -> None:
@@ -63,7 +85,8 @@ def require(cond: bool, what: str) -> None:
 # kernel name fragments → kind, first match wins (profile phase)
 KINDS = (
     ("linear_attention", ("reduce_kv", "apply_kv")),
-    ("conv", ("conv", "cudnn", "implicit", "xmma", "winograd", "fft",
+    ("fused_irb", ("irb_out", "irb_pool", "irb_se_fc", "irb_combine")),
+    ("conv", ("conv", "cudnn", "implicit", "winograd", "fft",
               "depthwise", "dgrad", "wgrad", "fprop")),
     ("gemm", ("gemm", "sgemm", "cutlass", "ampere", "sm90", "magma")),
     ("reduction", ("reduce", "mean", "sum")),
@@ -143,14 +166,20 @@ def main() -> int:
     from torch.utils.flop_counter import FlopCounterMode
 
     from cv_diffusion_tpu_torch.config import load_model_config
+    from cv_diffusion_tpu_torch.device import pin_fp32
     from cv_diffusion_tpu_torch.export.serving import ServingPipeline
+    from cv_diffusion_tpu_torch.models.blocks import InvertedResidualBlock
     from cv_diffusion_tpu_torch.models.diffusion import create_model, enhance
+    from cv_diffusion_tpu_torch.ops import fused_irb_kernel as fik
     from cv_diffusion_tpu_torch.ops import linear_attention_kernel as lak
     from cv_diffusion_tpu_torch.ops.attention import linear_attention_plain
+    from cv_diffusion_tpu_torch.ops.fused_irb import (folded_gn_scales,
+                                                     fused_irb_v2_plain, irb_args)
     from cv_diffusion_tpu_torch.weights import init_weights
 
     dev = torch.device("cuda")
     kind = torch.cuda.get_device_name(0)
+    pin_fp32()   # the plain versions' convolutions in full f32, as served
 
     # 1. device -----------------------------------------------------------
     t0 = time.perf_counter()
@@ -162,12 +191,20 @@ def main() -> int:
          count=torch.cuda.device_count(), torch=torch.__version__,
          cuda=torch.version.cuda, seconds=time.perf_counter() - t0)
 
-    # 2. build ------------------------------------------------------------
+    # 2. build: one nvcc per source, all started together -----------------
+    def timed_build(module):
+        start = time.perf_counter()
+        return module.build(), time.perf_counter() - start
+
     t0 = time.perf_counter()
-    built = lak.build()
-    print(built.log, file=sys.stderr)
-    emit("build", kernel="linear_attention", library=os.path.relpath(built.path, ROOT),
-         compiled=built.compiled, seconds=time.perf_counter() - t0)
+    wrappers = (("linear_attention", lak), ("fused_irb_v2", fik))
+    with ThreadPoolExecutor(len(wrappers)) as pool:
+        builds = list(pool.map(timed_build, (m for _, m in wrappers)))
+    for (name, _), (built, seconds) in zip(wrappers, builds):
+        print(built.log, file=sys.stderr)
+        emit("build", kernel=name, library=os.path.relpath(built.path, ROOT),
+             compiled=built.compiled, seconds=seconds)
+    emit("build_done", seconds=time.perf_counter() - t0)
 
     # 3. kernel vs plain --------------------------------------------------
     def cuda_ms(fn, iters=200, warmup=20) -> float:
@@ -183,22 +220,25 @@ def main() -> int:
         end.synchronize()
         return start.elapsed_time(end) / iters
 
-    def graph_ms(fn) -> float:
+    def graph_ms(fn, iters=200, warmup=20) -> float:
         """Device time of one call, without the host's launch cost: the
         call captured once in a CUDA graph and replayed."""
         graph = torch.cuda.CUDAGraph()
         with torch.cuda.graph(graph):
             fn()
-        return cuda_ms(graph.replay)
+        return cuda_ms(graph.replay, iters, warmup)
 
-    def bound(shape, dtype):
+    def bound(moved, flops):
+        t_bytes, t_ops = moved / HBM_BYTES_PER_S, flops / F32_FLOPS_PER_S
+        return (max(t_bytes, t_ops) * 1e3,
+                "bytes" if t_bytes >= t_ops else "operations")
+
+    def attention_bound(shape, dtype):
         b, n, h, d = shape
         elems = b * n * h * d
         moved = 4 * elems * torch.tensor([], dtype=dtype).element_size()
         flops = elems * (4 * d + 6)   # kv, num: 2·D each; ksum, den, φ, divide
-        t_bytes, t_ops = moved / HBM_BYTES_PER_S, flops / F32_FLOPS_PER_S
-        return (max(t_bytes, t_ops) * 1e3,
-                "bytes" if t_bytes >= t_ops else "operations", moved, flops)
+        return bound(moved, flops) + (moved, flops)
 
     def compare(q, k, v):
         out = lak.linear_attention_kernel(q, k, v)
@@ -226,9 +266,10 @@ def main() -> int:
         name = str(dtype).replace("torch.", "")
         err = compare(q, k, v)
         require(err <= TOL[name], f"kernel vs plain {shape} {name}: {err}")
-        row = dict(shape=list(shape), dtype=name, max_err=err, tol=TOL[name])
+        row = dict(kernel="linear_attention", shape=list(shape), dtype=name,
+                   max_err=err, tol=TOL[name])
         if timed:
-            bound_ms, bound_by, moved, flops = bound(shape, dtype)
+            bound_ms, bound_by, moved, flops = attention_bound(shape, dtype)
             kernel = lambda: lak.linear_attention_kernel(q, k, v)  # noqa: E731
             plain = lambda: linear_attention_plain(q, k, v)  # noqa: E731
             row.update(
@@ -239,21 +280,148 @@ def main() -> int:
                 library="none: no single PyTorch call computes linear attention")
             timings[(shape, name)] = row
         emit("kernel", **row)
+
+    # the fused IRB at the shapes one small-UNet call at 256² gives it
+    art = {a: os.path.join(ROOT, "artifacts", a) for _, a, _, _ in SERVED}
+    cfg = load_model_config(os.path.join(art["vreg1b_gt03_ema"], "model_config.json"))
+    fused_cfg = dataclasses.replace(
+        cfg, unet=dataclasses.replace(cfg.unet, use_pallas_irb=True))
+    weights = init_weights(cfg, seed=0, device=dev)
+    probe, _ = create_model(fused_cfg, device=dev)
+    probe.load_state_dict(weights, strict=True)
+    irb_calls = []   # (name, Cin, H, W) of each IRB call, in order
+    hooks = [m.register_forward_pre_hook(
+        lambda mod, a, name=name: irb_calls.append((name,) + tuple(a[0].shape[1:]))
+    ) for name, m in probe.unet.named_modules()
+        if isinstance(m, InvertedResidualBlock)]
+    size = cfg.unet.image_size
+    with torch.inference_mode():
+        probe.unet(torch.zeros(1, cfg.unet.in_channels, size, size, device=dev),
+                   torch.tensor([739], dtype=torch.int32, device=dev))
+    for h in hooks:
+        h.remove()
+    require(len(irb_calls) == IRBS_PER_UNET_CALL,
+            f"{len(irb_calls)} IRBs in a UNet call, not {IRBS_PER_UNET_CALL}")
+    blocks = dict(probe.unet.named_modules())
+    per_call = {}   # (Cin, Chid, Cout, H) → [first block's name, IRBs of that shape a call]
+    for name, cin, height, _ in irb_calls:
+        blk = blocks[name]
+        key = (cin, blk.expand.weight.shape[0], blk.project.weight.shape[0], height)
+        per_call.setdefault(key, [name, 0])[1] += 1
+
+    def irb_inputs(block, b, height, width, dtype, use_se=True, silu=False):
+        cin = block.expand.weight.shape[1]
+        x = torch.randn((b, cin, height, width), generator=gen, device=dev).to(dtype)
+        temb = torch.randn((b, cfg.unet.time_embed_dim), generator=gen, device=dev)
+        with torch.inference_mode():
+            fs, fb = block.time_mlp(temb).chunk(2, dim=-1)
+        kw = irb_args(block)
+        if not use_se:
+            kw.update(use_se=False, se_w1=None, se_b1=None, se_w2=None, se_b2=None)
+        kw["silu"] = silu
+        return x, dict(film_scale=fs, film_shift=fb, **kw)
+
+    def irb_compare(x, kw):
+        with torch.inference_mode():
+            out = fik.fused_irb_v2(x, **kw)
+            again = fik.fused_irb_v2(x, **kw)
+            ref = fused_irb_v2_plain(x, **kw)
+        torch.cuda.synchronize()
+        require(out.dtype == x.dtype and out.shape == ref.shape,
+                f"fused kernel output {out.dtype} {tuple(out.shape)}")
+        require(bool(torch.isfinite(out).all()), "fused kernel: non-finite output")
+        require(torch.equal(out, again), "fused kernel reruns differ")
+        return float((out.float() - ref.float()).abs().max())
+
+    def irb_work(x, kw):
+        """(bytes, FLOP) of one call, each counted once: x read, out written,
+        weights read; expand, depthwise, project and skip. The Gram of the
+        GN2 fold is not counted: the function needs GN2's statistics, not
+        the Gram, and they can come from h1 itself, whose write and re-read
+        take less time than these operations at every serving shape."""
+        b, cin, height, width = x.shape
+        chid, cout = kw["wexp"].shape[0], kw["wproj"].shape[0]
+        n = b * height * width
+        weights_n = sum(t.numel() for k, t in kw.items()
+                        if isinstance(t, torch.Tensor) and k.startswith(("w", "se_", "gn")))
+        moved = (cin + cout) * n * x.element_size() + 4 * weights_n
+        flops = 2 * n * (cin * chid + 9 * chid + chid * cout
+                         + (cin * cout if kw.get("wskip") is not None else 0))
+        return moved, flops
+
+    irb_rows = {}
+    for (cin, chid, cout, height), (name, count) in sorted(per_call.items()):
+        for b in (1, 8):
+            for dtype in (torch.float32, torch.bfloat16):
+                if dtype == torch.bfloat16 and (cin, height) != (96, size):
+                    continue          # bf16 at the widest block only
+                x, kw = irb_inputs(blocks[name], b, height, height, dtype)
+                dname = str(dtype).replace("torch.", "")
+                err = irb_compare(x, kw)
+                require(err <= IRB_TOL[dname],
+                        f"fused kernel vs plain {name} {tuple(x.shape)} {dname}: {err}")
+                moved, flops = irb_work(x, kw)
+                bound_ms, bound_by = bound(moved, flops)
+
+                def kernel(x=x, kw=kw):
+                    with torch.inference_mode():
+                        fik.fused_irb_v2(x, **kw)
+
+                def plain(x=x, kw=kw):
+                    with torch.inference_mode():
+                        fused_irb_v2_plain(x, **kw)
+
+                row = dict(kernel="fused_irb_v2", block=name, shape=[b, cin, height, height],
+                           chid=chid, cout=cout, dtype=dname, per_unet_call=count,
+                           max_err=err, tol=IRB_TOL[dname],
+                           kernel_ms=cuda_ms(kernel, 20, 3), plain_ms=cuda_ms(plain, 20, 3),
+                           kernel_graph_ms=graph_ms(kernel, 20, 3),
+                           plain_graph_ms=graph_ms(plain, 20, 3),
+                           bound_ms=bound_ms, bound_by=bound_by, bytes=moved,
+                           flops=flops, plan=list(fik.plan(b, chid, cout, height, height)),
+                           library_ms=None,
+                           library="none: no single PyTorch call computes the fused IRB")
+                irb_rows[(cin, chid, cout, height, b, dname)] = row
+                emit("kernel", **row)
+    # the JAX tests' edge cases: no SE with SiLU, 48 channels in 16 groups,
+    # 24 rows (an uneven last tile)
+    edge = probe.unet.encoder_blocks[0][0]
+    for label, blk, b, height, kwargs in (
+            ("no_se_silu", edge, 2, 32, dict(use_se=False, silu=True)),
+            ("cin48_16_groups", InvertedResidualBlock(
+                48, 48, cfg.unet.time_embed_dim, expansion_ratio=2).to(dev).eval(),
+             2, 16, {}),
+            ("size24_uneven_tile", edge, 2, 24, {})):
+        for dtype in (torch.float32, torch.bfloat16):
+            x, kw = irb_inputs(blk, b, height, height, dtype, **kwargs)
+            dname = str(dtype).replace("torch.", "")
+            err = irb_compare(x, kw)
+            require(err <= IRB_TOL[dname], f"fused kernel vs plain {label} {dname}: {err}")
+            emit("kernel", kernel="fused_irb_v2", case=label, shape=list(x.shape),
+                 dtype=dname, max_err=err, tol=IRB_TOL[dname])
+    del probe
+    torch.cuda.empty_cache()
     emit("kernel_done", seconds=time.perf_counter() - t0)
 
     # 4. serve: the main path at full width --------------------------------
     t0 = time.perf_counter()
-    art = [os.path.join(ROOT, "artifacts", name) for name, _ in STUDENTS]
-    cfg = load_model_config(os.path.join(art[0], "model_config.json"))
-    weights = init_weights(cfg, seed=0, device=dev)
     pipes = []
-    for path, grid in zip(art, (g for _, g in STUDENTS)):
-        pipe = ServingPipeline.from_config(
-            os.path.join(path, "model_config.json"),
-            os.path.join(path, "student_timesteps.json"), weights,
-            device=dev, batch_size=8)
+    for label, name, grid, fused in SERVED:
+        path = art[name]
+        if fused:
+            model, schedule = create_model(fused_cfg, device=dev)
+            model.load_state_dict(weights, strict=True)
+            pipe = ServingPipeline(model, schedule, dataclasses.replace(
+                pipes[0].config, batch_size=8), device=dev)
+        else:
+            pipe = ServingPipeline.from_config(
+                os.path.join(path, "model_config.json"),
+                os.path.join(path, "student_timesteps.json"), weights,
+                device=dev, batch_size=8)
         require(pipe.config.timesteps == grid,
-                f"{path}: grid {pipe.config.timesteps} != {grid}")
+                f"{label}: grid {pipe.config.timesteps} != {grid}")
+        require(pipe.model.config.unet.use_pallas_irb == fused,
+                f"{label}: use_pallas_irb is {pipe.model.config.unet.use_pallas_irb}")
         pipes.append(pipe)
 
     unet_calls = [0]
@@ -273,10 +441,50 @@ def main() -> int:
                     f"output {out.dtype} {out.shape} for input {img.shape}")
             require(int(out.max()) > int(out.min()), "constant output image")
 
-    lak.linear_attention_kernel.launches = 0
-    expected_calls = 0
-    for pipe, (name, grid) in zip(pipes, STUDENTS):
+    def peak_where(pipe):
+        """Peak device memory of one batch of 8, and the three blocks of the
+        UNet inside which the highest peaks are reached."""
+        unet, blocks_, hooks_ = pipe.model.unet, [], []
+
+        def walk(module, prefix):
+            for n, child in module.named_children():
+                if isinstance(child, torch.nn.ModuleList):
+                    walk(child, f"{prefix}{n}.")
+                else:
+                    blocks_.append((f"{prefix}{n}", child))
+
+        def enter(module, args):
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+
+        def leave(module, args, out, name):
+            torch.cuda.synchronize()
+            peaks[name] = max(peaks.get(name, 0), torch.cuda.max_memory_allocated())
+
+        walk(unet, "")
+        peaks = {}
+        for name, m in blocks_:
+            hooks_.append(m.register_forward_pre_hook(enter))
+            hooks_.append(m.register_forward_hook(
+                lambda mod, a, o, name=name: leave(mod, a, o, name)))
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        pipe.batch(batch_images, seed=300)
+        torch.cuda.synchronize()
+        for h in hooks_:
+            h.remove()
+        top = sorted(peaks.items(), key=lambda kv: -kv[1])[:3]
+        return base, [{"block": n, "peak_mem_bytes": v} for n, v in top]
+
+    launches = {"linear_attention": 0, "fused_irb_v2": 0}
+    for pipe, (label, _, grid, fused) in zip(pipes, SERVED):
         steps = len(grid)
+        # the counts go to 0 just before this configuration runs
+        lak.linear_attention_kernel.launches = 0
+        fik.fused_irb_v2.launches = 0
+        unet_calls[0] = 0
+        expected_calls = 0
         torch.cuda.reset_peak_memory_stats()
         outs = [pipe(img, seed=i) for i, img in enumerate(images)]
         check_outputs(images, outs)
@@ -302,7 +510,7 @@ def main() -> int:
             lat.append((d - a) * 1e3)
             stages.append(((b - a) * 1e3, (c - b) * 1e3, (d - c) * 1e3))
         expected_calls += 10 * steps
-        reps = 3
+        reps = 10
         torch.cuda.synchronize()
         a = time.perf_counter()
         for r in range(reps):
@@ -314,7 +522,23 @@ def main() -> int:
         with FlopCounterMode(display=False) as flop_counter:
             pipe(images[2], seed=0)
         expected_calls += steps
-        row = dict(student=name, grid=list(grid), image=list(images[2].shape),
+        counts = {"linear_attention": lak.linear_attention_kernel.launches,
+                  "fused_irb_v2": fik.fused_irb_v2.launches}
+        calls = unet_calls[0]
+        require(calls == expected_calls,
+                f"{label}: UNet calls {calls} != expected {expected_calls}")
+        require(counts["linear_attention"] == calls,
+                f"{label}: linear-attention launches {counts['linear_attention']} "
+                f"!= UNet calls {calls} (one mid_attn per call)")
+        want_irb = IRBS_PER_UNET_CALL * calls if fused else 0
+        require(counts["fused_irb_v2"] == want_irb,
+                f"{label}: fused-IRB launches {counts['fused_irb_v2']} != {want_irb}")
+        for k in launches:
+            launches[k] += counts[k]
+        peak_mem = torch.cuda.max_memory_allocated()
+        resident = torch.cuda.memory_allocated()
+        row = dict(student=label, grid=list(grid), use_pallas_irb=fused,
+                   image=list(images[2].shape),
                    latency_ms_mean=float(np.mean(lat)),
                    latency_ms_p50=float(np.median(lat)),
                    latency_ms_min=float(np.min(lat)),
@@ -322,18 +546,12 @@ def main() -> int:
                    post_ms=float(st[:, 2].mean()),
                    batch=8, images_per_s=reps * 8 / elapsed,
                    conv_matmul_gflop_per_request=flop_counter.get_total_flops() / 1e9,
-                   peak_mem_bytes=torch.cuda.max_memory_allocated())
+                   peak_mem_bytes=peak_mem, resident_mem_bytes=resident,
+                   unet_calls=calls, launches=counts)
         emit("serve", **row)
-    launches = lak.linear_attention_kernel.launches
     for h in hooks:
         h.remove()
-    require(unet_calls[0] == expected_calls,
-            f"UNet calls {unet_calls[0]} != expected {expected_calls}")
-    require(launches == unet_calls[0],
-            f"kernel launches {launches} != UNet calls {unet_calls[0]} "
-            "(one mid_attn per call)")
-    emit("serve_done", unet_calls=unet_calls[0], kernel_launches=launches,
-         seconds=time.perf_counter() - t0)
+    emit("serve_done", kernel_launches=launches, seconds=time.perf_counter() - t0)
 
     # 5. checks on the main path's own tensors ------------------------------
     t0 = time.perf_counter()
@@ -351,16 +569,75 @@ def main() -> int:
     mid_err = compare(q, k, v)
     require(mid_err <= TOL["float32"], f"mid_attn kernel vs plain: {mid_err}")
 
-    # the card's sampler against the CPU's: same weights, same numpy noise
+    # the widest IRB's own input, captured during a fused request
+    widest = "decoder_blocks.3.0"
+    fused_pipe = pipes[-1]
+    blk = dict(fused_pipe.model.unet.named_modules())[widest]
+
+    def capture_irb(module, args):
+        captured["irb"] = [a.detach().clone() for a in args]
+
+    h = blk.register_forward_pre_hook(capture_irb)
+    fused_pipe(images[0], seed=0)
+    h.remove()
+    xb, temb = captured["irb"]
+    require(tuple(xb.shape) == (1, 96, size, size), f"{widest} x {tuple(xb.shape)}")
+    with torch.inference_mode():
+        fs, fb = blk.time_mlp(temb).chunk(2, dim=-1)
+    irb_kw = dict(film_scale=fs, film_shift=fb, **irb_args(blk))
+    irb_err = irb_compare(xb, irb_kw)
+    require(irb_err <= IRB_TOL["float32"], f"{widest} kernel vs plain: {irb_err}")
+
+    # the Gram fold on that x: GN2⊕FiLM's (a2, b2) against GN2's statistics
+    # taken two-pass from h1 = expand(x̂) itself, in float32 on the card
+    def fold_err():
+        with torch.inference_mode():
+            _, (a2, b2), xhat = folded_gn_scales(
+                xb, irb_kw["wexp"], irb_kw["gn1_scale"], irb_kw["gn1_bias"],
+                irb_kw["gn2_scale"], irb_kw["gn2_bias"], fs, fb,
+                irb_kw["eps"], irb_kw["silu"])
+            h1 = torch.einsum("bkhw,ck->bchw", xhat, irb_kw["wexp"])
+            groups = blk.norm2.num_groups
+            hg = h1.reshape(1, groups, -1)
+            mean = hg.mean(dim=-1)
+            var = (hg - mean[..., None]).square().mean(dim=-1)
+            per = h1.shape[1] // groups
+            rstd = torch.rsqrt(var + irb_kw["eps"]).repeat_interleave(per, dim=1)
+            mean = mean.repeat_interleave(per, dim=1)
+            gamma = irb_kw["gn2_scale"][None] * (1 + fs)
+            a_ref = rstd * gamma
+            b_ref = (irb_kw["gn2_bias"][None] - mean * rstd * irb_kw["gn2_scale"][None]) \
+                * (1 + fs) + fb
+            per_c = lambda v: v[:, :, None, None]  # noqa: E731
+            got = h1 * per_c(a2) + per_c(b2)
+            want = h1 * per_c(a_ref) + per_c(b_ref)
+        return float((got - want).abs().max()), float(want.abs().max())
+
+    fold_f32, fold_scale = fold_err()
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        fold_tf32, _ = fold_err()
+    finally:
+        pin_fp32()
+    require(fold_f32 <= FOLD_TOL, f"{widest} Gram fold vs two-pass GN2: {fold_f32}")
+    require(fold_tf32 > FOLD_TOL,
+            f"{widest}: a TF32 Gram fold ({fold_tf32}) passes the fold check")
+
+    # the card's samplers against the CPU's, and fused against unfused on
+    # the card: same weights, same numpy noise
     small = 64
-    cpu_model, cpu_sched = create_model(cfg, device="cpu")
-    cpu_model.load_state_dict({k: t.cpu() for k, t in weights.items()})
+    cpu_sd = {k: t.cpu() for k, t in weights.items()}
     ref_rng = np.random.default_rng(1)
     low = ref_rng.uniform(-1, 1, (2, small, small, 3)).astype(np.float32)
-    sampler_err = {}
-    for pipe, (name, grid) in zip(pipes, STUDENTS):
+    sampler_err, card_out = {}, {}
+    for pipe, (label, _, grid, fused) in zip(pipes, SERVED):
+        cpu_model, cpu_sched = create_model(pipe.model.config, device="cpu")
+        cpu_model.load_state_dict(cpu_sd)
         init = ref_rng.standard_normal((2, small, small, 3)).astype(np.float32)
         noise = ref_rng.standard_normal((len(grid), 2, small, small, 3)).astype(np.float32)
+        if fused:     # the unfused 1-step student's noise, for the comparison
+            init, noise = card_out["noise"]
+        card_out.setdefault("noise", (init, noise))
         got = enhance(pipe.model, pipe.schedule, torch.from_numpy(low),
                       timesteps=grid, init_noise=torch.from_numpy(init),
                       step_noise=torch.from_numpy(noise), device=dev).cpu()
@@ -369,29 +646,52 @@ def main() -> int:
                        step_noise=torch.from_numpy(noise), device="cpu")
         require(bool(torch.isfinite(got).all()), "non-finite sampler output")
         err = float((got - want).abs().max())
-        require(err <= SAMPLER_TOL, f"{name}: card vs CPU sampler {err}")
-        sampler_err[name] = err
+        require(err <= SAMPLER_TOL, f"{label}: card vs CPU sampler {err}")
+        sampler_err[label] = err
+        card_out[label] = got
+    fused_vs_unfused = float((card_out[SERVED[2][0]] - card_out[SERVED[0][0]]).abs().max())
+    require(fused_vs_unfused <= SAMPLER_TOL,
+            f"fused vs unfused sampler on the card: {fused_vs_unfused}")
     emit("check", mid_attn_max_err=mid_err, mid_attn_shape=list(q.shape),
-         sampler_vs_cpu_max_abs_err=sampler_err, sampler_tol=SAMPLER_TOL,
-         seconds=time.perf_counter() - t0)
+         irb_block=widest, irb_shape=list(xb.shape), irb_max_err=irb_err,
+         irb_tol=IRB_TOL["float32"], fold_max_abs_err=fold_f32,
+         fold_tf32_max_abs_err=fold_tf32, fold_tol=FOLD_TOL,
+         fold_output_max_abs=fold_scale,
+         sampler_vs_cpu_max_abs_err=sampler_err,
+         fused_vs_unfused_sampler_max_abs_err=fused_vs_unfused,
+         sampler_tol=SAMPLER_TOL, seconds=time.perf_counter() - t0)
 
     # 6. profile (optional) -------------------------------------------------
     if args.profile:
-        pipe = pipes[0]
-        for _ in range(3):                  # warm-up: cuDNN plans, allocator
-            pipe(images[2], seed=0)
-            pipe.batch(batch_images, seed=0)
-        profile("request_480x720_batch1", lambda: pipe(images[2], seed=1), 1)
-        profile("batch8_mixed_sizes", lambda: pipe.batch(batch_images, seed=1), 8)
+        for pipe, (label, *_) in ((pipes[0], SERVED[0]), (pipes[-1], SERVED[-1])):
+            resident, peak_blocks = peak_where(pipe)
+            emit("profile", run=label, resident_mem_bytes=resident,
+                 peak_mem_blocks_batch8=peak_blocks)
+        for pipe, label in ((pipes[0], ""), (pipes[-1], "fused_")):
+            for _ in range(3):              # warm-up: cuDNN plans, allocator
+                pipe(images[2], seed=0)
+                pipe.batch(batch_images, seed=0)
+            profile(f"{label}request_480x720_batch1",
+                    lambda pipe=pipe: pipe(images[2], seed=1), 1)
+            profile(f"{label}batch8_mixed_sizes",
+                    lambda pipe=pipe: pipe.batch(batch_images, seed=1), 8)
 
     # kernels line, nvidia-smi line, last line -----------------------------
     main_row = timings[((1, 1024, 4, 32), "float32")]
+    # the fused IRB per UNet call at batch 1: each shape's time times the
+    # IRBs of that shape in a call
+    call_rows = [irb_rows[key + (1, "float32")] for key in per_call]
+    per_unet = {f: sum(r[f] * r["per_unet_call"] for r in call_rows)
+                for f in ("kernel_ms", "plain_ms", "kernel_graph_ms",
+                          "plain_graph_ms", "bound_ms", "flops")}
+    irb_err_all = max([irb_err] + [r["max_err"] for r in irb_rows.values()
+                                   if r["dtype"] == "float32"])
     kernels = [{
         "name": "linear_attention",
         "route": "cuda",
         "source": "cv_diffusion_tpu_torch/csrc/linear_attention.cu",
         "replaces": "cv_diffusion_tpu/ops/pallas_attention.py:82",
-        "launches": launches,
+        "launches": launches["linear_attention"],
         "max_abs_err": mid_err,
         "ms": main_row["kernel_ms"],
         "plain_ms": main_row["plain_ms"],
@@ -402,6 +702,24 @@ def main() -> int:
         "library_ms": None,
         "shape": main_row["shape"],
         "dtype": main_row["dtype"],
+    }, {
+        "name": "fused_irb_v2",
+        "route": "cuda",
+        "source": "cv_diffusion_tpu_torch/csrc/fused_irb.cu",
+        "replaces": "cv_diffusion_tpu/ops/pallas_irb.py:607",
+        "launches": launches["fused_irb_v2"],
+        "max_abs_err": irb_err_all,
+        "ms": per_unet["kernel_ms"],
+        "plain_ms": per_unet["plain_ms"],
+        "graph_ms": per_unet["kernel_graph_ms"],
+        "plain_graph_ms": per_unet["plain_graph_ms"],
+        "bound_ms": per_unet["bound_ms"],
+        "bound_by": "operations" if all(r["bound_by"] == "operations"
+                                        for r in call_rows) else "bytes",
+        "library_ms": None,
+        "shape": f"the {IRBS_PER_UNET_CALL} IRBs of one small-UNet call at "
+                 f"{size}², batch 1 ({per_unet['flops'] / 1e9:.2f} GFLOP)",
+        "dtype": "float32",
     }]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi_line, flush=True)
@@ -409,7 +727,6 @@ def main() -> int:
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}),
         flush=True)
     return 0
-
 
 if __name__ == "__main__":
     sys.exit(main())

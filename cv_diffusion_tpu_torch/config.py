@@ -26,10 +26,12 @@ class UNetConfig:
 
     ``use_pallas`` is read so that every artifact's file parses, and its
     value is ignored: linear attention always goes through the hand-written
-    CUDA kernel's wrapper, which runs the plain version on the CPU. The other
-    execution knobs of the JAX package (``use_pallas_irb``, ``fold_gn``,
-    ``split_skip``, ``act_quant``, ``remat``, a dtype other than float32) are
-    read likewise, and building a model that asks for them raises
+    CUDA kernel's wrapper, which runs the plain version on the CPU.
+    ``use_pallas_irb`` routes every stride-1 IRB at inference through the
+    fused-IRB kernel's wrapper in the same way, and ``fold_gn`` folds GN2 ⊕
+    FiLM at inference, as in the JAX package. The other execution knobs
+    (``split_skip``, ``act_quant``, ``remat``, a dtype other than float32)
+    are read likewise, and building a model that asks for them raises
     ``NotImplementedError``.
     """
 

@@ -14,9 +14,11 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from ..ops import upcast
+from ..ops import fused_irb_kernel, upcast
 from ..ops.attention import linear_attention
-from ..ops.norms import gn_num_groups, group_norm, group_norm_film
+from ..ops.fused_irb import irb_args
+from ..ops.norms import (gn2_film_affine_gram, gn_num_groups, group_norm,
+                         group_norm_film)
 
 
 def activation(x: torch.Tensor, quantization_friendly: bool) -> torch.Tensor:
@@ -100,15 +102,26 @@ class SqueezeExcitation(nn.Module):
 class InvertedResidualBlock(nn.Module):
     """GN → act → 1×1 expand → GN ⊕ FiLM(time) → act → 3×3 depthwise → SE →
     1×1 project → residual (1×1 skip conv when the channel count changes; no
-    residual at all for stride ≠ 1 with equal counts, as in the reference)."""
+    residual at all for stride ≠ 1 with equal counts, as in the reference).
+
+    Two inference rewrites of the JAX block, both off in training mode and
+    neither changing the parameters: ``use_pallas_irb`` runs a stride-1 block
+    as one call of the fused-IRB kernel's wrapper (the CUDA kernel for CUDA
+    tensors, its plain version on the CPU); ``fold_gn`` keeps the separate
+    convs but applies GN2 ⊕ FiLM as the affine folded from the Gram of x̂,
+    so the expand output needs no statistics pass."""
 
     def __init__(self, in_channels: int, out_channels: int,
                  time_embed_dim: int, expansion_ratio: int = 4,
                  stride: int = 1, use_se: bool = True, se_ratio: float = 0.25,
-                 quantization_friendly: bool = True):
+                 quantization_friendly: bool = True,
+                 use_pallas_irb: bool = False, fold_gn: bool = False):
         super().__init__()
         hidden = int(in_channels * expansion_ratio)
         self.quantization_friendly = quantization_friendly
+        self.stride = stride
+        self.use_pallas_irb = use_pallas_irb
+        self.fold_gn = fold_gn
         self.use_residual = stride == 1 and in_channels == out_channels
         self.norm1 = GroupNorm(in_channels)
         self.expand = nn.Conv2d(in_channels, hidden, 1, bias=False)
@@ -126,10 +139,23 @@ class InvertedResidualBlock(nn.Module):
 
     def forward(self, x: torch.Tensor, time_emb: torch.Tensor) -> torch.Tensor:
         film_scale, film_shift = self.time_mlp(time_emb).chunk(2, dim=-1)
+        if self.use_pallas_irb and self.stride == 1 and not self.training:
+            return fused_irb_kernel.fused_irb_v2(
+                x, film_scale=film_scale, film_shift=film_shift,
+                **irb_args(self))
         h = activation(self.norm1(x), self.quantization_friendly)
-        h = self.expand(h)
-        h = group_norm_film(h, self.norm2.weight, self.norm2.bias, film_scale,
-                            film_shift, self.norm2.num_groups, self.norm2.eps)
+        if self.fold_gn and not self.training:
+            a2, b2 = gn2_film_affine_gram(
+                h, self.expand.weight, self.norm2.weight, self.norm2.bias,
+                film_scale, film_shift, self.norm2.num_groups, self.norm2.eps)
+            h = self.expand(h)
+            h = (upcast(h) * a2[:, :, None, None]
+                 + b2[:, :, None, None]).to(h.dtype)
+        else:
+            h = self.expand(h)
+            h = group_norm_film(h, self.norm2.weight, self.norm2.bias,
+                                film_scale, film_shift, self.norm2.num_groups,
+                                self.norm2.eps)
         h = activation(h, self.quantization_friendly)
         h = self.depthwise(h)
         if self.se is not None:

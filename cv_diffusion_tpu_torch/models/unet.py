@@ -21,8 +21,6 @@ from .blocks import (Downsample, GroupNorm, InvertedResidualBlock,
                      LinearAttentionBlock, TimeEmbedding, Upsample)
 
 _UNPORTED = (
-    ("use_pallas_irb", "the fused_irb_v2 kernel (ROADMAP queue 2 item 1)"),
-    ("fold_gn", "the fold_gn graph rewrite (ROADMAP queue 1 item 3)"),
     ("split_skip", "the split_skip graph rewrite (ROADMAP queue 1 item 3)"),
     ("act_quant", "int8 activation compute (ROADMAP queue 1 item 11)"),
     ("remat", "rematerialisation for training (ROADMAP queue 1 item 9)"),
@@ -58,7 +56,8 @@ class EfficientUNet(nn.Module):
             return InvertedResidualBlock(
                 cin, cout, tdim, expansion_ratio=config.expansion_ratio,
                 use_se=config.use_se, se_ratio=config.se_ratio,
-                quantization_friendly=config.quantization_friendly)
+                quantization_friendly=config.quantization_friendly,
+                use_pallas_irb=config.use_pallas_irb, fold_gn=config.fold_gn)
 
         def attention(c):
             return LinearAttentionBlock(c, config.num_attention_heads,

@@ -1,0 +1,205 @@
+"""Wrapper of the hand-written CUDA fused-IRB kernel.
+
+The kernel (``csrc/fused_irb.cu``) replaces the TPU kernel ``fused_irb_v2``
+(``cv_diffusion_tpu/ops/pallas_irb.py:607``). It is built from the package's
+own sources with one ``nvcc`` call and loaded through ``ctypes`` at first use
+(:mod:`.cuda_build`).
+
+:func:`fused_irb_v2` takes the arguments of :func:`.fused_irb.
+fused_irb_v2_plain`. For tensors on the CPU it runs that plain version; for
+CUDA tensors it folds the GroupNorms with :func:`.fused_irb.folded_gn_scales`
+(tensor ops, as the JAX package does in XLA), launches the kernel, and counts
+the call in ``fused_irb_v2.launches``; it raises if the kernel cannot be
+built or launched.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import math
+from typing import NamedTuple, Optional
+
+import torch
+
+from . import cuda_build
+from .fused_irb import folded_gn_scales, fused_irb_v2_plain
+
+SOURCE = cuda_build.source("fused_irb.cu")
+
+# Output tile (rows, columns) and hidden chunk of the output pass, by the
+# output channels padded to 32, 64, 128 or 256; the same table as OutCfg in
+# the source, which the launcher checks.
+OUT_TILES = {32: (16, 16, 24), 64: (16, 16, 24), 128: (8, 16, 40),
+             256: (8, 8, 80)}
+POOL_TILE, POOL_CHUNK = 16, 32       # the SE pool pass: 16×16 pixels × 32 channels
+MAX_COUT = 256
+# Two blocks of the output pass fit on each of an H100's 132 SMs; split the
+# hidden channels over blocks only while the tiles alone leave SMs idle.
+_TARGET_BLOCKS = 264
+_MAX_POOL_GROUPS = 64
+
+# Order of the pointer and int arrays the entry points take (enum Ptr and
+# enum Dim in the source).
+_PTRS = ("x", "a1", "b1", "a2", "b2", "wexp", "wdw", "wproj", "wskip",
+         "se_w1", "se_b1", "se_w2", "se_b2", "out", "pool", "pooled",
+         "squeezed", "gate", "part")
+_DIMS = ("batch", "cin", "chid", "cout", "csq", "height", "width", "silu",
+         "use_se", "tile_h", "tile_w", "chunk", "groups", "chunks_per_group",
+         "pool_groups")
+
+
+class Plan(NamedTuple):
+    """How the launches split the work; a function of the shape alone, so
+    reruns sum the partials in the same order."""
+    tile_h: int
+    tile_w: int
+    chunk: int             # hidden channels per step of the output pass
+    groups: int            # blocks over the hidden channels of one tile
+    chunks_per_group: int
+    pool_groups: int       # blocks over the pixels in the SE pool pass
+
+
+def plan(batch: int, chid: int, cout: int, height: int, width: int) -> Plan:
+    if not 0 < cout <= MAX_COUT:
+        raise ValueError(f"the kernel takes 1 to {MAX_COUT} output channels, "
+                         f"not {cout}")
+    co_pad = next(c for c in sorted(OUT_TILES) if cout <= c)
+    th, tw, cc = OUT_TILES[co_pad]
+    blocks = math.ceil(height / th) * math.ceil(width / tw) * batch
+    chunks = math.ceil(chid / cc)
+    want = min(chunks, max(1, _TARGET_BLOCKS // blocks))
+    per_group = math.ceil(chunks / want)
+    pool_tiles = math.ceil(height / POOL_TILE) * math.ceil(width / POOL_TILE)
+    pool_groups = min(pool_tiles, _MAX_POOL_GROUPS,
+                      max(1, _TARGET_BLOCKS
+                          // (math.ceil(chid / POOL_CHUNK) * batch)))
+    return Plan(th, tw, cc, math.ceil(chunks / per_group), per_group,
+                pool_groups)
+
+
+def build() -> cuda_build.Built:
+    """Compile the kernel library unless this source and these flags were
+    built before; returns where it is."""
+    return cuda_build.build(SOURCE)
+
+
+def _declare(lib) -> None:
+    if (lib.fused_irb_num_ptrs() != len(_PTRS)
+            or lib.fused_irb_num_dims() != len(_DIMS)):
+        raise RuntimeError(f"{SOURCE} takes another argument layout than "
+                           "this wrapper")
+    for name in ("fused_irb_f32", "fused_irb_bf16"):
+        fn = getattr(lib, name)
+        fn.argtypes = [ctypes.POINTER(ctypes.c_void_p),
+                       ctypes.POINTER(ctypes.c_int), ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+    lib.fused_irb_error_string.argtypes = [ctypes.c_int]
+    lib.fused_irb_error_string.restype = ctypes.c_char_p
+
+
+def _f32(t: Optional[torch.Tensor], device) -> Optional[torch.Tensor]:
+    """t as a contiguous float32 tensor on ``device``: t itself when it is
+    one already (the served model's parameters), so nothing is copied."""
+    if t is None:
+        return None
+    return t.detach().to(device=device, dtype=torch.float32).contiguous()
+
+
+def fused_irb_v2(x: torch.Tensor, wexp: torch.Tensor, wdw: torch.Tensor,
+                 wproj: torch.Tensor, gn1_scale: torch.Tensor,
+                 gn1_bias: torch.Tensor, gn2_scale: torch.Tensor,
+                 gn2_bias: torch.Tensor, film_scale: torch.Tensor,
+                 film_shift: torch.Tensor,
+                 se_w1: Optional[torch.Tensor] = None,
+                 se_b1: Optional[torch.Tensor] = None,
+                 se_w2: Optional[torch.Tensor] = None,
+                 se_b2: Optional[torch.Tensor] = None,
+                 wskip: Optional[torch.Tensor] = None,
+                 eps: float = 1e-5, silu: bool = False,
+                 use_se: bool = True) -> torch.Tensor:
+    """The stride-1 IRB forward through the CUDA kernel: x [B, Cin, H, W]
+    float32 or bfloat16, contiguous → [B, Cout, H, W] in x's dtype; weights
+    as :func:`.fused_irb.fused_irb_v2_plain` takes them."""
+    if x.device.type == "cpu":
+        return fused_irb_v2_plain(x, wexp, wdw, wproj, gn1_scale, gn1_bias,
+                                  gn2_scale, gn2_bias, film_scale, film_shift,
+                                  se_w1, se_b1, se_w2, se_b2, wskip, eps, silu,
+                                  use_se)
+    if x.device.type != "cuda":
+        raise ValueError(f"no fused-IRB kernel for device {x.device}")
+    if x.dim() != 4 or not x.is_contiguous():
+        raise ValueError(f"the kernel takes a contiguous NCHW x, got {tuple(x.shape)}")
+    if x.dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"the kernel takes float32 or bfloat16 x, not {x.dtype}")
+    b, cin, height, width = x.shape
+    chid, cout = wexp.shape[0], wproj.shape[0]
+    if wexp.shape[-1] != cin or wproj.shape[-1] != chid:
+        raise ValueError(f"weights {tuple(wexp.shape)}, {tuple(wproj.shape)} "
+                         f"do not fit {cin} input channels")
+    if wskip is None and cin != cout:
+        raise ValueError(f"{cin} → {cout} channels needs wskip")
+    if use_se and any(t is None for t in (se_w1, se_b1, se_w2, se_b2)):
+        raise ValueError("use_se needs se_w1, se_b1, se_w2 and se_b2")
+    if x.numel() >= 2 ** 31 or b * cout * height * width >= 2 ** 31:
+        raise ValueError("the kernel takes fewer than 2**31 elements a tensor")
+    lib = cuda_build.load(SOURCE, _declare)
+    with torch.cuda.device(x.device):
+        out = _launch(lib, torch.cuda.current_stream(x.device).cuda_stream, x,
+                      wexp, wdw, wproj, gn1_scale, gn1_bias, gn2_scale,
+                      gn2_bias, film_scale, film_shift, se_w1, se_b1, se_w2,
+                      se_b2, wskip, eps, silu, use_se)
+    fused_irb_v2.launches += 1
+    return out
+
+
+fused_irb_v2.launches = 0
+
+
+def _launch(lib, stream, x, wexp, wdw, wproj, gn1_scale, gn1_bias, gn2_scale,
+            gn2_bias, film_scale, film_shift, se_w1, se_b1, se_w2, se_b2,
+            wskip, eps, silu, use_se) -> torch.Tensor:
+    """Fold the GroupNorms, lay the tensors out as the kernel takes them, and
+    launch it on ``stream``; raises if a launch fails. The library and the
+    stream are arguments, so that a build of the same source for another
+    target can be driven through the same layout."""
+    b, cin, height, width = x.shape
+    chid, cout = wexp.shape[0], wproj.shape[0]
+    pl = plan(b, chid, cout, height, width)
+    dev = x.device
+    (a1, b1), (a2, b2), _ = folded_gn_scales(
+        x, wexp.to(dev), gn1_scale.to(dev), gn1_bias.to(dev),
+        gn2_scale.to(dev), gn2_bias.to(dev), film_scale.to(dev),
+        film_shift.to(dev), eps, silu)
+    csq = se_w1.shape[0] if use_se else 0
+    # the weights in the modules' own layouts (the kernel indexes them so)
+    t = dict(x=x, a1=_f32(a1, dev), b1=_f32(b1, dev), a2=_f32(a2, dev),
+             b2=_f32(b2, dev), wexp=_f32(wexp.reshape(chid, cin), dev),
+             wdw=_f32(wdw.reshape(chid, 9), dev),
+             wproj=_f32(wproj.reshape(cout, chid), dev),
+             wskip=_f32(None if wskip is None else wskip.reshape(cout, cin), dev),
+             out=torch.empty((b, cout, height, width), dtype=x.dtype, device=dev))
+    if use_se:
+        t.update(se_w1=_f32(se_w1.reshape(csq, chid), dev),
+                 se_b1=_f32(se_b1, dev),
+                 se_w2=_f32(se_w2.reshape(chid, csq), dev),
+                 se_b2=_f32(se_b2, dev),
+                 pool=torch.empty((b, pl.pool_groups, 9, chid),
+                                  dtype=torch.float32, device=dev),
+                 pooled=torch.empty((b, chid), dtype=torch.float32, device=dev),
+                 squeezed=torch.empty((b, csq), dtype=torch.float32, device=dev),
+                 gate=torch.empty((b, chid), dtype=torch.float32, device=dev))
+    if pl.groups > 1:
+        t["part"] = torch.empty((pl.groups, b, cout, height, width),
+                                dtype=torch.float32, device=dev)
+    dims = dict(batch=b, cin=cin, chid=chid, cout=cout, csq=csq,
+                height=height, width=width, silu=int(silu), use_se=int(use_se),
+                **pl._asdict())
+    ptrs = (ctypes.c_void_p * len(_PTRS))(
+        *(t[k].data_ptr() if t.get(k) is not None else None for k in _PTRS))
+    ints = (ctypes.c_int * len(_DIMS))(*(dims[k] for k in _DIMS))
+    fn = lib.fused_irb_f32 if x.dtype == torch.float32 else lib.fused_irb_bf16
+    err = fn(ptrs, ints, stream)
+    if err != 0:
+        msg = lib.fused_irb_error_string(err).decode()
+        raise RuntimeError(f"fused-IRB kernel launch failed: {msg} ({err})")
+    return t["out"]

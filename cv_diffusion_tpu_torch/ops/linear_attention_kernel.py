@@ -4,8 +4,7 @@ The kernel (``csrc/linear_attention.cu``) replaces the TPU kernel
 ``linear_attention_pallas`` (``cv_diffusion_tpu/ops/pallas_attention.py:82``).
 It is built from the package's own sources with one ``nvcc`` call into a
 shared library with a plain C interface, loaded through ``ctypes``, at first
-use: :func:`build` compiles into ``_build/`` (git-ignored), keyed by a hash of
-the sources and flags, and a later process reuses the library.
+use (:mod:`.cuda_build`).
 
 :func:`linear_attention_kernel` launches it for CUDA tensors and counts each
 launch in ``linear_attention_kernel.launches``. For tensors on the CPU it
@@ -15,24 +14,16 @@ tensors it launches the kernel or raises.
 
 from __future__ import annotations
 
-import hashlib
+import ctypes
 import math
-import os
-import shutil
-import subprocess
-from typing import NamedTuple
 
 import torch
 
+from . import cuda_build
 from .attention import linear_attention_plain
 
-_PACKAGE_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-SOURCE = os.path.join(_PACKAGE_DIR, "csrc", "linear_attention.cu")
-BUILD_DIR = os.path.join(_PACKAGE_DIR, "_build")
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
+SOURCE = cuda_build.source("linear_attention.cu")
 HEAD_DIMS = (32, 64, 128)
-CUDA_ROOTS = ("/usr/local/cuda",)   # searched after PATH and $CUDA_HOME
 
 # Reduce pass: aim for two blocks per SM of an H100 (132 SMs), with at least
 # this many tokens in a chunk.
@@ -40,71 +31,22 @@ _TARGET_BLOCKS = 264
 _MIN_CHUNK = 64
 
 
-class Built(NamedTuple):
-    path: str      # the shared library
-    log: str       # nvcc's output (ptxas register and shared-memory report)
-    compiled: bool  # False when an earlier build was reused
-
-
-def _nvcc() -> str:
-    found = shutil.which("nvcc")
-    if found:
-        return found
-    for root in (os.environ.get("CUDA_HOME"),) + CUDA_ROOTS:
-        if root and os.path.exists(os.path.join(root, "bin", "nvcc")):
-            return os.path.join(root, "bin", "nvcc")
-    raise RuntimeError(
-        "nvcc not found (neither on PATH nor under $CUDA_HOME or "
-        "/usr/local/cuda): the linear-attention kernel is built from "
-        f"{SOURCE} with the CUDA toolkit")
-
-
-def build() -> Built:
+def build() -> cuda_build.Built:
     """Compile the kernel library unless this source and these flags were
     built before; returns where it is."""
-    with open(SOURCE, "rb") as f:
-        digest = hashlib.sha256(f.read() + " ".join(NVCC_FLAGS).encode())
-    path = os.path.join(BUILD_DIR, f"linear_attention_{digest.hexdigest()[:16]}.so")
-    log_path = path[:-3] + ".log"
-    if os.path.exists(path):
-        log = ""
-        if os.path.exists(log_path):
-            with open(log_path) as f:
-                log = f.read()
-        return Built(path, log, False)
-    os.makedirs(BUILD_DIR, exist_ok=True)
-    tmp = f"{path}.{os.getpid()}.tmp"
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, SOURCE]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    log = proc.stdout + proc.stderr
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n{log}")
-    with open(log_path, "w") as f:
-        f.write(log)
-    os.replace(tmp, path)
-    return Built(path, log, True)
+    return cuda_build.build(SOURCE)
 
 
-_LIB = None
-
-
-def _library():
-    global _LIB
-    if _LIB is None:
-        import ctypes
-
-        lib = ctypes.CDLL(build().path)
-        ptr = ctypes.c_void_p
-        for name in ("linear_attention_f32", "linear_attention_bf16"):
-            fn = getattr(lib, name)
-            fn.argtypes = [ptr, ptr, ptr, ptr, ptr, ctypes.c_int, ctypes.c_int,
-                           ctypes.c_int, ctypes.c_int, ctypes.c_int,
-                           ctypes.c_int, ctypes.c_float, ptr]
-            fn.restype = ctypes.c_int
-        lib.linear_attention_error_string.argtypes = [ctypes.c_int]
-        lib.linear_attention_error_string.restype = ctypes.c_char_p
-        _LIB = lib
-    return _LIB
+def _declare(lib) -> None:
+    ptr = ctypes.c_void_p
+    for name in ("linear_attention_f32", "linear_attention_bf16"):
+        fn = getattr(lib, name)
+        fn.argtypes = [ptr, ptr, ptr, ptr, ptr, ctypes.c_int, ctypes.c_int,
+                       ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                       ctypes.c_int, ctypes.c_float, ptr]
+        fn.restype = ctypes.c_int
+    lib.linear_attention_error_string.argtypes = [ctypes.c_int]
+    lib.linear_attention_error_string.restype = ctypes.c_char_p
 
 
 def reduce_chunks(batch: int, tokens: int, heads: int) -> tuple:
@@ -146,7 +88,7 @@ def linear_attention_kernel(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     _check(q, k, v)
     b, n, h, d = q.shape
     s, chunk = reduce_chunks(b, n, h)
-    lib = _library()
+    lib = cuda_build.load(SOURCE, _declare)
     out = torch.empty_like(q)
     scratch = torch.empty((b, h, s, d, d + 1), dtype=torch.float32,
                           device=q.device)

@@ -21,6 +21,7 @@ from cv_diffusion_tpu.ops.attention import linear_attention_xla
 from cv_diffusion_tpu_torch.config import load_model_config
 from cv_diffusion_tpu_torch.models.blocks import LinearAttention
 from cv_diffusion_tpu_torch.models.diffusion import create_model
+from cv_diffusion_tpu_torch.ops import cuda_build
 from cv_diffusion_tpu_torch.ops import linear_attention_kernel as lak
 from cv_diffusion_tpu_torch.ops.attention import (linear_attention,
                                                   linear_attention_plain)
@@ -99,9 +100,9 @@ def test_reduce_chunks_cover_every_token(b, n, h):
 
 
 def test_build_without_nvcc_raises_clearly(monkeypatch, tmp_path):
-    monkeypatch.setattr(lak, "BUILD_DIR", str(tmp_path))
-    monkeypatch.setattr(lak, "CUDA_ROOTS", ())
-    monkeypatch.setattr(lak.shutil, "which", lambda name: None)
+    monkeypatch.setattr(cuda_build, "BUILD_DIR", str(tmp_path))
+    monkeypatch.setattr(cuda_build, "CUDA_ROOTS", ())
+    monkeypatch.setattr(cuda_build.shutil, "which", lambda name: None)
     monkeypatch.setenv("CUDA_HOME", str(tmp_path))
     with pytest.raises(RuntimeError, match="nvcc not found"):
         lak.build()

@@ -5,7 +5,8 @@ scipy, einops, pytest and hypothesis, and none of JAX, flax, optax, orbax,
 tensorstore, PyYAML, OpenCV, Pillow or safetensors. A subprocess here refuses
 to import any of those, or anything of the JAX package, and under that block
 imports every module of the port and ``chip_smoke``, then serves one request
-through ``ServingPipeline.from_config`` on the CPU.
+through ``ServingPipeline.from_config`` on the CPU, and the same request with
+``use_pallas_irb`` on.
 """
 
 import os
@@ -57,6 +58,17 @@ _CHILD = textwrap.dedent("""
     img = np.random.default_rng(0).integers(0, 256, (24, 40, 3), dtype=np.uint8)
     out = pipe(img, seed=0)
     assert out.shape == img.shape and out.dtype == np.uint8
+
+    # the same request with every IRB through the fused kernel's wrapper
+    import dataclasses
+    from cv_diffusion_tpu_torch.models.diffusion import create_model
+    fused_cfg = dataclasses.replace(
+        cfg, unet=dataclasses.replace(cfg.unet, use_pallas_irb=True))
+    model, schedule = create_model(fused_cfg, device="cpu")
+    model.load_state_dict(init_weights(cfg, seed=0, device="cpu"), strict=True)
+    fused = ServingPipeline(model, schedule, pipe.config, device="cpu")(img, seed=0)
+    assert fused.shape == img.shape and fused.dtype == np.uint8
+    assert np.abs(fused.astype(int) - out.astype(int)).max() <= 1
     loaded = sorted(m for m in sys.modules if m.split(".")[0] in BLOCKED)
     assert not loaded, loaded
     print("ISOLATED-OK", len(names))
@@ -112,7 +124,7 @@ def test_entry_points_default_to_cuda():
 
 
 @pytest.mark.parametrize("field,value", [
-    ("use_pallas_irb", True), ("fold_gn", True), ("split_skip", True),
+    ("split_skip", True),
     ("act_quant", True), ("remat", True), ("use_linear_attention", False),
     ("dtype", "bfloat16")])
 def test_unported_paths_raise(field, value):
