@@ -9,12 +9,13 @@ Phases, one JSON line each on stdout (warnings and build logs go to stderr):
 2. build   -- the hand-written kernels, each built with its own ``nvcc`` from
    ``csrc/``, all started together.
 3. kernel  -- each kernel against its plain PyTorch version on the card, at
-   the serving path's shapes and the JAX tests' edge shapes, with CUDA-event
+   the main paths' shapes and the JAX tests' edge shapes, with CUDA-event
    times per call (``*_ms``, host launch cost included; ``*_graph_ms``, one
    call replayed from a CUDA graph, device time alone) and the least time
-   the card could take (``bound``). Linear attention at ``mid_attn``'s
-   shapes; the fused IRB at every distinct IRB shape of the small UNet at
-   256², batch 1 and 8.
+   the card could take (``bound``). Linear attention, forward and backward,
+   at ``mid_attn``'s shapes (batch 1 and 8); the fused IRB at every distinct
+   IRB shape of the small UNet at 256², batch 1 and 8, and at the widest
+   blocks of the base and large UNets (Cout 384 and 512).
 4. serve   -- the main path at full width: ``ServingPipeline`` for the small
    1-step student (``artifacts/vreg1b_gt03_ema``, grid [739]), the 2-step
    one (``vreg2b_gt03_ema``, [739, 259]), and the 1-step student with
@@ -31,10 +32,21 @@ Phases, one JSON line each on stdout (warnings and build logs go to stderr):
    fused configuration's sampler against the unfused one's on the card.
 6. profile -- only with ``--profile``: where the card's time goes when the
    1-step student serves, unfused and fused, from ``torch.profiler`` over
-   five single requests (480×720) and five batches of 8. Wall and device
+   five single requests (480×720) and five batches of 8 (and, in the train
+   phase, over three train steps). Wall and device
    time per request, the device's busy share, kernels per request, device
    time by kind and the top kernels; and, per configuration, the UNet
    blocks inside which a batch of 8 reaches its highest memory peaks.
+7. train   -- the training path at full width: ``Trainer`` on the small
+   UNet at 256² (v-prediction, float32, batch 8), random weights from seed
+   0 and synthetic batches from a numpy seed. Two warm-up steps, then ten
+   timed ones (``train_epoch``); ms per step, images/s, peak memory, and
+   the attention kernels' forward and backward launches (one each a step),
+   with the counts set to 0 just before; finite loss, gradient norm and
+   gradients, and a non-zero gradient of ``mid_attn.to_qkv``. Then one
+   step through the kernels against the same step with the attention on
+   its plain autograd path, one step on the card against the CPU (small at
+   64², batch 2), a validation pass, and a checkpoint save and restore.
 
 Then the ``kernels`` line, the ``nvidia-smi`` line, and last
 ``{"ok": true, "device": {...}}``. Any failed check raises, and the script
@@ -46,11 +58,14 @@ repository beside it; only ``model_config.json`` and
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import json
 import os
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 from collections import defaultdict
 from concurrent.futures import ThreadPoolExecutor
@@ -64,8 +79,22 @@ IRBS_PER_UNET_CALL = 22       # small UNet: 8 encoder, 2 middle, 12 decoder
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM device memory
 F32_FLOPS_PER_S = 67e12       # H100 SXM float32 outside the tensor cores
 TOL = {"float32": 2e-5, "bfloat16": 2e-2}   # tests/test_pallas_kernels.py:43,60
+# linear attention's backward: 5e-4 in float32 (tests/test_pallas_kernels.py:
+# 81); in bfloat16 the outputs are rounded to bf16 (8 bits) at |d| up to ~0.3,
+# a few ulps of which is ~5e-3
+BWD_TOL = {"float32": 5e-4, "bfloat16": 2e-2}
 IRB_TOL = {"float32": 2e-4, "bfloat16": 5e-2}   # tests/test_pallas_kernels.py:172,252
 SAMPLER_TOL = 5e-3            # README "Testing": full sampler vs reference
+# one train step against another (kernels vs plain attention, card vs CPU):
+# loss relative, the gradients' difference relative to their norm, each
+# gradient's largest difference relative to its largest entry, and the share
+# of parameter entries the update moved differently
+# why: at the train phase
+STEP_LOSS_TOL = 1e-5
+STEP_GRAD_NORM_TOL = 1e-3      # ‖Δg‖ / ‖g‖ over all parameters
+STEP_GRAD_TOL = 1e-2           # each tensor's max |Δg| / its max |g|
+STEP_PARAM_TOL = 1e-6          # a parameter entry "differs" above this ...
+STEP_PARAM_SHARE = 1e-2        # ... and at most this share of them may
 # GN2⊕FiLM from the Gram fold against the same statistics taken two-pass from
 # h1 itself, as max |Δ(h1·a2 + b2)| (values up to ~8): a float32 Gram is
 # ~2e-6 off at the widest block's shape, one with TF32-rounded inputs ~4e-4
@@ -84,7 +113,8 @@ def require(cond: bool, what: str) -> None:
 
 # kernel name fragments → kind, first match wins (profile phase)
 KINDS = (
-    ("linear_attention", ("reduce_kv", "apply_kv")),
+    ("linear_attention", ("reduce_kv", "apply_kv", "combine_partials", "bwd_q",
+                          "bwd_kv")),
     ("fused_irb", ("irb_out", "irb_pool", "irb_se_fc", "irb_combine")),
     ("conv", ("conv", "cudnn", "implicit", "winograd", "fft",
               "depthwise", "dgrad", "wgrad", "fprop")),
@@ -118,8 +148,11 @@ def profile(label: str, fn, requests_per_run: int, runs: int = 5) -> None:
             fn()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
+    # device kernels only: not the GPU-side ranges of annotations such as
+    # the optimizer's step
     kernels = [e for e in prof.events()
-               if e.device_type == torch.autograd.DeviceType.CUDA]
+               if e.device_type == torch.autograd.DeviceType.CUDA
+               and not getattr(e, "is_user_annotation", False)]
     require(bool(kernels), "the profiler traced no device kernels")
     spans = sorted((e.time_range.start, e.time_range.end) for e in kernels)
     busy, end = 0.0, spans[0][0]
@@ -151,8 +184,8 @@ def profile(label: str, fn, requests_per_run: int, runs: int = 5) -> None:
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--profile", action="store_true",
-                        help="also trace the 1-step student's serving with "
-                             "torch.profiler")
+                        help="also trace the 1-step student's serving and "
+                             "three train steps with torch.profiler")
     args = parser.parse_args()
 
     import torch
@@ -165,14 +198,25 @@ def main() -> int:
     import numpy as np
     from torch.utils.flop_counter import FlopCounterMode
 
-    from cv_diffusion_tpu_torch.config import load_model_config
+    from cv_diffusion_tpu_torch.config import (TrainConfig, diffusion_config,
+                                               load_model_config)
+    from cv_diffusion_tpu_torch.data.dataset import (DataLoader,
+                                                     SyntheticLowLightDataset)
+    from cv_diffusion_tpu_torch.models.diffusion import (diffusion_loss,
+                                                        train_forward)
+    from cv_diffusion_tpu_torch.models.unet import count_params
+    from cv_diffusion_tpu_torch.training.train_state import (
+        apply_update, create_train_state, make_train_step)
+    from cv_diffusion_tpu_torch.training.trainer import Trainer
     from cv_diffusion_tpu_torch.device import pin_fp32
     from cv_diffusion_tpu_torch.export.serving import ServingPipeline
-    from cv_diffusion_tpu_torch.models.blocks import InvertedResidualBlock
+    from cv_diffusion_tpu_torch.models.blocks import (InvertedResidualBlock,
+                                                      LinearAttention)
     from cv_diffusion_tpu_torch.models.diffusion import create_model, enhance
     from cv_diffusion_tpu_torch.ops import fused_irb_kernel as fik
     from cv_diffusion_tpu_torch.ops import linear_attention_kernel as lak
-    from cv_diffusion_tpu_torch.ops.attention import linear_attention_plain
+    from cv_diffusion_tpu_torch.ops.attention import (
+        linear_attention_backward_plain, linear_attention_plain)
     from cv_diffusion_tpu_torch.ops.fused_irb import (folded_gn_scales,
                                                      fused_irb_v2_plain, irb_args)
     from cv_diffusion_tpu_torch.weights import init_weights
@@ -281,6 +325,59 @@ def main() -> int:
             timings[(shape, name)] = row
         emit("kernel", **row)
 
+    # linear attention's backward against its plain version: mid_attn's
+    # shape in training (batch 8) and serving (1), and the JAX tests' shapes
+    def attention_bwd_work(shape, dtype):
+        """(bytes, FLOP): q, k, v, g read and dq, dk, dv written once; the
+        two contractions each of kv, num, dφq, d_kv, dφk and dv (12·D² a
+        token and head) and the per-token vector work (~16·D)."""
+        b, n, h, d = shape
+        elems = b * n * h * d
+        moved = 7 * elems * torch.tensor([], dtype=dtype).element_size()
+        return moved, b * n * h * (12 * d * d + 16 * d)
+
+    def compare_bwd(q, k, v, g):
+        got = lak.linear_attention_backward_kernel(q, k, v, g)
+        again = lak.linear_attention_backward_kernel(q, k, v, g)
+        ref = linear_attention_backward_plain(q, k, v, g)
+        torch.cuda.synchronize()
+        for a, r in zip(got, ref):
+            require(a.dtype == q.dtype and a.shape == q.shape,
+                    f"backward output {a.dtype} {tuple(a.shape)}")
+            require(bool(torch.isfinite(a).all()), "backward: non-finite output")
+        require(all(torch.equal(a, b) for a, b in zip(got, again)),
+                "backward kernel reruns differ")
+        return max(float((a.float() - r.float()).abs().max())
+                   for a, r in zip(got, ref))
+
+    bwd_cases = ([((b, 1024, 4, 32), dt, True) for b in (1, 8)
+                  for dt in (torch.float32, torch.bfloat16)]
+                 + [(s, torch.float32, False)
+                    for s in ((2, 256, 4, 32), (1, 100, 2, 32), (1, 128, 6, 32),
+                              (1, 128, 1, 128), (2, 300, 3, 64))])
+    bwd_rows = {}
+    for shape, dtype, timed in bwd_cases:
+        q, k, v, g = (torch.randn(shape, generator=gen, device=dev).to(dtype)
+                      for _ in range(4))
+        name = str(dtype).replace("torch.", "")
+        err = compare_bwd(q, k, v, g)
+        require(err <= BWD_TOL[name], f"backward kernel vs plain {shape} {name}: {err}")
+        row = dict(kernel="linear_attention_backward", shape=list(shape),
+                   dtype=name, max_err=err, tol=BWD_TOL[name])
+        if timed:
+            moved, flops = attention_bwd_work(shape, dtype)
+            bound_ms, bound_by = bound(moved, flops)
+            kernel = lambda: lak.linear_attention_backward_kernel(q, k, v, g)  # noqa: E731
+            plain = lambda: linear_attention_backward_plain(q, k, v, g)  # noqa: E731
+            row.update(
+                kernel_ms=cuda_ms(kernel), plain_ms=cuda_ms(plain),
+                kernel_graph_ms=graph_ms(kernel), plain_graph_ms=graph_ms(plain),
+                bound_ms=bound_ms, bound_by=bound_by, bytes=moved, flops=flops,
+                library_ms=None,
+                library="none: no single PyTorch call computes this backward")
+        bwd_rows[(shape, name)] = row
+        emit("kernel", **row)
+
     # the fused IRB at the shapes one small-UNet call at 256² gives it
     art = {a: os.path.join(ROOT, "artifacts", a) for _, a, _, _ in SERVED}
     cfg = load_model_config(os.path.join(art["vreg1b_gt03_ema"], "model_config.json"))
@@ -309,10 +406,11 @@ def main() -> int:
         key = (cin, blk.expand.weight.shape[0], blk.project.weight.shape[0], height)
         per_call.setdefault(key, [name, 0])[1] += 1
 
-    def irb_inputs(block, b, height, width, dtype, use_se=True, silu=False):
+    def irb_inputs(block, b, height, width, dtype, use_se=True, silu=False,
+                   tdim=cfg.unet.time_embed_dim):
         cin = block.expand.weight.shape[1]
         x = torch.randn((b, cin, height, width), generator=gen, device=dev).to(dtype)
-        temb = torch.randn((b, cfg.unet.time_embed_dim), generator=gen, device=dev)
+        temb = torch.randn((b, tdim), generator=gen, device=dev)
         with torch.inference_mode():
             fs, fb = block.time_mlp(temb).chunk(2, dim=-1)
         kw = irb_args(block)
@@ -383,6 +481,38 @@ def main() -> int:
                            library="none: no single PyTorch call computes the fused IRB")
                 irb_rows[(cin, chid, cout, height, b, dname)] = row
                 emit("kernel", **row)
+    # the widest blocks of the base (384 output channels) and large (512)
+    # UNets at 256²: the middle blocks and the decoder's first concat blocks,
+    # at 32²; more than 256 output channels take several output blocks
+    wide_err = 0.0
+    for variant, cin, cout, tdim in (("base", 384, 384, 192), ("base", 768, 384, 192),
+                                     ("large", 512, 512, 256), ("large", 1024, 512, 256)):
+        blk = InvertedResidualBlock(cin, cout, tdim, expansion_ratio=4).to(dev).eval()
+        for b in (1, 8):
+            x, kw = irb_inputs(blk, b, 32, 32, torch.float32, tdim=tdim)
+            err = irb_compare(x, kw)
+            require(err <= IRB_TOL["float32"],
+                    f"fused kernel vs plain {variant} {cin}->{cout} b{b}: {err}")
+            wide_err = max(wide_err, err)
+            moved, flops = irb_work(x, kw)
+            bound_ms, bound_by = bound(moved, flops)
+
+            def kernel(x=x, kw=kw):
+                with torch.inference_mode():
+                    fik.fused_irb_v2(x, **kw)
+
+            def plain(x=x, kw=kw):
+                with torch.inference_mode():
+                    fused_irb_v2_plain(x, **kw)
+
+            emit("kernel", kernel="fused_irb_v2", variant=variant,
+                 shape=[b, cin, 32, 32], chid=4 * cin, cout=cout, dtype="float32",
+                 max_err=err, tol=IRB_TOL["float32"],
+                 kernel_ms=cuda_ms(kernel, 20, 3), plain_ms=cuda_ms(plain, 20, 3),
+                 kernel_graph_ms=graph_ms(kernel, 20, 3),
+                 plain_graph_ms=graph_ms(plain, 20, 3), bound_ms=bound_ms,
+                 bound_by=bound_by, bytes=moved, flops=flops,
+                 plan=list(fik.plan(b, 4 * cin, cout, 32, 32)), library_ms=None)
     # the JAX tests' edge cases: no SE with SiLU, 48 channels in 16 groups,
     # 24 rows (an uneven last tile)
     edge = probe.unet.encoder_blocks[0][0]
@@ -575,7 +705,7 @@ def main() -> int:
     blk = dict(fused_pipe.model.unet.named_modules())[widest]
 
     def capture_irb(module, args):
-        captured["irb"] = [a.detach().clone() for a in args]
+        captured["irb"] = [a.detach().clone() for a in args[:2]]   # x, time_emb
 
     h = blk.register_forward_pre_hook(capture_irb)
     fused_pipe(images[0], seed=0)
@@ -676,8 +806,239 @@ def main() -> int:
             profile(f"{label}batch8_mixed_sizes",
                     lambda pipe=pipe: pipe.batch(batch_images, seed=1), 8)
 
+    # 7. train: the training path at full width ----------------------------
+    t0 = time.perf_counter()
+    del pipes, fused_pipe, blk
+    torch.cuda.empty_cache()
+    train_cfg = TrainConfig(unet_variant="small", image_size=size, batch_size=8,
+                            use_amp=False, epochs=1, warmup_epochs=0,
+                            prediction_type="v_prediction", log_interval=1000,
+                            seed=0, checkpoint_dir=os.path.join(
+                                tempfile.mkdtemp(prefix="chip_smoke_"), "ckpt"))
+    model_cfg = diffusion_config("small", size, prediction_type="v_prediction")
+    train_weights = init_weights(model_cfg, seed=0, device=dev)
+
+    def train_model_on_card(cfg=model_cfg, weights_=train_weights, device=dev):
+        model, schedule = create_model(cfg, device=device)
+        model.load_state_dict(weights_, strict=True)
+        return model, schedule
+
+    # synthetic batches made in bulk before the timed steps (set-up)
+    data_rng = np.random.default_rng(0)
+    normal_images = data_rng.integers(0, 256, (16, size + 32, size + 32, 3),
+                                      dtype=np.uint8)
+    loader = DataLoader(SyntheticLowLightDataset(normal_images, image_size=size, seed=0),
+                        8, shuffle=True, drop_last=True, seed=0)
+    batches = [b for _ in range(6) for b in loader]       # 12 batches of 8
+    warm, timed, val = batches[:2], batches[2:], batches[:2]
+    model, schedule = train_model_on_card()
+    train_params = count_params(model.unet)
+    require(train_params == 18_008_035 or size != 256,
+            f"small UNet at 256²: {train_params} params, not 18,008,035")
+    trainer = Trainer(model, schedule, timed, val, train_cfg)
+    mid_qkv = model.unet.mid_attn.to_qkv.weight
+    n_attn = sum(isinstance(m, LinearAttention) for m in model.modules())
+    require(n_attn == (1 if size == 256 else n_attn),
+            f"{n_attn} attention blocks in the small UNet at {size}², not 1")
+
+    lak.linear_attention_kernel.launches = 0
+    lak.linear_attention_backward_kernel.launches = 0
+    fik.fused_irb_v2.launches = 0
+    metrics_seen = []
+    for batch in warm:
+        trainer.state, m = trainer.train_step(trainer.state, batch)
+        metrics_seen.append(m)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    a = time.perf_counter()
+    with contextlib.redirect_stdout(sys.stderr):    # its log line
+        train_loss = trainer.train_epoch()
+    torch.cuda.synchronize()
+    elapsed = time.perf_counter() - a
+    peak_train = torch.cuda.max_memory_allocated()
+    steps = len(warm) + len(timed)
+    train_launches = {"linear_attention": lak.linear_attention_kernel.launches,
+                      "linear_attention_backward":
+                          lak.linear_attention_backward_kernel.launches,
+                      "fused_irb_v2": fik.fused_irb_v2.launches}
+    require(train_launches["linear_attention"] == steps * n_attn,
+            f"train: forward attention launches {train_launches}, {steps} steps")
+    require(train_launches["linear_attention_backward"] == steps * n_attn,
+            f"train: backward attention launches {train_launches}, {steps} steps")
+    require(trainer.state.step == steps, f"train: {trainer.state.step} steps taken")
+    require(np.isfinite(train_loss), f"train loss {train_loss}")
+    for m in metrics_seen:
+        require(bool(torch.isfinite(m["loss"]) & torch.isfinite(m["grad_norm"])),
+                f"train: loss {m['loss']} grad norm {m['grad_norm']}")
+    grads = {n: p.grad for n, p in model.named_parameters()}
+    require(all(g is not None and bool(torch.isfinite(g).all()) for g in grads.values()),
+            "train: a parameter without a finite gradient")
+    qkv_grad = float(mid_qkv.grad.abs().max())
+    require(qkv_grad > 0, "train: mid_attn.to_qkv has a zero gradient")
+
+    if args.profile:        # where a train step's time goes, per image
+        profile("train_step_small256_batch8",
+                lambda: trainer.train_step(trainer.state, timed[0]), 8, runs=3)
+
+    before_val = lak.linear_attention_kernel.launches
+    val_loss = trainer.validate()
+    val_launches = lak.linear_attention_kernel.launches - before_val
+    require(np.isfinite(val_loss) and val_launches == len(val) * n_attn,
+            f"validation: loss {val_loss}, {val_launches} attention launches")
+
+    # checkpoint save and restore on the card
+    ckpt_path = trainer.save_checkpoint("smoke")
+    fresh, _ = train_model_on_card()
+    resumed = Trainer(fresh, schedule, timed, val,
+                      dataclasses.replace(train_cfg, resume_from=ckpt_path))
+    require(resumed.state.step == trainer.state.step
+            and resumed.epoch == trainer.epoch + 1,
+            f"restore: step {resumed.state.step}, epoch {resumed.epoch}")
+    require(all(torch.equal(p, q) for p, q in zip(fresh.parameters(), model.parameters())),
+            "restore: parameters differ")
+    require(all(torch.equal(resumed.state.ema_params[k], e)
+                for k, e in trainer.state.ema_params.items()), "restore: EMA differs")
+    sa, sb = (t.state.optimizer.state_dict()["state"] for t in (trainer, resumed))
+    require(all(torch.equal(sa[i]["exp_avg"], sb[i]["exp_avg"]) for i in sa),
+            "restore: optimizer state differs")
+    require(torch.equal(trainer.state.generator.get_state(),
+                        resumed.state.generator.get_state()), "restore: generator differs")
+    ckpt_bytes = os.path.getsize(ckpt_path)
+    del resumed, fresh, trainer, model
+    shutil.rmtree(os.path.dirname(train_cfg.checkpoint_dir), ignore_errors=True)
+    torch.cuda.empty_cache()
+    emit("train", config=f"small@{size} v-prediction float32", batch=8,
+         params=train_params, warmup_steps=len(warm), timed_steps=len(timed),
+         ms_per_step=elapsed * 1e3 / len(timed),
+         images_per_s=len(timed) * 8 / elapsed, peak_mem_bytes=peak_train,
+         train_loss=train_loss, val_loss=val_loss, launches=train_launches,
+         launches_per_step={k: v / steps for k, v in train_launches.items()},
+         mid_attn_to_qkv_grad_max_abs=qkv_grad, checkpoint_bytes=ckpt_bytes,
+         seconds=time.perf_counter() - t0)
+    t0 = time.perf_counter()
+
+    # one step through the kernels against the same step with the attention
+    # on its plain autograd path: same weights, batch, t and ε (the same
+    # generator seed), f32. Bounds: the two attention passes differ by ~1e-7,
+    # which GroupNorm's one-pass variance amplifies in the float32 gradients
+    # (on the CPU tests' tiny UNet a float32 gradient is up to 2.5e-3 of its
+    # tensor's largest entry from float64), so the gradients are held to
+    # 1e-3 of their norm and each tensor to 1e-2 of its largest entry;
+    # AdamW's first update is ±lr where a gradient is far above eps, so an
+    # entry near 0 whose sign differs moves the parameter by up to 2·lr
+    # (a bound any first step meets); such entries must stay rare: at most
+    # 1% of the parameters may differ by more than 1e-6.
+    # The backward kernel itself is held to its plain version on the step's
+    # own q, k, v and upstream gradient.
+    step_inputs = {}
+
+    def one_step(plain_attention: bool, cfg=model_cfg, weights_=train_weights,
+                 device=dev, batch=warm[0]):
+        model, schedule = train_model_on_card(cfg, weights_, device)
+        state = create_train_state(model, train_cfg)
+        step = make_train_step(model, schedule, train_cfg)
+        original = lak.linear_attention_trainable
+        attn = model.unet.mid_attn.attn
+
+        def keep_qkv(module, args):      # the backward's q, k, v ...
+            step_inputs["qkv"] = [a.detach().clone() for a in args]
+
+        def keep_g(module, args, out):   # ... and its upstream gradient
+            out.register_hook(lambda g: step_inputs.__setitem__("g", g.detach().clone()))
+
+        hooks_ = [attn.register_forward_pre_hook(keep_qkv),
+                  attn.register_forward_hook(keep_g)]
+        if plain_attention:
+            lak.linear_attention_trainable = linear_attention_plain
+        try:
+            state, m = step(state, batch)
+        finally:
+            lak.linear_attention_trainable = original
+            for h_ in hooks_:
+                h_.remove()
+        return (float(m["loss"]), {n: p.grad.detach().clone() for n, p in model.named_parameters()},
+                {n: p.detach().clone() for n, p in model.named_parameters()})
+
+    def step_diffs(a, b):
+        """Loss, gradient-norm and worst-tensor differences of two steps,
+        the parameters' largest difference, and the share of parameter
+        entries that differ by more than STEP_PARAM_TOL."""
+        loss_rel = abs(a[0] - b[0]) / abs(b[0])
+        diff_sq = sum(float((a[1][k] - b[1][k]).double().square().sum()) for k in b[1])
+        norm_sq = sum(float(b[1][k].double().square().sum()) for k in b[1])
+        worst = max((float((a[1][k] - b[1][k]).abs().max())
+                     / (float(b[1][k].abs().max()) + 1e-12), k) for k in b[1])
+        moved = sum(int(((a[2][k] - b[2][k]).abs() > STEP_PARAM_TOL).sum()) for k in b[2])
+        total = sum(t.numel() for t in b[2].values())
+        return dict(loss_rel=loss_rel, grad_norm_rel=(diff_sq / norm_sq) ** 0.5,
+                    grad_tensor_rel=worst[0], worst_tensor=worst[1],
+                    param_max_abs=max(float((a[2][k] - b[2][k]).abs().max())
+                                      for k in b[2]),
+                    param_differ_share=moved / total)
+
+    def within(d):
+        return (d["loss_rel"] <= STEP_LOSS_TOL and d["grad_norm_rel"] <= STEP_GRAD_NORM_TOL
+                and d["grad_tensor_rel"] <= STEP_GRAD_TOL
+                and d["param_differ_share"] <= STEP_PARAM_SHARE)
+
+    before = lak.linear_attention_backward_kernel.launches
+    with_kernels = one_step(False)
+    kernel_step_inputs = dict(step_inputs)
+    require(lak.linear_attention_backward_kernel.launches == before + n_attn,
+            "the kernel step did not launch the backward kernel")
+    with_plain = one_step(True)
+    require(lak.linear_attention_backward_kernel.launches == before + n_attn,
+            "the plain-attention step launched the backward kernel")
+    kernel_vs_plain = step_diffs(with_kernels, with_plain)
+    q, k, v = kernel_step_inputs["qkv"]
+    g = kernel_step_inputs["g"].contiguous()
+    require(tuple(q.shape) == (8, 1024, 4, 32) or size != 256,
+            f"train: mid_attn backward shape {tuple(q.shape)}")
+    step_bwd_err = compare_bwd(q, k, v, g)
+    require(step_bwd_err <= BWD_TOL["float32"],
+            f"backward kernel vs plain on the step's own inputs: {step_bwd_err}")
+    del with_kernels, with_plain, q, k, v, g
+    torch.cuda.empty_cache()
+
+    # one step on the card against the CPU: small at 64², batch 2, explicit
+    # t and ε (the two devices' generators draw different numbers)
+    small_cfg = diffusion_config("small", 64, prediction_type="v_prediction")
+    small_w = init_weights(small_cfg, seed=1, device="cpu")
+    small_batch = {k: v[:2, :64, :64] for k, v in warm[0].items()}
+    t_fix = torch.tensor([37, 801])
+    eps_fix = torch.from_numpy(np.random.default_rng(2).standard_normal(
+        (2, 64, 64, 3)).astype(np.float32))
+
+    def explicit_step(device):
+        model, schedule = train_model_on_card(small_cfg, small_w, device)
+        state = create_train_state(model, train_cfg)
+        out = train_forward(model, schedule,
+                            torch.from_numpy(small_batch["low_light"]).to(device),
+                            torch.from_numpy(small_batch["normal_light"]).to(device),
+                            timesteps=t_fix.to(device), noise=eps_fix.to(device))
+        loss = diffusion_loss(out["noise_pred"], out["target"])
+        loss.backward()
+        apply_update(state, train_cfg)
+        return (loss.item(), {n: p.grad.detach().cpu() for n, p in model.named_parameters()},
+                {n: p.detach().cpu() for n, p in model.named_parameters()})
+
+    on_card = explicit_step(dev)
+    on_cpu = explicit_step(torch.device("cpu"))
+    card_vs_cpu = step_diffs(on_card, on_cpu)
+    emit("train_check", kernel_vs_plain_step=kernel_vs_plain,
+         card_vs_cpu_step_small64=card_vs_cpu,
+         backward_on_step_inputs_max_abs_err=step_bwd_err,
+         step_tol=dict(loss_rel=STEP_LOSS_TOL, grad_norm_rel=STEP_GRAD_NORM_TOL,
+                       grad_tensor_rel=STEP_GRAD_TOL,
+                       param_differ_by=STEP_PARAM_TOL,
+                       param_differ_share=STEP_PARAM_SHARE),
+         seconds=time.perf_counter() - t0)
+    require(within(kernel_vs_plain), f"kernel vs plain-attention step: {kernel_vs_plain}")
+    require(within(card_vs_cpu), f"card vs CPU step: {card_vs_cpu}")
+
     # kernels line, nvidia-smi line, last line -----------------------------
     main_row = timings[((1, 1024, 4, 32), "float32")]
+    bwd_main = bwd_rows[((8, 1024, 4, 32), "float32")]    # the train batch
     # the fused IRB per UNet call at batch 1: each shape's time times the
     # IRBs of that shape in a call
     call_rows = [irb_rows[key + (1, "float32")] for key in per_call]
@@ -692,6 +1053,7 @@ def main() -> int:
         "source": "cv_diffusion_tpu_torch/csrc/linear_attention.cu",
         "replaces": "cv_diffusion_tpu/ops/pallas_attention.py:82",
         "launches": launches["linear_attention"],
+        "launches_train": train_launches["linear_attention"],
         "max_abs_err": mid_err,
         "ms": main_row["kernel_ms"],
         "plain_ms": main_row["plain_ms"],
@@ -720,6 +1082,23 @@ def main() -> int:
         "shape": f"the {IRBS_PER_UNET_CALL} IRBs of one small-UNet call at "
                  f"{size}², batch 1 ({per_unet['flops'] / 1e9:.2f} GFLOP)",
         "dtype": "float32",
+    }, {
+        "name": "linear_attention_backward",
+        "route": "cuda",
+        "source": "cv_diffusion_tpu_torch/csrc/linear_attention.cu",
+        "replaces": "cv_diffusion_tpu/ops/pallas_attention.py:202",
+        "launches": train_launches["linear_attention_backward"],
+        "max_abs_err": max(r["max_err"] for r in bwd_rows.values()
+                           if r["dtype"] == "float32"),
+        "ms": bwd_main["kernel_ms"],
+        "plain_ms": bwd_main["plain_ms"],
+        "graph_ms": bwd_main["kernel_graph_ms"],
+        "plain_graph_ms": bwd_main["plain_graph_ms"],
+        "bound_ms": bwd_main["bound_ms"],
+        "bound_by": bwd_main["bound_by"],
+        "library_ms": None,
+        "shape": bwd_main["shape"],
+        "dtype": bwd_main["dtype"],
     }]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi_line, flush=True)

@@ -1,9 +1,9 @@
-"""Model configuration, read from the artifacts' JSON files.
+"""Model and training configuration.
 
-Counterpart of ``cv_diffusion_tpu/config.py`` (model part only): the same
-frozen dataclasses and variant presets, so that an artifact's
-``model_config.json`` means the same model in both packages. The YAML loader
-and the training configs stay in the JAX package.
+Counterpart of ``cv_diffusion_tpu/config.py``: the same frozen dataclasses
+and variant presets, so that an artifact's ``model_config.json`` means the
+same model in both packages, and :class:`TrainConfig` field for field. The
+YAML loader and the data configs stay in the JAX package.
 """
 
 from __future__ import annotations
@@ -156,6 +156,84 @@ def diffusion_config(unet_variant: str = "small", image_size: int = 256,
         num_inference_steps=num_inference_steps,
         condition_mode=condition_mode,
     )
+
+
+@dataclass(frozen=True)
+class TrainConfig:
+    """Training configuration, field for field and default for default the
+    JAX ``TrainConfig`` (``cv_diffusion_tpu/config.py:242``).
+
+    The port trains in float32 with linear attention through its CUDA
+    kernels (forward and backward); ``use_pallas`` is read and ignored, as
+    in :class:`UNetConfig`. Fields the port does not have yet make the
+    trainer raise ``NotImplementedError``
+    (``training.train_state.check_trainable``): ``use_amp=True`` (so pass
+    ``use_amp=False``), ``remat``, ``qat``/``qat_act``, a ``mesh_shape`` over
+    more than one device, ``use_wandb``, ``data_on_device``,
+    ``native_loader=True`` and ``init_params_from``. Checkpoints are written
+    synchronously whatever ``async_checkpoints`` says, and no sample grids
+    are written (``sample_interval``, ``num_samples`` and ``output_dir`` are
+    read and unused).
+    """
+
+    unet_variant: str = "small"
+    image_size: int = 256
+    num_inference_steps: int = 4
+
+    epochs: int = 100
+    batch_size: int = 8
+    learning_rate: float = 1e-4
+    weight_decay: float = 0.01
+    gradient_clip: float = 1.0
+
+    scheduler_type: str = "cosine"  # cosine | onecycle
+    warmup_epochs: int = 5
+    min_lr: float = 1e-6
+    faithful_no_warmup: bool = False
+
+    use_amp: bool = True
+
+    use_ema: bool = True
+    ema_decay: float = 0.9999
+    ema_warmup: bool = True
+
+    loss_type: str = "mse"  # mse | huber | l1
+
+    log_interval: int = 100
+    save_interval: int = 5
+    sample_interval: int = 1
+    num_samples: int = 4
+    async_checkpoints: bool = True
+
+    output_dir: str = "outputs"
+    checkpoint_dir: str = "checkpoints"
+
+    use_wandb: bool = False
+    wandb_project: str = "low-light-diffusion-tpu"
+    wandb_run_name: Optional[str] = None
+
+    resume_from: Optional[str] = None
+
+    seed: int = 0
+    native_loader: Optional[bool] = None
+    prefetch_batches: int = 2
+    data_on_device: bool = False
+    debug_nans: bool = False
+    use_pallas: bool = False
+    remat: bool = False
+    grad_accum_steps: int = 1
+    mesh_shape: Optional[Tuple[int, ...]] = None
+    mesh_axes: Optional[Tuple[str, ...]] = None
+    qat: bool = False
+    qat_act: bool = False
+    init_params_from: Optional[str] = None
+    init_params_ema: bool = False
+    prediction_type: str = "epsilon"
+
+
+def to_json(cfg) -> str:
+    """A config dataclass as JSON (the checkpoints' ``config``)."""
+    return json.dumps(dataclasses.asdict(cfg), indent=2)
 
 
 _NESTED = {"unet": UNetConfig, "scheduler": SchedulerConfig}

@@ -31,12 +31,17 @@
 //   gate (SE only): three small launches. Sum the partials in a fixed order
 //     and form the mean of h3 [B, Chid]; fc1 -> act [B, Csq]; fc2 -> sigmoid
 //     into gate [B, Chid]. Each spreads its weights over many blocks.
-//   out: grid (tiles, hidden groups, B). A block owns a TH x TW output tile
-//     and loops over chunks of CC hidden channels: h2 on the tile plus a
+//   out: grid (tiles, hidden groups x output blocks, B). A block owns a
+//     TH x TW output tile of up to 256 output channels (wider outputs, 384
+//     to 512 in the base and large UNets, take several blocks, each of which
+//     recomputes the tile's h2: simple, and right for any Cout; the expand
+//     is then done once per 256 output channels) and loops over chunks of
+//     CC hidden channels: h2 on the tile plus a
 //     one-pixel halo (recomputed; zero outside the image) into shared memory,
 //     the nine-tap depthwise times the gate into shared memory, and h3 . W_proj
 //     accumulated into the output tile held in registers (8 output channels
-//     by MP pixels a thread). Hidden width reaches 2048, so h2 never fits
+//     by MP pixels a thread). Hidden width reaches 2048 (small) and 4096
+//     (large), so h2 never fits
 //     whole: the chunking over Chid is what keeps it out of device memory.
 //     The first hidden group adds the residual. With one group the block
 //     writes out; with several (small images, where tiles alone cannot fill
@@ -77,7 +82,7 @@ constexpr int kPoolTile = 16;  // pool pass: 16 x 16 pixels ...
 constexpr int kPoolCC = 32;    // ... by 32 hidden channels per step
 
 // Output tile (TH x TW pixels) and hidden chunk (CC) for outputs padded to
-// CO_PAD channels; cv_diffusion_tpu_torch/ops/fused_irb_kernel.py holds the
+// CO_PAD channels (above 256: blocks of 256); cv_diffusion_tpu_torch/ops/fused_irb_kernel.py holds the
 // same table and passes it in, and the launcher checks that they agree.
 template <int CO_PAD> struct OutCfg;
 template <> struct OutCfg<32> { static constexpr int TH = 16, TW = 16, CC = 24; };
@@ -368,7 +373,10 @@ __global__ void __launch_bounds__(kThreads, 2) irb_out(Irb p) {
 
   const int tiles_x = (p.W + TW - 1) / TW;
   const int y0 = (blockIdx.x / tiles_x) * TH, x0 = (blockIdx.x % tiles_x) * TW;
-  const int g = blockIdx.y, b = blockIdx.z;
+  // blockIdx.y walks the hidden groups of each block of CO_PAD output
+  // channels; only CO_PAD = 256 has more than one such block (Cout > 256)
+  const int g = blockIdx.y % p.groups, b = blockIdx.z;
+  const int co_base = (blockIdx.y / p.groups) * CO_PAD;
   const int tid = threadIdx.x;
   const int co0 = (tid % TC) * 8, p0 = (tid / TC) * MP;
   const int nchunks = (p.Chid + CC - 1) / CC;
@@ -435,7 +443,7 @@ __global__ void __launch_bounds__(kThreads, 2) irb_out(Irb p) {
       __syncthreads();
       // wps[k][co] = W_proj[co][c0 + k0 + k], reading along k
       stage<4>(wps, kn * CO_PAD, [&](int i) { return (i % kn) * CO_PAD + i / kn; }, [&](int i) {
-        const int co = i / kn, c = c0 + k0 + i % kn;
+        const int co = co_base + i / kn, c = c0 + k0 + i % kn;
         return co < p.Cout && c < p.Chid ? op<T>(p.wproj[static_cast<size_t>(co) * p.Chid + c])
                                          : 0.f;
       });
@@ -458,7 +466,7 @@ __global__ void __launch_bounds__(kThreads, 2) irb_out(Irb p) {
       });
       // wps[k][co] = W_skip[co][k0 + k], reading along k
       stage<4>(wps, kn * CO_PAD, [&](int i) { return (i % kn) * CO_PAD + i / kn; }, [&](int i) {
-        const int co = i / kn, k = k0 + i % kn;
+        const int co = co_base + i / kn, k = k0 + i % kn;
         return co < p.Cout ? op<T>(p.wskip[static_cast<size_t>(co) * p.Cin + k]) : 0.f;
       });
       __syncthreads();
@@ -468,7 +476,7 @@ __global__ void __launch_bounds__(kThreads, 2) irb_out(Irb p) {
 
 #pragma unroll
   for (int j = 0; j < 8; ++j) {
-    const int co = co0 + j;
+    const int co = co_base + co0 + j;
     if (co >= p.Cout) continue;
 #pragma unroll
     for (int i = 0; i < MP; ++i) {
@@ -678,7 +686,9 @@ cudaError_t launch_out(const Irb& p, const int* dim, cudaStream_t st) {
   cudaError_t err = allow_smem<irb_out<T, CO_PAD>>(smem);
   if (err != cudaSuccess) return err;
   const int tiles = ((p.H + L::TH - 1) / L::TH) * ((p.W + L::TW - 1) / L::TW);
-  irb_out<T, CO_PAD><<<dim3(tiles, p.groups, p.B), kThreads, smem, st>>>(p);
+  const int co_blocks = (p.Cout + CO_PAD - 1) / CO_PAD;
+  if (p.groups * co_blocks > 65535) return cudaErrorInvalidValue;
+  irb_out<T, CO_PAD><<<dim3(tiles, p.groups * co_blocks, p.B), kThreads, smem, st>>>(p);
   return cudaGetLastError();
 }
 
@@ -717,7 +727,7 @@ cudaError_t run(const void* const* ptr, const int* dim, void* stream) {
   p.chunks_per_group = dim[kChunksPerGroup];
   p.pool_groups = dim[kPoolGroups];
   const bool use_se = dim[kUseSe] != 0;
-  if (p.B <= 0 || p.Cin <= 0 || p.Chid <= 0 || p.Cout <= 0 || p.Cout > 256 || p.H <= 0 ||
+  if (p.B <= 0 || p.Cin <= 0 || p.Chid <= 0 || p.Cout <= 0 || p.H <= 0 ||
       p.W <= 0 || p.groups <= 0 || p.chunks_per_group <= 0 || !p.x || !p.a1 || !p.b1 || !p.a2 ||
       !p.b2 || !p.wexp || !p.wdw || !p.wproj || !p.out || (p.groups > 1 && !p.part) ||
       (!p.wskip && p.Cin != p.Cout))

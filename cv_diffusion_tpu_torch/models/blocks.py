@@ -9,6 +9,7 @@ loads with ``strict=True``.
 from __future__ import annotations
 
 import math
+from typing import Optional
 
 import torch
 import torch.nn.functional as F
@@ -37,6 +38,21 @@ def sinusoidal_pos_emb(t: torch.Tensor, dim: int, max_period: int = 10000,
                       * torch.arange(half, dtype=dtype, device=t.device) / half)
     args = t.to(dtype)[:, None] * freqs[None]
     return torch.cat([torch.cos(args), torch.sin(args)], dim=-1)
+
+
+def dropout(x: torch.Tensor, rate: float,
+            generator: Optional[torch.Generator]) -> torch.Tensor:
+    """Training-mode dropout as flax's ``nn.Dropout``: each element kept with
+    probability 1 − rate and scaled by 1/(1 − rate), the mask drawn from
+    ``generator`` (the train step's), never from torch's global RNG."""
+    if generator is None:
+        raise ValueError("dropout in training needs the train step's "
+                         "torch.Generator (generator=...)")
+    if rate >= 1.0:
+        return torch.zeros_like(x)
+    keep = 1.0 - rate
+    mask = torch.rand(x.shape, generator=generator, device=x.device) < keep
+    return torch.where(mask, x / keep, torch.zeros_like(x))
 
 
 class GroupNorm(nn.Module):
@@ -101,8 +117,10 @@ class SqueezeExcitation(nn.Module):
 
 class InvertedResidualBlock(nn.Module):
     """GN → act → 1×1 expand → GN ⊕ FiLM(time) → act → 3×3 depthwise → SE →
-    1×1 project → residual (1×1 skip conv when the channel count changes; no
-    residual at all for stride ≠ 1 with equal counts, as in the reference).
+    1×1 project → dropout (training only, mask from the ``generator`` given
+    to ``forward``) → residual (1×1 skip conv when the channel count changes;
+    no residual at all for stride ≠ 1 with equal counts, as in the
+    reference).
 
     Two inference rewrites of the JAX block, both off in training mode and
     neither changing the parameters: ``use_pallas_irb`` runs a stride-1 block
@@ -114,11 +132,12 @@ class InvertedResidualBlock(nn.Module):
     def __init__(self, in_channels: int, out_channels: int,
                  time_embed_dim: int, expansion_ratio: int = 4,
                  stride: int = 1, use_se: bool = True, se_ratio: float = 0.25,
-                 quantization_friendly: bool = True,
+                 quantization_friendly: bool = True, dropout: float = 0.0,
                  use_pallas_irb: bool = False, fold_gn: bool = False):
         super().__init__()
         hidden = int(in_channels * expansion_ratio)
         self.quantization_friendly = quantization_friendly
+        self.dropout = dropout
         self.stride = stride
         self.use_pallas_irb = use_pallas_irb
         self.fold_gn = fold_gn
@@ -137,7 +156,8 @@ class InvertedResidualBlock(nn.Module):
                                bias=False)
                      if in_channels != out_channels else None)
 
-    def forward(self, x: torch.Tensor, time_emb: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, time_emb: torch.Tensor,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
         film_scale, film_shift = self.time_mlp(time_emb).chunk(2, dim=-1)
         if self.use_pallas_irb and self.stride == 1 and not self.training:
             return fused_irb_kernel.fused_irb_v2(
@@ -161,6 +181,8 @@ class InvertedResidualBlock(nn.Module):
         if self.se is not None:
             h = self.se(h)
         h = self.project(h)
+        if self.dropout > 0 and self.training:
+            h = dropout(h, self.dropout, generator)
         if self.skip is not None:
             return h + self.skip(x)
         if self.use_residual:

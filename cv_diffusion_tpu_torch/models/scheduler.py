@@ -2,9 +2,10 @@
 
 Counterpart of ``cv_diffusion_tpu/models/scheduler.py``. The tables are built
 on the host in float64 and cast to float32, exactly as the JAX package does,
-and the step arithmetic is float32, so the two agree to rounding. Timesteps
-are Python integers (the sampler's grid lives on the host); noise is an
-explicit tensor or comes from an explicit ``torch.Generator``.
+and the step arithmetic is float32, so the two agree to rounding. The sampler's
+timesteps are Python integers (its grid lives on the host), the training
+forward process's an int tensor [B]; noise is an explicit tensor or comes
+from an explicit ``torch.Generator``.
 """
 
 from __future__ import annotations
@@ -106,6 +107,32 @@ def prev_timesteps(timesteps: Sequence[int]) -> List[int]:
     last."""
     ts = list(timesteps)
     return ts[1:] + [0]
+
+
+def _sqrt_alphas(schedule: LCMSchedule, timesteps: torch.Tensor,
+                 like: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(√ᾱ_t, √(1-ᾱ_t)) for int timesteps [B], shaped to broadcast over
+    ``like`` [B, ...], in its dtype."""
+    acp = schedule.alphas_cumprod.to(device=like.device, dtype=like.dtype)
+    a = acp[timesteps.to(device=like.device, dtype=torch.long)]
+    shape = (-1,) + (1,) * (like.dim() - 1)
+    return torch.sqrt(a).reshape(shape), torch.sqrt(1.0 - a).reshape(shape)
+
+
+def add_noise(schedule: LCMSchedule, original_samples: torch.Tensor,
+              noise: torch.Tensor, timesteps: torch.Tensor) -> torch.Tensor:
+    """Forward process x_t = √ᾱ_t·x₀ + √(1-ᾱ_t)·ε; ``timesteps`` an int
+    tensor [B] (JAX ``add_noise``, ``models/scheduler.py:138``)."""
+    sqrt_alpha, sqrt_one_minus = _sqrt_alphas(schedule, timesteps,
+                                              original_samples)
+    return sqrt_alpha * original_samples + sqrt_one_minus * noise
+
+
+def get_velocity(schedule: LCMSchedule, sample: torch.Tensor,
+                 noise: torch.Tensor, timesteps: torch.Tensor) -> torch.Tensor:
+    """v = √ᾱ_t·ε − √(1-ᾱ_t)·x₀ (JAX ``get_velocity``, ``:154``)."""
+    sqrt_alpha, sqrt_one_minus = _sqrt_alphas(schedule, timesteps, sample)
+    return sqrt_alpha * noise - sqrt_one_minus * sample
 
 
 def _alpha(schedule: LCMSchedule, t: int, like: torch.Tensor) -> torch.Tensor:

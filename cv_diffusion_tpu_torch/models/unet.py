@@ -12,6 +12,8 @@ attention is ``mid_attn``. Module names are the reference torch ones
 
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
 import torch.nn.functional as F
 from torch import nn
@@ -21,9 +23,9 @@ from .blocks import (Downsample, GroupNorm, InvertedResidualBlock,
                      LinearAttentionBlock, TimeEmbedding, Upsample)
 
 _UNPORTED = (
-    ("split_skip", "the split_skip graph rewrite (ROADMAP queue 1 item 3)"),
-    ("act_quant", "int8 activation compute (ROADMAP queue 1 item 11)"),
-    ("remat", "rematerialisation for training (ROADMAP queue 1 item 9)"),
+    ("split_skip", "the split_skip graph rewrite (ROADMAP queue 1 item 7)"),
+    ("act_quant", "int8 activation compute (ROADMAP queue 1 item 6)"),
+    ("remat", "rematerialisation for training (ROADMAP queue 1 item 4)"),
 )
 
 
@@ -35,11 +37,11 @@ def check_ported(config: UNetConfig) -> None:
             raise NotImplementedError(f"UNetConfig.{name}: {what} is not ported")
     if not config.use_linear_attention:
         raise NotImplementedError(
-            "standard softmax attention is not ported (ROADMAP queue 1 item 3)")
+            "standard softmax attention is not ported (ROADMAP queue 1 item 7)")
     if config.dtype != "float32":
         raise NotImplementedError(
             f"UNet dtype {config.dtype!r}: only float32 is ported; bf16 "
-            "compute comes with the codecs (ROADMAP queue 1 item 7)")
+            "compute comes with the codecs (ROADMAP queue 1 item 3)")
 
 
 class EfficientUNet(nn.Module):
@@ -57,7 +59,8 @@ class EfficientUNet(nn.Module):
                 cin, cout, tdim, expansion_ratio=config.expansion_ratio,
                 use_se=config.use_se, se_ratio=config.se_ratio,
                 quantization_friendly=config.quantization_friendly,
-                use_pallas_irb=config.use_pallas_irb, fold_gn=config.fold_gn)
+                dropout=config.dropout, use_pallas_irb=config.use_pallas_irb,
+                fold_gn=config.fold_gn)
 
         def attention(c):
             return LinearAttentionBlock(c, config.num_attention_heads,
@@ -109,34 +112,36 @@ class EfficientUNet(nn.Module):
         self.final_conv = nn.Conv2d(cur, config.out_channels, 3, padding=1)
 
     @staticmethod
-    def _run(blocks: nn.ModuleList, h: torch.Tensor,
-             t_emb: torch.Tensor) -> torch.Tensor:
+    def _run(blocks: nn.ModuleList, h: torch.Tensor, t_emb: torch.Tensor,
+             generator: Optional[torch.Generator]) -> torch.Tensor:
         for block in blocks:
             if isinstance(block, InvertedResidualBlock):
-                h = block(h, t_emb)
+                h = block(h, t_emb, generator)
             else:
                 h = block(h)
         return h
 
-    def forward(self, x: torch.Tensor, timestep: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, timestep: torch.Tensor,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        """``generator`` draws the dropout masks in training mode."""
         t_emb = self.time_mlp(timestep)
         h = self.init_conv(x)
         skips = []
         for level, blocks in enumerate(self.encoder_blocks):
-            h = self._run(blocks, h, t_emb)
+            h = self._run(blocks, h, t_emb, generator)
             skips.append(h)
             if level < len(self.downsamplers):
                 h = self.downsamplers[level](h)
 
-        h = self.mid_block1(h, t_emb)
+        h = self.mid_block1(h, t_emb, generator)
         h = self.mid_attn(h)
-        h = self.mid_block2(h, t_emb)
+        h = self.mid_block2(h, t_emb, generator)
 
         for level, blocks in enumerate(self.decoder_blocks):
             if level > 0:
                 h = self.upsamplers[level - 1](h)
             h = torch.cat([h, skips.pop()], dim=1)
-            h = self._run(blocks, h, t_emb)
+            h = self._run(blocks, h, t_emb, generator)
 
         h = F.silu(self.final_norm(h))
         return self.final_conv(h)

@@ -27,12 +27,14 @@ from .fused_irb import folded_gn_scales, fused_irb_v2_plain
 SOURCE = cuda_build.source("fused_irb.cu")
 
 # Output tile (rows, columns) and hidden chunk of the output pass, by the
-# output channels padded to 32, 64, 128 or 256; the same table as OutCfg in
-# the source, which the launcher checks.
+# output channels padded to 32, 64, 128 or 256 (wider outputs: blocks of
+# 256); the same table as OutCfg in the source, which the launcher checks.
 OUT_TILES = {32: (16, 16, 24), 64: (16, 16, 24), 128: (8, 16, 40),
              256: (8, 8, 80)}
 POOL_TILE, POOL_CHUNK = 16, 32       # the SE pool pass: 16×16 pixels × 32 channels
-MAX_COUT = 256
+# Eight blocks of 256 output channels, four times the widest IRB output of
+# any variant (large: 512); each block recomputes its tile's expand.
+MAX_COUT = 2048
 # Two blocks of the output pass fit on each of an H100's 132 SMs; split the
 # hidden channels over blocks only while the tiles alone leave SMs idle.
 _TARGET_BLOCKS = 264
@@ -57,15 +59,17 @@ class Plan(NamedTuple):
     groups: int            # blocks over the hidden channels of one tile
     chunks_per_group: int
     pool_groups: int       # blocks over the pixels in the SE pool pass
+    co_blocks: int         # blocks over the output channels (256 each)
 
 
 def plan(batch: int, chid: int, cout: int, height: int, width: int) -> Plan:
     if not 0 < cout <= MAX_COUT:
         raise ValueError(f"the kernel takes 1 to {MAX_COUT} output channels, "
                          f"not {cout}")
-    co_pad = next(c for c in sorted(OUT_TILES) if cout <= c)
+    co_pad = next((c for c in sorted(OUT_TILES) if cout <= c), max(OUT_TILES))
+    co_blocks = math.ceil(cout / co_pad)
     th, tw, cc = OUT_TILES[co_pad]
-    blocks = math.ceil(height / th) * math.ceil(width / tw) * batch
+    blocks = math.ceil(height / th) * math.ceil(width / tw) * batch * co_blocks
     chunks = math.ceil(chid / cc)
     want = min(chunks, max(1, _TARGET_BLOCKS // blocks))
     per_group = math.ceil(chunks / want)
@@ -74,7 +78,7 @@ def plan(batch: int, chid: int, cout: int, height: int, width: int) -> Plan:
                       max(1, _TARGET_BLOCKS
                           // (math.ceil(chid / POOL_CHUNK) * batch)))
     return Plan(th, tw, cc, math.ceil(chunks / per_group), per_group,
-                pool_groups)
+                pool_groups, co_blocks)
 
 
 def build() -> cuda_build.Built:

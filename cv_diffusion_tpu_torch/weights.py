@@ -77,7 +77,7 @@ def unet_state_dict_from_jax(params: Dict[str, Any],
     ``export_unet_state_dict`` gives."""
     if not config.use_linear_attention:
         raise NotImplementedError(
-            "standard softmax attention is not ported (ROADMAP queue 1 item 3)")
+            "standard softmax attention is not ported (ROADMAP queue 1 item 7)")
     out: Dict[str, np.ndarray] = {}
     out["time_mlp.1.weight"] = _dense(params["time_mlp"]["dense1"]["kernel"])
     out["time_mlp.1.bias"] = _vec(params["time_mlp"]["dense1"]["bias"])

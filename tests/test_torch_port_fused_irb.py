@@ -27,7 +27,8 @@ from cv_diffusion_tpu.models.unet import EfficientUNet
 from cv_diffusion_tpu.ops.norms import gn2_film_affine_gram as jax_gram
 from cv_diffusion_tpu_torch.config import load_model_config
 from cv_diffusion_tpu_torch.models import blocks as tblocks
-from cv_diffusion_tpu_torch.models.diffusion import create_model
+from cv_diffusion_tpu_torch.models.diffusion import (LowLightDiffusion,
+                                                     create_model)
 from cv_diffusion_tpu_torch.ops import cuda_build
 from cv_diffusion_tpu_torch.ops import fused_irb_kernel as fik
 from cv_diffusion_tpu_torch.ops import linear_attention_kernel as lak
@@ -323,22 +324,64 @@ def test_launch_hands_the_kernel_x_and_the_modules_own_weights():
     assert all(lib.ptrs[k] for k in ("a1", "b1", "a2", "b2", "out", "gate"))
 
 
+# base (48·8 = 384 channels deep) and large (512): the middle blocks and the
+# decoder's first concat blocks at 32² of a 256² image
+WIDE = [(1, 1536, 384, 32), (8, 1536, 384, 32), (1, 3072, 384, 32),
+        (8, 3072, 384, 32), (1, 2048, 512, 32), (8, 2048, 512, 32),
+        (1, 4096, 512, 32), (8, 4096, 512, 32)]
+
+
 @pytest.mark.parametrize("b,chid,cout,h", [
     (1, 128, 32, 256), (8, 384, 32, 256), (1, 256, 64, 128), (1, 768, 64, 128),
     (1, 512, 128, 64), (1, 1536, 128, 64), (1, 1024, 256, 32),
-    (8, 2048, 256, 32), (2, 96, 48, 16), (2, 128, 32, 24), (1, 8, 1, 1)])
+    (8, 2048, 256, 32), (2, 96, 48, 16), (2, 128, 32, 24), (1, 8, 1, 1)] + WIDE)
 def test_plan_covers_every_hidden_chunk(b, chid, cout, h):
     pl = fik.plan(b, chid, cout, h, h)
     chunks = math.ceil(chid / pl.chunk)
     assert pl.groups >= 1 and pl.chunks_per_group >= 1
     assert pl.groups * pl.chunks_per_group >= chunks > (pl.groups - 1) * pl.chunks_per_group
     assert 1 <= pl.pool_groups <= math.ceil(h / fik.POOL_TILE) ** 2
+    # blocks of at most 256 output channels cover every output channel
+    co_pad = min(c for c in fik.OUT_TILES if c >= min(cout, max(fik.OUT_TILES)))
+    assert pl.co_blocks == math.ceil(cout / co_pad)
+    assert (pl.tile_h, pl.tile_w, pl.chunk) == fik.OUT_TILES[co_pad]
+    assert pl.groups * pl.co_blocks <= 65535          # grid dimension y
     assert fik.plan(b, chid, cout, h, h) == pl
 
 
 def test_plan_refuses_wide_outputs():
+    """Outputs wider than ``MAX_COUT`` (eight blocks of 256, four times the
+    widest IRB of any variant) are refused; the base and large widths are
+    taken."""
+    for variant, cout in (("base", 384), ("large", 512)):
+        assert fik.plan(1, 4 * cout, cout, 32, 32).co_blocks == 2, variant
     with pytest.raises(ValueError, match="output channels"):
-        fik.plan(1, 1024, 512, 32, 32)
+        fik.plan(1, 1024, fik.MAX_COUT + 1, 32, 32)
+    with pytest.raises(ValueError, match="output channels"):
+        fik.plan(1, 1024, 0, 32, 32)
+
+
+@pytest.mark.parametrize("variant", ["base", "large"])
+def test_base_and_large_irb_shapes_are_planned(variant):
+    """Every stride-1 IRB shape of the base and large UNets at 256² (the
+    decoder concat blocks up to 768→3072→384 and 1024→4096→512) has a
+    plan, so ``use_pallas_irb=True`` serves them on the card."""
+    from cv_diffusion_tpu_torch.config import diffusion_config
+
+    cfg = diffusion_config(variant, 256)
+    with torch.device("meta"):
+        model = LowLightDiffusion(cfg)
+    shapes = set()
+    for m in model.modules():
+        if isinstance(m, tblocks.InvertedResidualBlock):
+            shapes.add((m.expand.weight.shape[1], m.expand.weight.shape[0],
+                        m.project.weight.shape[0]))
+    widest = max(shapes, key=lambda s: s[2])
+    assert widest[2] == {"base": 384, "large": 512}[variant]
+    assert (2 * widest[2], 8 * widest[2], widest[2]) in shapes
+    for cin, chid, cout in sorted(shapes):
+        for b in (1, 8):
+            assert fik.plan(b, chid, cout, 32, 32).co_blocks == math.ceil(cout / 256)
 
 
 def test_build_without_nvcc_raises_clearly(monkeypatch, tmp_path):

@@ -5,8 +5,8 @@ scipy, einops, pytest and hypothesis, and none of JAX, flax, optax, orbax,
 tensorstore, PyYAML, OpenCV, Pillow or safetensors. A subprocess here refuses
 to import any of those, or anything of the JAX package, and under that block
 imports every module of the port and ``chip_smoke``, then serves one request
-through ``ServingPipeline.from_config`` on the CPU, and the same request with
-``use_pallas_irb`` on.
+through ``ServingPipeline.from_config`` on the CPU, the same request with
+``use_pallas_irb`` on, and takes one train step.
 """
 
 import os
@@ -69,6 +69,23 @@ _CHILD = textwrap.dedent("""
     fused = ServingPipeline(model, schedule, pipe.config, device="cpu")(img, seed=0)
     assert fused.shape == img.shape and fused.dtype == np.uint8
     assert np.abs(fused.astype(int) - out.astype(int)).max() <= 1
+
+    # one train step of the tiny UNet on synthetic data
+    import torch
+    from cv_diffusion_tpu_torch.config import TrainConfig
+    from cv_diffusion_tpu_torch.data.dataset import (DataLoader,
+                                                     SyntheticLowLightDataset)
+    from cv_diffusion_tpu_torch.training.train_state import (
+        create_train_state, make_train_step)
+    data = SyntheticLowLightDataset(
+        np.random.default_rng(1).integers(0, 256, (2, 40, 40, 3), dtype=np.uint8),
+        image_size=32)
+    batch = next(iter(DataLoader(data, 2)))
+    tcfg = TrainConfig(use_amp=False)
+    model.train()
+    state = create_train_state(model, tcfg)
+    state, metrics = make_train_step(model, schedule, tcfg)(state, batch)
+    assert state.step == 1 and bool(torch.isfinite(metrics["loss"]))
     loaded = sorted(m for m in sys.modules if m.split(".")[0] in BLOCKED)
     assert not loaded, loaded
     print("ISOLATED-OK", len(names))

@@ -101,3 +101,23 @@ def test_step_draws_noise_from_generator():
     # the last step returns x̂₀ and needs no noise
     last, x0 = tsched.step(ts, x, 19, 0, x)
     assert torch.equal(last, x0)
+
+
+@pytest.mark.parametrize("rescale", [False, True])
+def test_add_noise_and_velocity_match(rescale):
+    """The training forward process on int timesteps [B], at 1e-6; t = 999
+    under zero-terminal SNR (ᾱ = 0) included."""
+    jc, tc = _configs(rescale_betas_zero_snr=rescale)
+    js, ts = jsched.make_schedule(jc), tsched.make_schedule(tc)
+    rng = np.random.default_rng(3)
+    x0 = rng.uniform(-1, 1, (4, 8, 8, 3)).astype(np.float32)
+    eps = rng.standard_normal((4, 8, 8, 3)).astype(np.float32)
+    t = np.asarray([0, 17, 500, 999], dtype=np.int32)
+    for j_fn, t_fn in ((jsched.add_noise, tsched.add_noise),
+                       (jsched.get_velocity, tsched.get_velocity)):
+        ref = np.asarray(j_fn(js, jnp.asarray(x0), jnp.asarray(eps),
+                              jnp.asarray(t)))
+        got = t_fn(ts, torch.from_numpy(x0), torch.from_numpy(eps),
+                   torch.from_numpy(t))
+        assert got.dtype == torch.float32
+        np.testing.assert_allclose(got.numpy(), ref, atol=TOL)

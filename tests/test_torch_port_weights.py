@@ -193,10 +193,11 @@ def test_linear_attention_block_math_matches_flax_in_float64(flax_in_float64):
 
 
 @contextlib.contextmanager
-def jax_in_float64(monkeypatch):
+def jax_in_float64(monkeypatch, extra=()):
     """Run the JAX package in float64: x64 on, and its hard-wired float32
     statistics and casts (``jnp.float32`` in ops/norms, ops/attention,
-    models/blocks, ops/qconv) made float64 inside the block."""
+    models/blocks, ops/qconv, and the modules in ``extra``) made float64
+    inside the block."""
     from cv_diffusion_tpu.ops import attention, norms, qconv
 
     class _Jnp64:
@@ -204,7 +205,7 @@ def jax_in_float64(monkeypatch):
             return jnp.float64 if name == "float32" else getattr(jnp, name)
 
     with monkeypatch.context() as patch, jax.enable_x64(True):
-        for module in (norms, attention, jblocks, qconv):
+        for module in (norms, attention, jblocks, qconv) + tuple(extra):
             patch.setattr(module, "jnp", _Jnp64())
         yield
 
