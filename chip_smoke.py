@@ -13,9 +13,12 @@ Phases, one JSON line each on stdout (warnings and build logs go to stderr):
    times per call (``*_ms``, host launch cost included; ``*_graph_ms``, one
    call replayed from a CUDA graph, device time alone) and the least time
    the card could take (``bound``). Linear attention, forward and backward,
-   at ``mid_attn``'s shapes (batch 1 and 8); the fused IRB at every distinct
-   IRB shape of the small UNet at 256², batch 1 and 8, and at the widest
-   blocks of the base and large UNets (Cout 384 and 512).
+   at ``mid_attn``'s shapes (batch 1 and 8); the fused IRB, v2 and v1 (both
+   GroupNorms' statistics in the kernel) side by side on the same inputs,
+   at every distinct IRB shape of the small UNet at 256², batch 1 and 8, and
+   at the widest blocks of the base and large UNets (Cout 384 and 512); v1
+   also at the JAX tests' shapes (``tile_h=8``) and in bf16 at the widest
+   block of each UNet level.
 4. serve   -- the main path at full width: ``ServingPipeline`` for the small
    1-step student (``artifacts/vreg1b_gt03_ema``, grid [739]), the 2-step
    one (``vreg2b_gt03_ema``, [739, 259]), and the 1-step student with
@@ -27,7 +30,11 @@ Phases, one JSON line each on stdout (warnings and build logs go to stderr):
 5. check   -- each kernel against its plain version on the main path's own
    inputs (``mid_attn``'s q/k/v, ``decoder_blocks.3.0``'s x); on that x, the
    Gram fold's GN2⊕FiLM affine against the statistics of h1 itself (and the
-   same fold in TF32, which that check must reject); the card's
+   same fold in TF32, which that check must reject); ``fused_irb_v1`` on the
+   x and FiLM of each of the 22 IRBs of one unfused served request (its
+   launch count set to 0 just before), against each block's own output and
+   against v2, and its device-side GN affines at ``decoder_blocks.3.0``
+   against float64 statistics of x and h1; the card's
    sampler output against the CPU's on the same weights and noise, and the
    fused configuration's sampler against the unfused one's on the card.
 6. profile -- only with ``--profile``: where the card's time goes when the
@@ -61,6 +68,7 @@ import argparse
 import contextlib
 import dataclasses
 import json
+import math
 import os
 import shutil
 import subprocess
@@ -98,7 +106,9 @@ STEP_PARAM_SHARE = 1e-2        # ... and at most this share of them may
 # GN2⊕FiLM from the Gram fold against the same statistics taken two-pass from
 # h1 itself, as max |Δ(h1·a2 + b2)| (values up to ~8): a float32 Gram is
 # ~2e-6 off at the widest block's shape, one with TF32-rounded inputs ~4e-4
-# (a CPU stand-in of that shape), so a TF32 fold fails this bound
+# (a CPU stand-in of that shape), so a TF32 fold fails this bound. fused_irb
+# v1's own affines (GN1's on x, GN2⊕FiLM's on h1, from the kernel's one-pass
+# float32 partials) are held to it against float64 statistics
 FOLD_TOL = 5e-5
 
 
@@ -111,11 +121,17 @@ def require(cond: bool, what: str) -> None:
         raise AssertionError(what)
 
 
+def bf16_ulp(magnitude: float) -> float:
+    """The spacing of bfloat16 values (8 significant bits) at ``magnitude``."""
+    return 2.0 ** (math.floor(math.log2(magnitude)) - 7) if magnitude > 0 else 0.0
+
+
 # kernel name fragments → kind, first match wins (profile phase)
 KINDS = (
     ("linear_attention", ("reduce_kv", "apply_kv", "combine_partials", "bwd_q",
                           "bwd_kv")),
-    ("fused_irb", ("irb_out", "irb_pool", "irb_se_fc", "irb_combine")),
+    ("fused_irb", ("irb_out", "irb_pool", "irb_se_fc", "irb_combine",
+                   "irb_gn1_stats", "irb_gn2_stats", "irb_gn_finalize")),
     ("conv", ("conv", "cudnn", "implicit", "winograd", "fft",
               "depthwise", "dgrad", "wgrad", "fprop")),
     ("gemm", ("gemm", "sgemm", "cutlass", "ampere", "sm90", "magma")),
@@ -217,7 +233,9 @@ def main() -> int:
     from cv_diffusion_tpu_torch.ops import linear_attention_kernel as lak
     from cv_diffusion_tpu_torch.ops.attention import (
         linear_attention_backward_plain, linear_attention_plain)
+    from cv_diffusion_tpu_torch.ops import cuda_build
     from cv_diffusion_tpu_torch.ops.fused_irb import (folded_gn_scales,
+                                                     fused_irb_v1_plain,
                                                      fused_irb_v2_plain, irb_args)
     from cv_diffusion_tpu_torch.weights import init_weights
 
@@ -241,7 +259,7 @@ def main() -> int:
         return module.build(), time.perf_counter() - start
 
     t0 = time.perf_counter()
-    wrappers = (("linear_attention", lak), ("fused_irb_v2", fik))
+    wrappers = (("linear_attention", lak), ("fused_irb (v2, v1)", fik))
     with ThreadPoolExecutor(len(wrappers)) as pool:
         builds = list(pool.map(timed_build, (m for _, m in wrappers)))
     for (name, _), (built, seconds) in zip(wrappers, builds):
@@ -447,14 +465,78 @@ def main() -> int:
                          + (cin * cout if kw.get("wskip") is not None else 0))
         return moved, flops
 
-    irb_rows = {}
+    def irb_v1_compare(x, kw):
+        """v1 against its plain version: (max abs error, its bound)."""
+        fik.fused_irb_v1.launches = 0
+        with torch.inference_mode():
+            out = fik.fused_irb_v1(x, **kw)
+            again = fik.fused_irb_v1(x, **kw)
+            ref = fused_irb_v1_plain(x, **kw)
+        torch.cuda.synchronize()
+        require(fik.fused_irb_v1.launches == 2,
+                f"fused_irb_v1: {fik.fused_irb_v1.launches} launches for 2 calls")
+        require(out.dtype == x.dtype and out.shape == ref.shape,
+                f"fused_irb_v1 output {out.dtype} {tuple(out.shape)}")
+        require(bool(torch.isfinite(out).all()), "fused_irb_v1: non-finite output")
+        require(torch.equal(out, again), "fused_irb_v1 reruns differ")
+        err = float((out.float() - ref.float()).abs().max())
+        # in bf16 both compute in float32 (2e-4 apart at most) and round only
+        # the output, to the same bf16 value or to neighbours: one bf16 ulp
+        # of the output's largest magnitude apart at most
+        tol = (IRB_TOL["float32"] if x.dtype == torch.float32
+               else bf16_ulp(float(ref.float().abs().max())))
+        require(err <= tol, f"fused_irb_v1 vs plain {tuple(x.shape)} {x.dtype}: {err} > {tol}")
+        return err, tol
+
+    def irb_v1_row(x, kw, v2_row=None, **fields):
+        """v1 against its plain version at one shape, timed, with v2's times
+        on the same inputs beside it; emitted and returned."""
+        err, tol = irb_v1_compare(x, kw)
+        moved, flops = irb_work(x, kw)
+        bound_ms, bound_by = bound(moved, flops)
+
+        def kernel():
+            with torch.inference_mode():
+                fik.fused_irb_v1(x, **kw)
+
+        def plain():
+            with torch.inference_mode():
+                fused_irb_v1_plain(x, **kw)
+
+        row = dict(kernel="fused_irb_v1", **fields, shape=list(x.shape),
+                   chid=kw["wexp"].shape[0], cout=kw["wproj"].shape[0],
+                   dtype=str(x.dtype).replace("torch.", ""), max_err=err, tol=tol,
+                   kernel_ms=cuda_ms(kernel, 20, 3), plain_ms=cuda_ms(plain, 20, 3),
+                   kernel_graph_ms=graph_ms(kernel, 20, 3),
+                   plain_graph_ms=graph_ms(plain, 20, 3),
+                   bound_ms=bound_ms, bound_by=bound_by, bytes=moved, flops=flops,
+                   library_ms=None,
+                   library="none: no single PyTorch call computes the fused IRB")
+        if v2_row is not None:
+            row.update(v2_kernel_ms=v2_row["kernel_ms"],
+                       v2_kernel_graph_ms=v2_row["kernel_graph_ms"],
+                       v1_over_v2_graph=row["kernel_graph_ms"] / v2_row["kernel_graph_ms"])
+        emit("kernel", **row)
+        return row
+
+    # v1 in bf16 at the widest block of each UNet level
+    widest_of_level = {}     # height → (Cin, Chid, Cout, H) of the most input channels
+    for key in sorted(per_call):
+        widest_of_level[key[3]] = key
+    irb_rows, v1_rows = {}, {}
     for (cin, chid, cout, height), (name, count) in sorted(per_call.items()):
         for b in (1, 8):
             for dtype in (torch.float32, torch.bfloat16):
-                if dtype == torch.bfloat16 and (cin, height) != (96, size):
-                    continue          # bf16 at the widest block only
+                bf16_v2 = (cin, height) == (96, size)    # v2: bf16 at the widest block only
+                bf16_v1 = widest_of_level[height] == (cin, chid, cout, height)
+                if dtype == torch.bfloat16 and not (bf16_v1 or bf16_v2):
+                    continue
                 x, kw = irb_inputs(blocks[name], b, height, height, dtype)
                 dname = str(dtype).replace("torch.", "")
+                if dtype == torch.bfloat16 and not bf16_v2:
+                    v1_rows[(cin, chid, cout, height, b, dname)] = irb_v1_row(
+                        x, kw, block=name, per_unet_call=count)
+                    continue
                 err = irb_compare(x, kw)
                 require(err <= IRB_TOL[dname],
                         f"fused kernel vs plain {name} {tuple(x.shape)} {dname}: {err}")
@@ -481,6 +563,9 @@ def main() -> int:
                            library="none: no single PyTorch call computes the fused IRB")
                 irb_rows[(cin, chid, cout, height, b, dname)] = row
                 emit("kernel", **row)
+                if dtype == torch.float32 or bf16_v1:
+                    v1_rows[(cin, chid, cout, height, b, dname)] = irb_v1_row(
+                        x, kw, row, block=name, per_unet_call=count)
     # the widest blocks of the base (384 output channels) and large (512)
     # UNets at 256²: the middle blocks and the decoder's first concat blocks,
     # at 32²; more than 256 output channels take several output blocks
@@ -505,14 +590,16 @@ def main() -> int:
                 with torch.inference_mode():
                     fused_irb_v2_plain(x, **kw)
 
-            emit("kernel", kernel="fused_irb_v2", variant=variant,
-                 shape=[b, cin, 32, 32], chid=4 * cin, cout=cout, dtype="float32",
-                 max_err=err, tol=IRB_TOL["float32"],
-                 kernel_ms=cuda_ms(kernel, 20, 3), plain_ms=cuda_ms(plain, 20, 3),
-                 kernel_graph_ms=graph_ms(kernel, 20, 3),
-                 plain_graph_ms=graph_ms(plain, 20, 3), bound_ms=bound_ms,
-                 bound_by=bound_by, bytes=moved, flops=flops,
-                 plan=list(fik.plan(b, 4 * cin, cout, 32, 32)), library_ms=None)
+            row = dict(kernel="fused_irb_v2", variant=variant,
+                       shape=[b, cin, 32, 32], chid=4 * cin, cout=cout, dtype="float32",
+                       max_err=err, tol=IRB_TOL["float32"],
+                       kernel_ms=cuda_ms(kernel, 20, 3), plain_ms=cuda_ms(plain, 20, 3),
+                       kernel_graph_ms=graph_ms(kernel, 20, 3),
+                       plain_graph_ms=graph_ms(plain, 20, 3), bound_ms=bound_ms,
+                       bound_by=bound_by, bytes=moved, flops=flops,
+                       plan=list(fik.plan(b, 4 * cin, cout, 32, 32)), library_ms=None)
+            emit("kernel", **row)
+            v1_rows[(variant, cin, b)] = irb_v1_row(x, kw, row, variant=variant)
     # the JAX tests' edge cases: no SE with SiLU, 48 channels in 16 groups,
     # 24 rows (an uneven last tile)
     edge = probe.unet.encoder_blocks[0][0]
@@ -529,6 +616,23 @@ def main() -> int:
             require(err <= IRB_TOL[dname], f"fused kernel vs plain {label} {dname}: {err}")
             emit("kernel", kernel="fused_irb_v2", case=label, shape=list(x.shape),
                  dtype=dname, max_err=err, tol=IRB_TOL[dname])
+    # v1 at the four TestFusedIRB shapes (tests/test_pallas_kernels.py:167-201),
+    # with their tile_h=8: batch 2; 32→128→32, 32→128→64 and no SE with SiLU
+    # at 32², 48→96→48 at 16²
+    tdim = cfg.unet.time_embed_dim
+    for label, cin, cout, exp, height, use_se, silu in (
+            ("identity", 32, 32, 4, 32, True, False),
+            ("channel_change_skip", 32, 64, 4, 32, True, False),
+            ("no_se_silu", 32, 32, 4, 32, False, True),
+            ("uneven_group_counts", 48, 48, 2, 16, True, False)):
+        blk = InvertedResidualBlock(cin, cout, tdim, expansion_ratio=exp, use_se=use_se,
+                                    quantization_friendly=not silu).to(dev).eval()
+        x, kw = irb_inputs(blk, 2, height, height, torch.float32, use_se=use_se, silu=silu)
+        err, tol = irb_v1_compare(x, dict(kw, tile_h=8))
+        v1_rows[label] = dict(kernel="fused_irb_v1", case=label, shape=list(x.shape),
+                              chid=cin * exp, cout=cout, dtype="float32", tile_h=8,
+                              max_err=err, tol=tol)
+        emit("kernel", **v1_rows[label])
     del probe
     torch.cuda.empty_cache()
     emit("kernel_done", seconds=time.perf_counter() - t0)
@@ -607,12 +711,13 @@ def main() -> int:
         top = sorted(peaks.items(), key=lambda kv: -kv[1])[:3]
         return base, [{"block": n, "peak_mem_bytes": v} for n, v in top]
 
-    launches = {"linear_attention": 0, "fused_irb_v2": 0}
+    launches = {"linear_attention": 0, "fused_irb_v2": 0, "fused_irb_v1": 0}
     for pipe, (label, _, grid, fused) in zip(pipes, SERVED):
         steps = len(grid)
         # the counts go to 0 just before this configuration runs
         lak.linear_attention_kernel.launches = 0
         fik.fused_irb_v2.launches = 0
+        fik.fused_irb_v1.launches = 0
         unet_calls[0] = 0
         expected_calls = 0
         torch.cuda.reset_peak_memory_stats()
@@ -653,7 +758,8 @@ def main() -> int:
             pipe(images[2], seed=0)
         expected_calls += steps
         counts = {"linear_attention": lak.linear_attention_kernel.launches,
-                  "fused_irb_v2": fik.fused_irb_v2.launches}
+                  "fused_irb_v2": fik.fused_irb_v2.launches,
+                  "fused_irb_v1": fik.fused_irb_v1.launches}
         calls = unet_calls[0]
         require(calls == expected_calls,
                 f"{label}: UNet calls {calls} != expected {expected_calls}")
@@ -663,6 +769,8 @@ def main() -> int:
         want_irb = IRBS_PER_UNET_CALL * calls if fused else 0
         require(counts["fused_irb_v2"] == want_irb,
                 f"{label}: fused-IRB launches {counts['fused_irb_v2']} != {want_irb}")
+        require(counts["fused_irb_v1"] == 0,     # no model path runs v1, as in JAX
+                f"{label}: fused_irb_v1 launched {counts['fused_irb_v1']} times")
         for k in launches:
             launches[k] += counts[k]
         peak_mem = torch.cuda.max_memory_allocated()
@@ -753,6 +861,106 @@ def main() -> int:
     require(fold_tf32 > FOLD_TOL,
             f"{widest}: a TF32 Gram fold ({fold_tf32}) passes the fold check")
 
+    # fused_irb_v1 on the 22 IRBs of one unfused served request: each block's
+    # own x and FiLM, captured by hooks, through v1 (its count set to 0 just
+    # before), against the block's own output and against v2 on that input
+    named = [(n, m) for n, m in pipes[0].model.unet.named_modules()
+             if isinstance(m, InvertedResidualBlock) and m.stride == 1]
+    require(len(named) == IRBS_PER_UNET_CALL, f"{len(named)} stride-1 IRBs")
+    irb_io = {}
+
+    def keep_in(module, args, name):
+        irb_io.setdefault(name, [a.detach().clone() for a in args[:2]])
+
+    def keep_out(module, args, out, name):
+        if len(irb_io[name]) == 2:
+            irb_io[name].append(out.detach().clone())
+
+    hooks = [m.register_forward_pre_hook(lambda mod, a, n=n: keep_in(mod, a, n))
+             for n, m in named]
+    hooks += [m.register_forward_hook(lambda mod, a, o, n=n: keep_out(mod, a, o, n))
+              for n, m in named]
+    pipes[0](images[0], seed=0)
+    for h in hooks:
+        h.remove()
+    require(all(len(irb_io.get(n, ())) == 3 for n, _ in named), "an IRB was not captured")
+    v1_film = {}
+    with torch.inference_mode():
+        for n, m in named:
+            v1_film[n] = m.time_mlp(irb_io[n][1]).chunk(2, dim=-1)
+        fik.fused_irb_v1.launches = 0
+        v1_out = {n: fik.fused_irb_v1(irb_io[n][0], film_scale=v1_film[n][0],
+                                      film_shift=v1_film[n][1], **irb_args(m))
+                  for n, m in named}
+        torch.cuda.synchronize()
+        v1_path_launches = fik.fused_irb_v1.launches
+        require(v1_path_launches == IRBS_PER_UNET_CALL,
+                f"fused_irb_v1: {v1_path_launches} launches for {IRBS_PER_UNET_CALL} IRBs")
+        v1_vs_block, v1_vs_v2 = {}, {}
+        for n, m in named:
+            x_, _, out_ = irb_io[n]
+            v2_ = fik.fused_irb_v2(x_, film_scale=v1_film[n][0], film_shift=v1_film[n][1],
+                                   **irb_args(m))
+            v1_vs_block[n] = float((v1_out[n] - out_).abs().max())
+            v1_vs_v2[n] = float((v1_out[n] - v2_).abs().max())
+    worst_block = max(v1_vs_block, key=v1_vs_block.get)
+    require(v1_vs_block[worst_block] <= IRB_TOL["float32"],
+            f"fused_irb_v1 vs the block's own output at {worst_block}: "
+            f"{v1_vs_block[worst_block]}")
+    require(max(v1_vs_v2.values()) <= IRB_TOL["float32"],
+            f"fused_irb_v1 vs fused_irb_v2 on a request's IRB inputs: {v1_vs_v2}")
+    del irb_io, v1_out
+
+    # v1's device-side affines at decoder_blocks.3.0 (the kernel's one-pass
+    # float32 partials) and the Gram fold's, against GN1 and GN2⊕FiLM with
+    # float64 statistics taken two-pass from x and h1, as max |Δ(x·a1 + b1)|
+    # and max |Δ(h1·a2 + b2)| over the float64 x and h1
+    def gn_affine(v, scale, bias, groups, film=None):
+        vg = v.reshape(v.shape[0], groups, -1)
+        mean = vg.mean(dim=-1)
+        var = (vg - mean[..., None]).square().mean(dim=-1)
+        per = v.shape[1] // groups
+        rstd = torch.rsqrt(var + irb_kw["eps"]).repeat_interleave(per, dim=1)
+        mean = mean.repeat_interleave(per, dim=1)
+        a = rstd * scale.double()[None]
+        b = bias.double()[None] - mean * a
+        if film is not None:
+            m = 1 + film[0].double()
+            a, b = a * m, b * m + film[1].double()
+        return a, b
+
+    def per_c(v):
+        return v[:, :, None, None]
+
+    with torch.inference_mode():
+        x64 = xb.double()
+        a1_ref, b1_ref = gn_affine(x64, irb_kw["gn1_scale"], irb_kw["gn1_bias"],
+                                   blk.norm1.num_groups)
+        pre = x64 * per_c(a1_ref) + per_c(b1_ref)
+        xhat64 = torch.nn.functional.silu(pre) if irb_kw["silu"] else pre.clamp(0, 6)
+        h1_64 = torch.einsum("bkhw,ck->bchw", xhat64, irb_kw["wexp"].double())
+        a2_ref, b2_ref = gn_affine(h1_64, irb_kw["gn2_scale"], irb_kw["gn2_bias"],
+                                   blk.norm2.num_groups, (fs, fb))
+
+        def affine_errs(a1, b1, a2, b2):
+            return (float((x64 * per_c(a1.double() - a1_ref)
+                           + per_c(b1.double() - b1_ref)).abs().max()),
+                    float((h1_64 * per_c(a2.double() - a2_ref)
+                           + per_c(b2.double() - b2_ref)).abs().max()))
+
+        v1_t = fik._launch_v1(cuda_build.load(fik.SOURCE, fik._declare),
+                              torch.cuda.current_stream().cuda_stream, xb,
+                              film_scale=fs, film_shift=fb, **irb_args(blk))
+        v1_gn1_err, v1_gn2_err = affine_errs(*(v1_t[k] for k in ("a1", "b1", "a2", "b2")))
+        (fa1, fb1), (fa2, fb2), _ = folded_gn_scales(
+            xb, irb_kw["wexp"], irb_kw["gn1_scale"], irb_kw["gn1_bias"],
+            irb_kw["gn2_scale"], irb_kw["gn2_bias"], fs, fb, irb_kw["eps"], irb_kw["silu"])
+        fold_gn1_err, fold_gn2_err = affine_errs(fa1, fb1, fa2, fb2)
+        del x64, pre, xhat64, h1_64, v1_t
+    require(max(v1_gn1_err, v1_gn2_err) <= FOLD_TOL,
+            f"{widest}: fused_irb_v1's GN affines vs float64 statistics: "
+            f"{v1_gn1_err}, {v1_gn2_err}")
+
     # the card's samplers against the CPU's, and fused against unfused on
     # the card: same weights, same numpy noise
     small = 64
@@ -787,6 +995,13 @@ def main() -> int:
          irb_tol=IRB_TOL["float32"], fold_max_abs_err=fold_f32,
          fold_tf32_max_abs_err=fold_tf32, fold_tol=FOLD_TOL,
          fold_output_max_abs=fold_scale,
+         v1_blocks=len(named), v1_launches=v1_path_launches,
+         v1_vs_block_max_abs_err=v1_vs_block[worst_block], v1_worst_block=worst_block,
+         v1_vs_v2_max_abs_err=max(v1_vs_v2.values()),
+         v1_vs_block_max_abs_err_by_block=v1_vs_block,
+         v1_gn1_affine_vs_float64=v1_gn1_err, v1_gn2_affine_vs_float64=v1_gn2_err,
+         fold_gn1_affine_vs_float64=fold_gn1_err, fold_gn2_affine_vs_float64=fold_gn2_err,
+         affine_tol=FOLD_TOL,
          sampler_vs_cpu_max_abs_err=sampler_err,
          fused_vs_unfused_sampler_max_abs_err=fused_vs_unfused,
          sampler_tol=SAMPLER_TOL, seconds=time.perf_counter() - t0)
@@ -1047,6 +1262,12 @@ def main() -> int:
                           "plain_graph_ms", "bound_ms", "flops")}
     irb_err_all = max([irb_err] + [r["max_err"] for r in irb_rows.values()
                                    if r["dtype"] == "float32"])
+    v1_call_rows = [v1_rows[key + (1, "float32")] for key in per_call]
+    v1_per_unet = {f: sum(r[f] * r["per_unet_call"] for r in v1_call_rows)
+                   for f in ("kernel_ms", "plain_ms", "kernel_graph_ms",
+                             "plain_graph_ms", "bound_ms", "v2_kernel_graph_ms")}
+    v1_err_all = max([max(v1_vs_block.values())]
+                     + [r["max_err"] for r in v1_rows.values() if r["dtype"] == "float32"])
     kernels = [{
         "name": "linear_attention",
         "route": "cuda",
@@ -1081,6 +1302,26 @@ def main() -> int:
         "library_ms": None,
         "shape": f"the {IRBS_PER_UNET_CALL} IRBs of one small-UNet call at "
                  f"{size}², batch 1 ({per_unet['flops'] / 1e9:.2f} GFLOP)",
+        "dtype": "float32",
+    }, {
+        "name": "fused_irb_v1",
+        "route": "cuda",
+        "source": "cv_diffusion_tpu_torch/csrc/fused_irb.cu",
+        "replaces": "cv_diffusion_tpu/ops/pallas_irb.py:241",
+        "launches": v1_path_launches,
+        "max_abs_err": v1_err_all,
+        "ms": v1_per_unet["kernel_ms"],
+        "plain_ms": v1_per_unet["plain_ms"],
+        "graph_ms": v1_per_unet["kernel_graph_ms"],
+        "plain_graph_ms": v1_per_unet["plain_graph_ms"],
+        "v2_graph_ms": v1_per_unet["v2_kernel_graph_ms"],
+        "bound_ms": v1_per_unet["bound_ms"],
+        "bound_by": "operations" if all(r["bound_by"] == "operations"
+                                        for r in v1_call_rows) else "bytes",
+        "library_ms": None,
+        "shape": f"the {IRBS_PER_UNET_CALL} IRBs of one small-UNet call at "
+                 f"{size}², batch 1; launched on the {IRBS_PER_UNET_CALL} IRB inputs "
+                 "of a served request (no model path runs it)",
         "dtype": "float32",
     }, {
         "name": "linear_attention_backward",

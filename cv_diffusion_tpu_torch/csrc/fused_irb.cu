@@ -6,10 +6,11 @@
 //   out = (h3 * gate) . W_proj + (x or x . W_skip)          [Cout channels]
 //   gate = sigmoid(fc2(act(fc1(mean_p h3))))                 (SE; 1 without)
 //
-// on x and out laid out NCHW [B, C, H, W]; act is ReLU6 or SiLU. GN1 and
-// GN2+FiLM arrive folded into per-(batch, channel) affines (a1, b1) [B, Cin]
-// and (a2, b2) [B, Chid], computed outside (ops/fused_irb.py), as the JAX
-// package computes them in XLA outside its kernel. The kernel reads x and
+// on x and out laid out NCHW [B, C, H, W]; act is ReLU6 or SiLU. In v2 (the
+// fused_irb_f32/_bf16 entry points) GN1 and GN2+FiLM arrive folded into
+// per-(batch, channel) affines (a1, b1) [B, Cin] and (a2, b2) [B, Chid],
+// computed outside (ops/fused_irb.py), as the JAX package computes them in
+// XLA outside its kernel; v1 (below) computes them itself. The kernel reads x and
 // applies act(a1 * x + b1) itself, as the TPU kernel does (pallas_irb.py:
 // 440-441); x-hat exists in device memory only inside the fold, for its Gram.
 // Every weight is read in the layout of the port's module parameters: W_exp
@@ -50,15 +51,47 @@
 //
 // No atomics anywhere, so reruns are bit-identical.
 //
+// The v1 entry points (fused_irb_v1_*) replace the TPU kernel `fused_irb`
+// (`_kernel`, cv_diffusion_tpu/ops/pallas_irb.py:241), which computes the
+// same function but takes both GroupNorms' statistics itself, GN2's from h1
+// = act(GN1 x) . W_exp: over a sequential (B, 4 phases, row tiles) grid it
+// sums x and x^2 per GN1 group (phase 0), then h1 and h1^2 per GN2 group
+// (phase 1), one pass, var = max(E[v^2] - E[v]^2, 0), then pools h3 and
+// writes out. Here those phases are launches, and the sums are fixed-order
+// partials instead of a carried accumulator:
+//
+//   gn1_stats: grid (pixel groups, B). Warp w sums x and x^2 of channels w,
+//     w + 8, ... over the block's pixels: scratch [B, groups, 2, Cin].
+//   gn_finalize: grid (norm groups, B). Sums one norm's per-channel partials
+//     in a fixed order and writes its per-(batch, channel) affine (a, b)
+//     [B, C], GN2's with gamma, beta and FiLM's (1 + fs), fb folded in.
+//   gn2_stats: the pool pass's grid. A block recomputes h1 (x-hat from the
+//     GN1 affine just written, times W_exp; never in device memory) on 16 x
+//     16-pixel tiles and 32 hidden channels, and writes per-channel partial
+//     sums of h1 and h1^2: scratch [B, pool groups, 2, Chid]. GN2's groups
+//     (4 to 128 channels) may straddle the blocks' 32-channel chunks or hold
+//     several; the finalize pass sums whole groups from the channels.
+//   gn_finalize for GN2, then the passes above (pool, gate, out, combine),
+//     driven with the affines on the device.
+//
+// No tensor op runs between v1's input and its output. The cost against v2
+// is one more expand pass over every pixel (gn2_stats: 2*Cin*Chid FLOP a
+// pixel, about a third of the block's products) in place of the fold's ~40
+// tensor ops around a Gram product. v1's bf16 entry reads x and writes out
+// in bf16 but, as the TPU kernel (every operand cast to f32, only the output
+// rounded), gives its products f32 operands: the operand rounding of v2's
+// bf16 path is a compile-time switch (R below), off for v1.
+//
 // What bounds it on an H100: the three products per pixel are about
 // 2*Chid*(Cin + 9/2 + Cout) FLOP against (Cin + Cout)*4 bytes of x and out,
 // 68 to 1,000 FLOP per byte at the serving shapes, so it is bound by
 // float32 operations on the CUDA cores (67 TFLOP/s) once the hidden tensor
 // stays on chip. x and out stay NCHW (the port's layout): no transposes.
-// The f32 path is IEEE float32 throughout (no TF32, no tensor cores); the
+// The f32 path is IEEE float32 throughout (no TF32, no tensor cores); v2's
 // bf16 path reads and writes bf16 and rounds the operands of the three
 // products to bf16, with f32 accumulation, as the TPU kernel's bf16 dots do
-// (pallas_irb.py:426-427).
+// (pallas_irb.py:426-427). v1 does the same function plus one expand for
+// GN2's statistics, so the same float32 operations bound it.
 // This version is simple: the expand is recomputed for the halo and again in
 // the pool pass, and the products run from shared memory on the CUDA cores.
 // wgmma, TMA and 3xTF32 are later work.
@@ -114,11 +147,31 @@ struct Irb {
   int silu, groups, chunks_per_group, pool_groups;
 };
 
+// What only the v1 entry points read: the norms' parameters, FiLM (rows of
+// [B, >= Chid], row strides given) and the statistics' scratch.
+struct Norms {
+  const float* gn1_scale;
+  const float* gn1_bias;   // [Cin]
+  const float* gn2_scale;
+  const float* gn2_bias;   // [Chid]
+  const float* film_scale;
+  const float* film_shift;  // [B, Chid] rows
+  float* a1;
+  float* b1;
+  float* a2;
+  float* b2;                // written: the affines irb_pool and irb_out read
+  float* stats1;            // [B, stat_groups, 2, Cin]
+  float* stats2;            // [B, pool_groups, 2, Chid]
+  int g1, g2, stat_groups, fs_stride, fb_stride;
+};
+
 // Order of the pointers and ints the entry points take.
 enum Ptr { kX, kA1, kB1, kA2, kB2, kWexp, kWdw, kWproj, kWskip, kSeW1, kSeB1, kSeW2, kSeB2,
-           kOut, kPool, kPooled, kSqueezed, kGate, kPart, kNumPtrs };
+           kOut, kPool, kPooled, kSqueezed, kGate, kPart, kGn1Scale, kGn1Bias, kGn2Scale,
+           kGn2Bias, kFilmScale, kFilmShift, kStats1, kStats2, kNumPtrs };
 enum Dim { kBatch, kCin, kChid, kCout, kCsq, kHeight, kWidth, kSilu, kUseSe, kTileH, kTileW,
-           kChunk, kGroups, kChunksPerGroup, kPoolGroups, kNumDims };
+           kChunk, kGroups, kChunksPerGroup, kPoolGroups, kStatGroups, kG1, kG2,
+           kFsStride, kFbStride, kNumDims };
 
 __device__ __forceinline__ float load_f32(const float* p) { return *p; }
 __device__ __forceinline__ float load_f32(const __nv_bfloat16* p) { return __bfloat162float(*p); }
@@ -127,11 +180,14 @@ __device__ __forceinline__ void store_from_f32(__nv_bfloat16* p, float v) {
   *p = __float2bfloat16(v);
 }
 
-// An operand of a product: as is in f32, rounded to bf16 on the bf16 path.
-template <typename T> __device__ __forceinline__ float op(float v) { return v; }
-template <> __device__ __forceinline__ float op<__nv_bfloat16>(float v) {
+// An operand of a product: rounded to bf16 when R (v2's bf16 path, as the
+// TPU kernel's bf16 dots), as is otherwise (f32, and v1's bf16 path).
+template <bool R> __device__ __forceinline__ float op(float v) { return v; }
+template <> __device__ __forceinline__ float op<true>(float v) {
   return __bfloat162float(__float2bfloat16(v));
 }
+// v2 rounds the products' operands on its bf16 path; v1 never does.
+template <typename T> constexpr bool kRoundV2 = sizeof(T) == 2;
 
 __device__ __forceinline__ float act(float v, int silu) {
   return silu ? v / (1.f + expf(-v)) : fminf(fmaxf(v, 0.f), 6.f);
@@ -185,8 +241,9 @@ template <int N> __device__ __forceinline__ void cp_async_wait() {
 // turns the x it copied into x-hat = act(a1 * x + b1) in place. xs holds 2
 // stages of [KX][HPP], ws 2 of [KX][CC]. a1s, b1s [Cin] and a2s, b2s [CC]
 // must be staged by the caller, and a barrier passed since; the caller
-// synchronises before reading h2s.
-template <typename T, int CC, int RH, int RW>
+// synchronises before reading h2s. With RAW it writes h1 = x-hat . W_exp
+// itself (zero outside the image) and reads no a2s, b2s.
+template <typename T, bool R, int CC, int RH, int RW, bool RAW = false>
 __device__ void expand_region(const Irb& p, int b, int gy0, int gx0, int c0, float* xs,
                               float* ws, float* h2s, const float* a1s, const float* b1s,
                               const float* a2s, const float* b2s) {
@@ -249,7 +306,7 @@ __device__ void expand_region(const Irb& p, int b, int gy0, int gx0, int c0, flo
       for (int j = 0; j < PER; ++j) {
         const int rp = threadIdx.x + j * kThreads;
         if (PER * kThreads == HPP || rp < HPP)
-          xd[k * HPP + rp] = op<T>(act(fmaf(a, xd[k * HPP + rp], c), p.silu));
+          xd[k * HPP + rp] = op<R>(act(fmaf(a, xd[k * HPP + rp], c), p.silu));
       }
     }
   };
@@ -280,8 +337,8 @@ __device__ void expand_region(const Irb& p, int b, int gy0, int gx0, int c0, flo
         const float4 w0 = *reinterpret_cast<const float4*>(wk + k * CC + o * 8);
         const float4 w1 = *reinterpret_cast<const float4*>(wk + k * CC + o * 8 + 4);
         const float xa[4] = {xv.x, xv.y, xv.z, xv.w};
-        const float wa[8] = {op<T>(w0.x), op<T>(w0.y), op<T>(w0.z), op<T>(w0.w),
-                             op<T>(w1.x), op<T>(w1.y), op<T>(w1.z), op<T>(w1.w)};
+        const float wa[8] = {op<R>(w0.x), op<R>(w0.y), op<R>(w0.z), op<R>(w0.w),
+                             op<R>(w1.x), op<R>(w1.y), op<R>(w1.z), op<R>(w1.w)};
 #pragma unroll
         for (int i = 0; i < 4; ++i)
 #pragma unroll
@@ -301,7 +358,10 @@ __device__ void expand_region(const Irb& p, int b, int gy0, int gx0, int c0, flo
         const int gy = gy0 + rp / RW, gx = gx0 + rp % RW;
         const bool inside = rp < HP && gy >= 0 && gy < p.H && gx >= 0 && gx < p.W &&
                             c0 + c < p.Chid;
-        h[i] = inside ? act(fmaf(a2s[c], acc[i][j], b2s[c]), p.silu) : 0.f;
+        if constexpr (RAW)
+          h[i] = inside ? acc[i][j] : 0.f;
+        else
+          h[i] = inside ? act(fmaf(a2s[c], acc[i][j], b2s[c]), p.silu) : 0.f;
       }
       *reinterpret_cast<float4*>(h2s + c * HPP + q * 4) = make_float4(h[0], h[1], h[2], h[3]);
     }
@@ -353,7 +413,7 @@ template <int CO_PAD> struct OutLayout {
   static_assert(KC * P <= XS, "skip staging fits");
 };
 
-template <typename T, int CO_PAD>
+template <typename T, bool R, int CO_PAD>
 __global__ void __launch_bounds__(kThreads, 2) irb_out(Irb p) {
   using L = OutLayout<CO_PAD>;
   constexpr int TH = L::TH, TW = L::TW, CC = L::CC, P = L::P, RW = L::RW, HPP = L::HPP;
@@ -407,8 +467,8 @@ __global__ void __launch_bounds__(kThreads, 2) irb_out(Irb p) {
     }
     for (int i = tid; i < CC * 9; i += kThreads)
       wds[i] = c0 + i / 9 < p.Chid ? p.wdw[static_cast<size_t>(c0) * 9 + i] : 0.f;
-    expand_region<T, CC, TH + 2, TW + 2>(p, b, y0 - 1, x0 - 1, c0, xs, ws, h2s, a1s, b1s, a2s,
-                                         b2s);
+    expand_region<T, R, CC, TH + 2, TW + 2>(p, b, y0 - 1, x0 - 1, c0, xs, ws, h2s, a1s, b1s,
+                                            a2s, b2s);
     __syncthreads();
 
     // depthwise 3x3 and gate: a thread item is 8 consecutive pixels of a row
@@ -434,7 +494,7 @@ __global__ void __launch_bounds__(kThreads, 2) irb_out(Irb p) {
       const float gt = gts[c];
       float* dst = h3s + c * P + y * TW + s * 8;
 #pragma unroll
-      for (int j = 0; j < 8; ++j) dst[j] = op<T>(o[j] * gt);
+      for (int j = 0; j < 8; ++j) dst[j] = op<R>(o[j] * gt);
     }
 
     // project: acc += h3 . W_proj, KP hidden channels of W_proj at a time
@@ -444,7 +504,7 @@ __global__ void __launch_bounds__(kThreads, 2) irb_out(Irb p) {
       // wps[k][co] = W_proj[co][c0 + k0 + k], reading along k
       stage<4>(wps, kn * CO_PAD, [&](int i) { return (i % kn) * CO_PAD + i / kn; }, [&](int i) {
         const int co = co_base + i / kn, c = c0 + k0 + i % kn;
-        return co < p.Cout && c < p.Chid ? op<T>(p.wproj[static_cast<size_t>(co) * p.Chid + c])
+        return co < p.Cout && c < p.Chid ? op<R>(p.wproj[static_cast<size_t>(co) * p.Chid + c])
                                          : 0.f;
       });
       __syncthreads();
@@ -461,13 +521,13 @@ __global__ void __launch_bounds__(kThreads, 2) irb_out(Irb p) {
         const int k = k0 + i / P, pp = i % P;
         const int y = y0 + pp / TW, x = x0 + pp % TW;
         return y < p.H && x < p.W
-                   ? op<T>(load_f32(xb + k * plane + static_cast<size_t>(y) * p.W + x))
+                   ? op<R>(load_f32(xb + k * plane + static_cast<size_t>(y) * p.W + x))
                    : 0.f;
       });
       // wps[k][co] = W_skip[co][k0 + k], reading along k
       stage<4>(wps, kn * CO_PAD, [&](int i) { return (i % kn) * CO_PAD + i / kn; }, [&](int i) {
         const int co = co_base + i / kn, k = k0 + i % kn;
-        return co < p.Cout ? op<T>(p.wskip[static_cast<size_t>(co) * p.Cin + k]) : 0.f;
+        return co < p.Cout ? op<R>(p.wskip[static_cast<size_t>(co) * p.Cin + k]) : 0.f;
       });
       __syncthreads();
       tile_fma<MP>(acc, xs, P, p0, wps, CO_PAD, co0, kn);
@@ -499,7 +559,7 @@ __global__ void __launch_bounds__(kThreads, 2) irb_out(Irb p) {
 // A lane keeps the same pixels of every tile, so it accumulates across the
 // group's tiles and the warp reduces once at the end; only tiles on the
 // image's border add the edge and corner sums.
-template <typename T>
+template <typename T, bool R>
 __global__ void __launch_bounds__(kThreads) irb_pool(Irb p) {
   constexpr int CC = kPoolCC, HPP = kPoolTile * kPoolTile;
   extern __shared__ float4 smem4[];
@@ -535,8 +595,8 @@ __global__ void __launch_bounds__(kThreads) irb_pool(Irb p) {
 
   for (int t = group; t < tiles; t += p.pool_groups) {
     const int ty0 = (t / tiles_x) * kPoolTile, tx0 = (t % tiles_x) * kPoolTile;
-    expand_region<T, CC, kPoolTile, kPoolTile>(p, b, ty0, tx0, c0, xs, ws, h2s, a1s, b1s, a2s,
-                                               b2s);
+    expand_region<T, R, CC, kPoolTile, kPoolTile>(p, b, ty0, tx0, c0, xs, ws, h2s, a1s, b1s,
+                                                  a2s, b2s);
     __syncthreads();
     const bool border = ty0 == 0 || tx0 == 0 || ty0 + kPoolTile >= p.H || tx0 + kPoolTile >= p.W;
 #pragma unroll
@@ -664,6 +724,145 @@ __global__ void __launch_bounds__(kThreads) irb_combine(const float* __restrict_
   }
 }
 
+// v1, GN1 statistics: grid (stat groups, B). The block's pixels are one
+// stretch of each channel plane; warp w sums x and x^2 of channels w, w + 8,
+// ... over them (a lane every 32nd pixel) and writes the channel's partial.
+template <typename T>
+__global__ void __launch_bounds__(kThreads) irb_gn1_stats(Irb p, Norms n) {
+  const int group = blockIdx.x, b = blockIdx.y;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int plane = p.H * p.W;
+  const int per = (plane + n.stat_groups - 1) / n.stat_groups;
+  const int lo = group * per, hi = min(plane, lo + per);
+  const T* xb = static_cast<const T*>(p.x) + static_cast<size_t>(b) * p.Cin * plane;
+  for (int c = warp; c < p.Cin; c += kWarps) {
+    const T* src = xb + static_cast<size_t>(c) * plane;
+    float s = 0.f, s2 = 0.f;
+    for (int i = lo + lane; i < hi; i += 32) {
+      const float v = load_f32(src + i);
+      s += v;
+      s2 = fmaf(v, v, s2);
+    }
+    s = warp_sum(s);
+    s2 = warp_sum(s2);
+    if (lane == 0) {
+      float* dst = n.stats1 + (static_cast<size_t>(b) * n.stat_groups + group) * 2 * p.Cin + c;
+      dst[0] = s;
+      dst[p.Cin] = s2;
+    }
+  }
+}
+
+// v1, GN2 statistics: the pool pass's grid (pixel groups, Chid/32, B). The
+// block recomputes h1 on its group's 16 x 16 tiles for 32 hidden channels
+// and writes per-channel partial sums of h1 and h1^2 (zero outside the
+// image, so a ragged tile adds nothing).
+template <typename T>
+__global__ void __launch_bounds__(kThreads) irb_gn2_stats(Irb p, Norms n) {
+  constexpr int CC = kPoolCC, HPP = kPoolTile * kPoolTile;
+  extern __shared__ float4 smem4[];
+  float* xs = reinterpret_cast<float*>(smem4);
+  float* ws = xs + 2 * KX * HPP;
+  float* h1s = ws + 2 * KX * CC;
+  float* a1s = h1s + CC * HPP;  // [Cin]
+  float* b1s = a1s + p.Cin;
+
+  const int tiles_x = (p.W + kPoolTile - 1) / kPoolTile;
+  const int tiles = tiles_x * ((p.H + kPoolTile - 1) / kPoolTile);
+  const int group = blockIdx.x, c0 = blockIdx.y * CC, b = blockIdx.z;
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  for (int i = tid; i < p.Cin; i += kThreads) {
+    a1s[i] = p.a1[static_cast<size_t>(b) * p.Cin + i];
+    b1s[i] = p.b1[static_cast<size_t>(b) * p.Cin + i];
+  }
+  __syncthreads();
+  constexpr int CPW = CC / kWarps;
+  float s[CPW], s2[CPW];
+#pragma unroll
+  for (int m = 0; m < CPW; ++m) s[m] = s2[m] = 0.f;
+  for (int t = group; t < tiles; t += p.pool_groups) {
+    const int ty0 = (t / tiles_x) * kPoolTile, tx0 = (t % tiles_x) * kPoolTile;
+    expand_region<T, false, CC, kPoolTile, kPoolTile, true>(p, b, ty0, tx0, c0, xs, ws, h1s, a1s,
+                                                            b1s, nullptr, nullptr);
+    __syncthreads();
+#pragma unroll
+    for (int m = 0; m < CPW; ++m) {
+      const float* hc = h1s + (warp + kWarps * m) * HPP;
+#pragma unroll
+      for (int pp = lane; pp < HPP; pp += 32) {
+        const float v = hc[pp];
+        s[m] += v;
+        s2[m] = fmaf(v, v, s2[m]);
+      }
+    }
+    // the next tile's expand overwrites h1s only after its first barrier
+  }
+#pragma unroll
+  for (int m = 0; m < CPW; ++m) {
+    const int c = c0 + warp + kWarps * m;
+    const float t = warp_sum(s[m]), t2 = warp_sum(s2[m]);
+    if (lane == 0 && c < p.Chid) {
+      float* dst = n.stats2 + (static_cast<size_t>(b) * p.pool_groups + group) * 2 * p.Chid + c;
+      dst[0] = t;
+      dst[p.Chid] = t2;
+    }
+  }
+}
+
+// v1: one GroupNorm's per-(batch, channel) affine from the per-channel
+// partials part [B, P, 2, C]: grid (G, B), a block per group. The group's
+// P x C/G partials are summed in a fixed order (thread-strided, then each
+// warp, then the warps in turn), mean = S / n, var = max(S2 / n - mean^2,
+// 0), rstd = rsqrt(var + eps) with n = pixels x C/G, as the TPU kernel
+// (pallas_irb.py:159-168, 184-194). Then, per channel, the norm and FiLM
+// ((v - mean) * rstd * gamma + beta) * (1 + fs) + fb as a * v + b (without
+// FiLM: fs = fb = 0).
+__global__ void __launch_bounds__(kThreads) irb_gn_finalize(
+    const float* __restrict__ part, int P, int C, int G, int pixels, const float* gamma,
+    const float* beta, const float* fs, int fs_stride, const float* fb, int fb_stride, float eps,
+    float* a, float* bias) {
+  __shared__ float red[2][kWarps];
+  __shared__ float stat[2];
+  const int g = blockIdx.x, b = blockIdx.y;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int per = C / G, items = P * per;
+  float s = 0.f, s2 = 0.f;
+  for (int i = threadIdx.x; i < items; i += kThreads) {
+    const float* src = part + (static_cast<size_t>(b) * P + i / per) * 2 * C + g * per + i % per;
+    s += src[0];
+    s2 += src[C];
+  }
+  s = warp_sum(s);
+  s2 = warp_sum(s2);
+  if (lane == 0) {
+    red[0][warp] = s;
+    red[1][warp] = s2;
+  }
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    float t = 0.f, t2 = 0.f;
+    for (int w = 0; w < kWarps; ++w) {
+      t += red[0][w];
+      t2 += red[1][w];
+    }
+    const float count = static_cast<float>(pixels) * static_cast<float>(per);
+    const float mean = t / count;
+    const float var = fmaxf(t2 / count - mean * mean, 0.f);
+    stat[0] = mean;
+    stat[1] = rsqrtf(var + eps);
+  }
+  __syncthreads();
+  const float mean = stat[0], rstd = stat[1];
+  for (int j = threadIdx.x; j < per; j += kThreads) {
+    const int c = g * per + j;
+    const float sc = rstd * gamma[c];
+    const float m = fs ? 1.f + fs[static_cast<size_t>(b) * fs_stride + c] : 1.f;
+    const float f = fb ? fb[static_cast<size_t>(b) * fb_stride + c] : 0.f;
+    a[static_cast<size_t>(b) * C + c] = sc * m;
+    bias[static_cast<size_t>(b) * C + c] = fmaf(beta[c] - mean * sc, m, f);
+  }
+}
+
 // Dynamic shared memory above 48 KB has to be allowed per kernel; done once
 // for the largest request, so a later launch (or a CUDA graph capture) calls
 // no cudaFuncSetAttribute.
@@ -677,25 +876,23 @@ cudaError_t allow_smem(size_t bytes) {
   return err;
 }
 
-template <typename T, int CO_PAD>
+template <typename T, bool R, int CO_PAD>
 cudaError_t launch_out(const Irb& p, const int* dim, cudaStream_t st) {
   using L = OutLayout<CO_PAD>;
   if (dim[kTileH] != L::TH || dim[kTileW] != L::TW || dim[kChunk] != L::CC)
     return cudaErrorInvalidValue;  // the wrapper's tile table disagrees with this build
   const size_t smem = sizeof(float) * (L::FLOATS + 2 * p.Cin);
-  cudaError_t err = allow_smem<irb_out<T, CO_PAD>>(smem);
+  cudaError_t err = allow_smem<irb_out<T, R, CO_PAD>>(smem);
   if (err != cudaSuccess) return err;
   const int tiles = ((p.H + L::TH - 1) / L::TH) * ((p.W + L::TW - 1) / L::TW);
   const int co_blocks = (p.Cout + CO_PAD - 1) / CO_PAD;
   if (p.groups * co_blocks > 65535) return cudaErrorInvalidValue;
-  irb_out<T, CO_PAD><<<dim3(tiles, p.groups * co_blocks, p.B), kThreads, smem, st>>>(p);
+  irb_out<T, R, CO_PAD><<<dim3(tiles, p.groups * co_blocks, p.B), kThreads, smem, st>>>(p);
   return cudaGetLastError();
 }
 
-template <typename T>
-cudaError_t run(const void* const* ptr, const int* dim, void* stream) {
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  Irb p;
+// The Irb of an entry point's arrays; false if they cannot describe an IRB.
+bool parse(const void* const* ptr, const int* dim, Irb& p) {
   p.x = ptr[kX];
   p.a1 = static_cast<const float*>(ptr[kA1]);
   p.b1 = static_cast<const float*>(ptr[kB1]);
@@ -731,24 +928,30 @@ cudaError_t run(const void* const* ptr, const int* dim, void* stream) {
       p.W <= 0 || p.groups <= 0 || p.chunks_per_group <= 0 || !p.x || !p.a1 || !p.b1 || !p.a2 ||
       !p.b2 || !p.wexp || !p.wdw || !p.wproj || !p.out || (p.groups > 1 && !p.part) ||
       (!p.wskip && p.Cin != p.Cout))
-    return cudaErrorInvalidValue;
+    return false;
   if (use_se) {
     if (p.Csq <= 0 || p.pool_groups <= 0 || !p.se_w1 || !p.se_b1 || !p.se_w2 || !p.se_b2 ||
         !p.pool || !p.pooled || !p.squeezed || !p.gate)
-      return cudaErrorInvalidValue;
+      return false;
   } else {
     p.gate = nullptr;
   }
+  return true;
+}
 
+// Everything after the norms' affines: the SE pool and gate, the output
+// pass and the combine. R: round the products' operands to bf16.
+template <typename T, bool R>
+cudaError_t launch_irb(const Irb& p, const int* dim, cudaStream_t st) {
   cudaError_t err;
-  if (use_se) {
+  if (p.gate) {
     const size_t pool_smem =
         sizeof(float) * (2 * KX * kPoolTile * kPoolTile + 2 * KX * kPoolCC +
                          kPoolCC * kPoolTile * kPoolTile + 2 * kPoolCC + 2 * p.Cin);
-    err = allow_smem<irb_pool<T>>(pool_smem);
+    err = allow_smem<irb_pool<T, R>>(pool_smem);
     if (err != cudaSuccess) return err;
-    irb_pool<T><<<dim3(p.pool_groups, (p.Chid + kPoolCC - 1) / kPoolCC, p.B), kThreads, pool_smem,
-                  st>>>(p);
+    irb_pool<T, R><<<dim3(p.pool_groups, (p.Chid + kPoolCC - 1) / kPoolCC, p.B), kThreads,
+                     pool_smem, st>>>(p);
     irb_pooled<<<dim3((p.Chid + 31) / 32, p.B), kThreads, 0, st>>>(p);
     irb_se_fc1<<<dim3((p.Csq + kWarps - 1) / kWarps, p.B), kThreads, 0, st>>>(p);
     irb_se_fc2<<<dim3((p.Chid + kWarps - 1) / kWarps, p.B), kThreads, 0, st>>>(p);
@@ -758,10 +961,10 @@ cudaError_t run(const void* const* ptr, const int* dim, void* stream) {
 
   const int co_pad = p.Cout <= 32 ? 32 : p.Cout <= 64 ? 64 : p.Cout <= 128 ? 128 : 256;
   switch (co_pad) {
-    case 32: err = launch_out<T, 32>(p, dim, st); break;
-    case 64: err = launch_out<T, 64>(p, dim, st); break;
-    case 128: err = launch_out<T, 128>(p, dim, st); break;
-    default: err = launch_out<T, 256>(p, dim, st); break;
+    case 32: err = launch_out<T, R, 32>(p, dim, st); break;
+    case 64: err = launch_out<T, R, 64>(p, dim, st); break;
+    case 128: err = launch_out<T, R, 128>(p, dim, st); break;
+    default: err = launch_out<T, R, 256>(p, dim, st); break;
   }
   if (err != cudaSuccess || p.groups == 1) return err;
   const size_t n = static_cast<size_t>(p.B) * p.Cout * p.H * p.W;
@@ -769,6 +972,64 @@ cudaError_t run(const void* const* ptr, const int* dim, void* stream) {
   const int blocks = static_cast<int>(want < 2048 ? want : 2048);
   irb_combine<T><<<blocks, kThreads, 0, st>>>(p.part, static_cast<T*>(p.out), n, p.groups);
   return cudaGetLastError();
+}
+
+// v2: the affines arrive folded.
+template <typename T>
+cudaError_t run_v2(const void* const* ptr, const int* dim, void* stream) {
+  Irb p;
+  if (!parse(ptr, dim, p)) return cudaErrorInvalidValue;
+  return launch_irb<T, kRoundV2<T>>(p, dim, static_cast<cudaStream_t>(stream));
+}
+
+// v1: the norms' statistics and affines first, written into the a1, b1,
+// a2, b2 arrays, then the same passes, with f32 operands in every product.
+template <typename T>
+cudaError_t run_v1(const void* const* ptr, const int* dim, float eps, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  Irb p;
+  if (!parse(ptr, dim, p)) return cudaErrorInvalidValue;
+  Norms n;
+  n.gn1_scale = static_cast<const float*>(ptr[kGn1Scale]);
+  n.gn1_bias = static_cast<const float*>(ptr[kGn1Bias]);
+  n.gn2_scale = static_cast<const float*>(ptr[kGn2Scale]);
+  n.gn2_bias = static_cast<const float*>(ptr[kGn2Bias]);
+  n.film_scale = static_cast<const float*>(ptr[kFilmScale]);
+  n.film_shift = static_cast<const float*>(ptr[kFilmShift]);
+  n.a1 = const_cast<float*>(p.a1);
+  n.b1 = const_cast<float*>(p.b1);
+  n.a2 = const_cast<float*>(p.a2);
+  n.b2 = const_cast<float*>(p.b2);
+  n.stats1 = static_cast<float*>(const_cast<void*>(ptr[kStats1]));
+  n.stats2 = static_cast<float*>(const_cast<void*>(ptr[kStats2]));
+  n.g1 = dim[kG1];
+  n.g2 = dim[kG2];
+  n.stat_groups = dim[kStatGroups];
+  n.fs_stride = dim[kFsStride];
+  n.fb_stride = dim[kFbStride];
+  if (!n.gn1_scale || !n.gn1_bias || !n.gn2_scale || !n.gn2_bias || !n.film_scale ||
+      !n.film_shift || !n.stats1 || !n.stats2 || n.g1 <= 0 || p.Cin % n.g1 || n.g2 <= 0 ||
+      p.Chid % n.g2 || n.stat_groups <= 0 || p.pool_groups <= 0 || n.fs_stride < p.Chid ||
+      n.fb_stride < p.Chid || !(eps > 0.f))
+    return cudaErrorInvalidValue;
+  const int pixels = p.H * p.W;
+
+  irb_gn1_stats<T><<<dim3(n.stat_groups, p.B), kThreads, 0, st>>>(p, n);
+  irb_gn_finalize<<<dim3(n.g1, p.B), kThreads, 0, st>>>(n.stats1, n.stat_groups, p.Cin, n.g1,
+                                                       pixels, n.gn1_scale, n.gn1_bias, nullptr,
+                                                       0, nullptr, 0, eps, n.a1, n.b1);
+  const size_t stats_smem = sizeof(float) * (2 * KX * kPoolTile * kPoolTile + 2 * KX * kPoolCC +
+                                             kPoolCC * kPoolTile * kPoolTile + 2 * p.Cin);
+  cudaError_t err = allow_smem<irb_gn2_stats<T>>(stats_smem);
+  if (err != cudaSuccess) return err;
+  irb_gn2_stats<T><<<dim3(p.pool_groups, (p.Chid + kPoolCC - 1) / kPoolCC, p.B), kThreads,
+                     stats_smem, st>>>(p, n);
+  irb_gn_finalize<<<dim3(n.g2, p.B), kThreads, 0, st>>>(
+      n.stats2, p.pool_groups, p.Chid, n.g2, pixels, n.gn2_scale, n.gn2_bias, n.film_scale,
+      n.fs_stride, n.film_shift, n.fb_stride, eps, n.a2, n.b2);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  return launch_irb<T, false>(p, dim, st);
 }
 
 }  // namespace
@@ -779,11 +1040,19 @@ int fused_irb_num_ptrs() { return kNumPtrs; }
 int fused_irb_num_dims() { return kNumDims; }
 
 cudaError_t fused_irb_f32(const void* const* ptr, const int* dim, void* stream) {
-  return run<float>(ptr, dim, stream);
+  return run_v2<float>(ptr, dim, stream);
 }
 
 cudaError_t fused_irb_bf16(const void* const* ptr, const int* dim, void* stream) {
-  return run<__nv_bfloat16>(ptr, dim, stream);
+  return run_v2<__nv_bfloat16>(ptr, dim, stream);
+}
+
+cudaError_t fused_irb_v1_f32(const void* const* ptr, const int* dim, float eps, void* stream) {
+  return run_v1<float>(ptr, dim, eps, stream);
+}
+
+cudaError_t fused_irb_v1_bf16(const void* const* ptr, const int* dim, float eps, void* stream) {
+  return run_v1<__nv_bfloat16>(ptr, dim, eps, stream);
 }
 
 const char* fused_irb_error_string(cudaError_t err) { return cudaGetErrorString(err); }

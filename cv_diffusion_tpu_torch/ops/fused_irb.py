@@ -1,19 +1,23 @@
 """The fused stride-1 inverted residual block (IRB) forward, in plain PyTorch.
 
-Counterpart of ``fused_irb_v2`` in ``cv_diffusion_tpu/ops/pallas_irb.py``:
+Counterparts of the JAX package's two fused IRB kernels
+(``cv_diffusion_tpu/ops/pallas_irb.py``), which compute the same function:
 
     out = project(SE(dw3x3(act(GN2⊕FiLM(expand(act(GN1 x))))))) + residual
 
-with both GroupNorms folded into per-(batch, channel) affines before the
-kernel runs (:func:`folded_gn_scales`), so the kernel itself computes
+``fused_irb_v2`` folds both GroupNorms into per-(batch, channel) affines
+before the kernel runs (:func:`folded_gn_scales`: GN2 from the Gram of x̂,
+so h1 is never formed), so the kernel itself computes
 
     h2  = act(a2·((act(a1·x + b1))·W_exp) + b2)
     h3  = dw3x3(h2)            zero rows and columns outside the image
     out = (h3·gate)·W_proj + (x or x·W_skip)
 
-:func:`fused_irb_v2_plain` is the plain version of the hand-written CUDA
-kernel in :mod:`.fused_irb_kernel`; the CPU tests hold it against the JAX
-package, and ``chip_smoke.py`` holds the kernel against it on the card.
+``fused_irb`` (v1) takes both GroupNorms' statistics inside the kernel, GN2's
+from h1 itself. :func:`fused_irb_v2_plain` and :func:`fused_irb_v1_plain`
+are the plain versions of the hand-written CUDA kernel's two entry points in
+:mod:`.fused_irb_kernel`; the CPU tests hold them against the JAX package,
+and ``chip_smoke.py`` holds the kernel against them on the card.
 
 Layouts are the port's: x and out NCHW, and every weight in the layout of the
 port's module parameters (``wexp`` [Chid, Cin], ``wdw`` [Chid, 3, 3],
@@ -29,7 +33,8 @@ import torch
 import torch.nn.functional as F
 
 from . import upcast
-from .norms import gn2_film_affine_gram, gn_num_groups
+from .norms import (gn2_film_affine_gram, gn_num_groups, group_norm,
+                    group_norm_film)
 
 
 def _act(v: torch.Tensor, silu: bool) -> torch.Tensor:
@@ -100,6 +105,17 @@ def fused_irb_v2_plain(x: torch.Tensor, wexp: torch.Tensor, wdw: torch.Tensor,
 
     h1 = torch.einsum("bkhw,ck->bchw", xhat, wexp.reshape(chid, -1).to(dt))
     h2 = _act(h1 * per_channel(a2) + per_channel(b2), silu)
+    return _irb_tail(h2, xf, wdw, wproj, se_w1, se_b1, se_w2, se_b2, wskip,
+                     silu, use_se).to(x.dtype)
+
+
+def _irb_tail(h2, xf, wdw, wproj, se_w1, se_b1, se_w2, se_b2, wskip, silu,
+              use_se):
+    """depthwise 3×3 (zero padding), the SE gate from the mean of h3 itself,
+    project, and the residual: what both versions do after h2, in h2's
+    dtype."""
+    dt = h2.dtype
+    chid = h2.shape[1]
     h3 = F.conv2d(h2, wdw.reshape(chid, 1, 3, 3).to(dt), padding=1,
                   groups=chid)
     if use_se:
@@ -109,16 +125,61 @@ def fused_irb_v2_plain(x: torch.Tensor, wexp: torch.Tensor, wdw: torch.Tensor,
     out = torch.einsum("bchw,oc->bohw", h3,
                        wproj.reshape(wproj.shape[0], chid).to(dt))
     if wskip is not None:
-        out = out + torch.einsum("bkhw,ok->bohw", xf,
-                                 wskip.reshape(wskip.shape[0], -1).to(dt))
-    else:
-        out = out + xf
-    return out.to(x.dtype)
+        return out + torch.einsum("bkhw,ok->bohw", xf,
+                                  wskip.reshape(wskip.shape[0], -1).to(dt))
+    return out + xf
+
+
+def check_tile_h(height: int, tile_h: int) -> None:
+    """Raise unless ``fused_irb``'s (v1) row tile, ``min(tile_h, height)``,
+    divides the image's height, as the TPU kernel requires
+    (``pallas_irb.py:269-271``). The tile does not change the result."""
+    tile = min(tile_h, height)
+    if tile < 1 or height % tile:
+        raise ValueError(f"tile_h {tile_h} (taken as {tile}) does not divide "
+                         f"the image's {height} rows")
+
+
+def fused_irb_v1_plain(x: torch.Tensor, wexp: torch.Tensor, wdw: torch.Tensor,
+                       wproj: torch.Tensor, gn1_scale: torch.Tensor,
+                       gn1_bias: torch.Tensor, gn2_scale: torch.Tensor,
+                       gn2_bias: torch.Tensor, film_scale: torch.Tensor,
+                       film_shift: torch.Tensor,
+                       se_w1: Optional[torch.Tensor] = None,
+                       se_b1: Optional[torch.Tensor] = None,
+                       se_w2: Optional[torch.Tensor] = None,
+                       se_b2: Optional[torch.Tensor] = None,
+                       wskip: Optional[torch.Tensor] = None,
+                       eps: float = 1e-5, silu: bool = False,
+                       use_se: bool = True, tile_h: int = 16) -> torch.Tensor:
+    """The stride-1 IRB forward of ``fused_irb`` (v1, ``pallas_irb.py:241``),
+    in plain PyTorch: the arguments of :func:`fused_irb_v2_plain`, and
+    ``tile_h``, which is checked as the TPU kernel checks it
+    (:func:`check_tile_h`) and changes nothing else.
+
+    Step by step as v1 computes it, in at least float32 (float64 stays
+    float64) with only the output cast to x's dtype: GN1 over x; h1 =
+    act(GN1 x)·W_exp, formed; GN2's statistics over h1 itself, one pass
+    (E[h1²] − E[h1]² clamped at 0); FiLM as ((h1 − μ)·rstd·γ + β)·(1 + fs) +
+    fb; act; then the same depthwise, SE, project and residual as v2.
+    """
+    check_tile_h(x.shape[2], tile_h)
+    xf = upcast(x)
+    dt = xf.dtype
+    chid = wexp.shape[0]
+    xhat = _act(group_norm(xf, gn1_scale, gn1_bias, gn_num_groups(xf.shape[1]),
+                           eps), silu)
+    h1 = torch.einsum("bkhw,ck->bchw", xhat, wexp.reshape(chid, -1).to(dt))
+    h2 = _act(group_norm_film(h1, gn2_scale, gn2_bias, film_scale, film_shift,
+                              gn_num_groups(chid), eps), silu)
+    return _irb_tail(h2, xf, wdw, wproj, se_w1, se_b1, se_w2, se_b2, wskip,
+                     silu, use_se).to(x.dtype)
 
 
 def irb_args(block) -> dict:
     """The weights and settings of a port ``InvertedResidualBlock`` as
-    keyword arguments of :func:`fused_irb_v2_plain` (all but x and FiLM).
+    keyword arguments of :func:`fused_irb_v2_plain` and
+    :func:`fused_irb_v1_plain` (all but x and FiLM).
     Counterpart of ``irb_params_from_flax`` (``pallas_irb.py:356-374``)."""
     args = dict(
         wexp=block.expand.weight[:, :, 0, 0],

@@ -6,7 +6,8 @@ tensorstore, PyYAML, OpenCV, Pillow or safetensors. A subprocess here refuses
 to import any of those, or anything of the JAX package, and under that block
 imports every module of the port and ``chip_smoke``, then serves one request
 through ``ServingPipeline.from_config`` on the CPU, the same request with
-``use_pallas_irb`` on, and takes one train step.
+``use_pallas_irb`` on, runs ``fused_irb_v1`` on one block, and takes one
+train step.
 """
 
 import os
@@ -69,6 +70,20 @@ _CHILD = textwrap.dedent("""
     fused = ServingPipeline(model, schedule, pipe.config, device="cpu")(img, seed=0)
     assert fused.shape == img.shape and fused.dtype == np.uint8
     assert np.abs(fused.astype(int) - out.astype(int)).max() <= 1
+
+    # fused_irb (v1), whose wrapper no model path calls, on CPU tensors
+    import torch
+    from cv_diffusion_tpu_torch.models.blocks import InvertedResidualBlock
+    from cv_diffusion_tpu_torch.ops.fused_irb import irb_args
+    from cv_diffusion_tpu_torch.ops.fused_irb_kernel import fused_irb_v1
+    blk = dict(model.unet.named_modules())["encoder_blocks.0.0"]
+    assert isinstance(blk, InvertedResidualBlock)
+    xb = torch.randn(1, blk.expand.weight.shape[1], 16, 16)
+    with torch.no_grad():
+        fs, fb = blk.time_mlp(torch.randn(1, blk.time_mlp[1].in_features)).chunk(2, dim=-1)
+        v1 = fused_irb_v1(xb, film_scale=fs, film_shift=fb, **irb_args(blk))
+    assert v1.shape == (1, blk.project.weight.shape[0], 16, 16)
+    assert bool(torch.isfinite(v1).all()) and fused_irb_v1.launches == 0
 
     # one train step of the tiny UNet on synthetic data
     import torch
