@@ -7,18 +7,21 @@ Phases, one JSON line each on stdout (warnings and build logs go to stderr):
 
 1. device  -- the card's name and power limit (``nvidia-smi``).
 2. build   -- the hand-written kernels, each built with its own ``nvcc`` from
-   ``csrc/``, all started together.
+   ``csrc/``, all started together; for the fused IRB, every kernel's
+   registers and spill bytes from the ptxas report (its output and pool
+   passes must not spill).
 3. kernel  -- each kernel against its plain PyTorch version on the card, at
    the main paths' shapes and the JAX tests' edge shapes, with CUDA-event
    times per call (``*_ms``, host launch cost included; ``*_graph_ms``, one
    call replayed from a CUDA graph, device time alone) and the least time
-   the card could take (``bound``). Linear attention, forward and backward,
-   at ``mid_attn``'s shapes (batch 1 and 8); the fused IRB, v2 and v1 (both
-   GroupNorms' statistics in the kernel) side by side on the same inputs,
-   at every distinct IRB shape of the small UNet at 256², batch 1 and 8, and
-   at the widest blocks of the base and large UNets (Cout 384 and 512); v1
-   also at the JAX tests' shapes (``tile_h=8``) and in bf16 at the widest
-   block of each UNet level.
+   the card could take (``bound``; for the fused IRB also ``tc_bound_ms``,
+   its products on the tensor cores: 3×TF32 or bf16). Linear attention,
+   forward and backward, at ``mid_attn``'s shapes (batch 1 and 8); the
+   fused IRB, v2 and v1 (both GroupNorms' statistics in the kernel) side by
+   side on the same inputs, at every distinct IRB shape of the small UNet at
+   256², batch 1 and 8, and at the widest blocks of the base and large
+   UNets (Cout 384 and 512); v1 also at the JAX tests' shapes (``tile_h=8``)
+   and in bf16 at the widest block of each UNet level.
 4. serve   -- the main path at full width: ``ServingPipeline`` for the small
    1-step student (``artifacts/vreg1b_gt03_ema``, grid [739]), the 2-step
    one (``vreg2b_gt03_ema``, [739, 259]), and the 1-step student with
@@ -70,6 +73,7 @@ import dataclasses
 import json
 import math
 import os
+import re
 import shutil
 import subprocess
 import sys
@@ -86,6 +90,10 @@ SERVED = (("vreg1b_gt03_ema", "vreg1b_gt03_ema", (739,), False),
 IRBS_PER_UNET_CALL = 22       # small UNet: 8 encoder, 2 middle, 12 decoder
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM device memory
 F32_FLOPS_PER_S = 67e12       # H100 SXM float32 outside the tensor cores
+TF32_FLOPS_PER_S = 495e12     # H100 SXM dense TF32 on the tensor cores ...
+BF16_FLOPS_PER_S = 989e12     # ... and bf16
+# the fused IRB's output and pool passes must not spill (ptxas report)
+NO_SPILL_KERNELS = ("irb_out", "irb_pool")
 TOL = {"float32": 2e-5, "bfloat16": 2e-2}   # tests/test_pallas_kernels.py:43,60
 # linear attention's backward: 5e-4 in float32 (tests/test_pallas_kernels.py:
 # 81); in bfloat16 the outputs are rounded to bf16 (8 bits) at |d| up to ~0.3,
@@ -131,7 +139,7 @@ KINDS = (
     ("linear_attention", ("reduce_kv", "apply_kv", "combine_partials", "bwd_q",
                           "bwd_kv")),
     ("fused_irb", ("irb_out", "irb_pool", "irb_se_fc", "irb_combine",
-                   "irb_gn1_stats", "irb_gn2_stats", "irb_gn_finalize")),
+                   "irb_gn1_stats", "irb_gn_finalize")),
     ("conv", ("conv", "cudnn", "implicit", "winograd", "fft",
               "depthwise", "dgrad", "wgrad", "fprop")),
     ("gemm", ("gemm", "sgemm", "cutlass", "ampere", "sm90", "magma")),
@@ -140,6 +148,31 @@ KINDS = (
     ("copy/cat", ("copy", "cat", "memcpy", "memset", "fill")),
     ("elementwise", ("elementwise", "vectorized", "unrolled")),
 )
+
+
+def ptxas_report(log: str) -> dict:
+    """Registers and spill bytes of each kernel in an ``nvcc -Xptxas=-v``
+    log, by a short name: ``irb_out<float,false,32>`` for the mangled
+    ``..irb_outIfLb0ELi32EEE..``."""
+    kernels, cur = {}, None
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", line)
+        if m:
+            mangled = m.group(1)
+            t = re.search(r"\d+((?:irb|linear)_\w+?)(?:I(.*?E)E|E)", mangled)
+            args = re.findall(r"13__nv_bfloat16|f|L[bi]\d+E", (t and t.group(2)) or "")
+            names = {"f": "float", "13__nv_bfloat16": "bf16", "Lb0E": "false", "Lb1E": "true"}
+            name = mangled if not t else t.group(1) + (
+                "<" + ",".join(names.get(a, a[2:-1]) for a in args) + ">" if args else "")
+            cur = kernels.setdefault(name, {"registers": None, "spill_bytes": 0})
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if m and cur is not None:
+            cur["spill_bytes"] += int(m.group(1)) + int(m.group(2))
+        m = re.search(r"Used (\d+) registers", line)
+        if m and cur is not None:
+            cur["registers"] = int(m.group(1))
+    return kernels
 
 
 def kernel_kind(name: str) -> str:
@@ -262,10 +295,19 @@ def main() -> int:
     wrappers = (("linear_attention", lak), ("fused_irb (v2, v1)", fik))
     with ThreadPoolExecutor(len(wrappers)) as pool:
         builds = list(pool.map(timed_build, (m for _, m in wrappers)))
-    for (name, _), (built, seconds) in zip(wrappers, builds):
+    for (name, module), (built, seconds) in zip(wrappers, builds):
         print(built.log, file=sys.stderr)
+        fields = {}
+        if module is fik:      # registers and spills of each fused-IRB kernel
+            report = ptxas_report(built.log)
+            require(any(k.startswith(NO_SPILL_KERNELS) for k in report),
+                    f"no ptxas report of {NO_SPILL_KERNELS} in the build log")
+            spilled = {k: v for k, v in report.items()
+                       if k.startswith(NO_SPILL_KERNELS) and v["spill_bytes"]}
+            require(not spilled, f"fused-IRB passes spill: {spilled}")
+            fields["kernels"] = report
         emit("build", kernel=name, library=os.path.relpath(built.path, ROOT),
-             compiled=built.compiled, seconds=seconds)
+             compiled=built.compiled, seconds=seconds, **fields)
     emit("build_done", seconds=time.perf_counter() - t0)
 
     # 3. kernel vs plain --------------------------------------------------
@@ -465,6 +507,22 @@ def main() -> int:
                          + (cin * cout if kw.get("wskip") is not None else 0))
         return moved, flops
 
+    def irb_tc_bound(x, kw, bf16_products):
+        """The least time of one call on the tensor cores (ms): the bytes of
+        irb_work; the products' FLOP three times at the TF32 rate (3×TF32:
+        float32 operands, v2's f32 entry and both of v1's) or once at the
+        bf16 rate (v2's bf16 entry); the depthwise at the float32 rate."""
+        b, cin, height, width = x.shape
+        chid, cout = kw["wexp"].shape[0], kw["wproj"].shape[0]
+        n = b * height * width
+        moved, _ = irb_work(x, kw)
+        products = 2 * n * (cin * chid + chid * cout
+                            + (cin * cout if kw.get("wskip") is not None else 0))
+        t_products = (products / BF16_FLOPS_PER_S if bf16_products
+                      else 3 * products / TF32_FLOPS_PER_S)
+        return max(moved / HBM_BYTES_PER_S, t_products,
+                   2 * n * 9 * chid / F32_FLOPS_PER_S) * 1e3
+
     def irb_v1_compare(x, kw):
         """v1 against its plain version: (max abs error, its bound)."""
         fik.fused_irb_v1.launches = 0
@@ -509,7 +567,8 @@ def main() -> int:
                    kernel_ms=cuda_ms(kernel, 20, 3), plain_ms=cuda_ms(plain, 20, 3),
                    kernel_graph_ms=graph_ms(kernel, 20, 3),
                    plain_graph_ms=graph_ms(plain, 20, 3),
-                   bound_ms=bound_ms, bound_by=bound_by, bytes=moved, flops=flops,
+                   bound_ms=bound_ms, bound_by=bound_by,
+                   tc_bound_ms=irb_tc_bound(x, kw, False), bytes=moved, flops=flops,
                    library_ms=None,
                    library="none: no single PyTorch call computes the fused IRB")
         if v2_row is not None:
@@ -557,8 +616,10 @@ def main() -> int:
                            kernel_ms=cuda_ms(kernel, 20, 3), plain_ms=cuda_ms(plain, 20, 3),
                            kernel_graph_ms=graph_ms(kernel, 20, 3),
                            plain_graph_ms=graph_ms(plain, 20, 3),
-                           bound_ms=bound_ms, bound_by=bound_by, bytes=moved,
-                           flops=flops, plan=list(fik.plan(b, chid, cout, height, height)),
+                           bound_ms=bound_ms, bound_by=bound_by,
+                           tc_bound_ms=irb_tc_bound(x, kw, dtype == torch.bfloat16),
+                           bytes=moved, flops=flops,
+                           plan=list(fik.plan(b, chid, cout, height, height)),
                            library_ms=None,
                            library="none: no single PyTorch call computes the fused IRB")
                 irb_rows[(cin, chid, cout, height, b, dname)] = row
@@ -596,7 +657,8 @@ def main() -> int:
                        kernel_ms=cuda_ms(kernel, 20, 3), plain_ms=cuda_ms(plain, 20, 3),
                        kernel_graph_ms=graph_ms(kernel, 20, 3),
                        plain_graph_ms=graph_ms(plain, 20, 3), bound_ms=bound_ms,
-                       bound_by=bound_by, bytes=moved, flops=flops,
+                       bound_by=bound_by, tc_bound_ms=irb_tc_bound(x, kw, False),
+                       bytes=moved, flops=flops,
                        plan=list(fik.plan(b, 4 * cin, cout, 32, 32)), library_ms=None)
             emit("kernel", **row)
             v1_rows[(variant, cin, b)] = irb_v1_row(x, kw, row, variant=variant)
@@ -1259,13 +1321,14 @@ def main() -> int:
     call_rows = [irb_rows[key + (1, "float32")] for key in per_call]
     per_unet = {f: sum(r[f] * r["per_unet_call"] for r in call_rows)
                 for f in ("kernel_ms", "plain_ms", "kernel_graph_ms",
-                          "plain_graph_ms", "bound_ms", "flops")}
+                          "plain_graph_ms", "bound_ms", "tc_bound_ms", "flops")}
     irb_err_all = max([irb_err] + [r["max_err"] for r in irb_rows.values()
                                    if r["dtype"] == "float32"])
     v1_call_rows = [v1_rows[key + (1, "float32")] for key in per_call]
     v1_per_unet = {f: sum(r[f] * r["per_unet_call"] for r in v1_call_rows)
                    for f in ("kernel_ms", "plain_ms", "kernel_graph_ms",
-                             "plain_graph_ms", "bound_ms", "v2_kernel_graph_ms")}
+                             "plain_graph_ms", "bound_ms", "tc_bound_ms",
+                             "v2_kernel_graph_ms")}
     v1_err_all = max([max(v1_vs_block.values())]
                      + [r["max_err"] for r in v1_rows.values() if r["dtype"] == "float32"])
     kernels = [{
@@ -1299,6 +1362,7 @@ def main() -> int:
         "bound_ms": per_unet["bound_ms"],
         "bound_by": "operations" if all(r["bound_by"] == "operations"
                                         for r in call_rows) else "bytes",
+        "tc_bound_ms": per_unet["tc_bound_ms"],
         "library_ms": None,
         "shape": f"the {IRBS_PER_UNET_CALL} IRBs of one small-UNet call at "
                  f"{size}², batch 1 ({per_unet['flops'] / 1e9:.2f} GFLOP)",
@@ -1318,6 +1382,7 @@ def main() -> int:
         "bound_ms": v1_per_unet["bound_ms"],
         "bound_by": "operations" if all(r["bound_by"] == "operations"
                                         for r in v1_call_rows) else "bytes",
+        "tc_bound_ms": v1_per_unet["tc_bound_ms"],
         "library_ms": None,
         "shape": f"the {IRBS_PER_UNET_CALL} IRBs of one small-UNet call at "
                  f"{size}², batch 1; launched on the {IRBS_PER_UNET_CALL} IRB inputs "

@@ -6,6 +6,18 @@ The kernel library (``csrc/fused_irb.cu``) replaces the TPU kernels
 is built from the package's own sources with one ``nvcc`` call and loaded
 through ``ctypes`` at first use (:mod:`.cuda_build`).
 
+Its three products (expand, project, skip) run on Hopper's tensor cores as
+warp-level ``mma.sync``: float32 operands split in two TF32 parts (3×TF32,
+within a small factor of a float32 product), v2's bf16 entry in bf16. An
+output block stages x̂ = act(a1·x + b1) of its tile and halo once and keeps
+it across every hidden chunk where it fits (the source's note lists which
+shapes stream it instead); the SE pool pass reuses one staged tile for up to
+four hidden chunks. What bounds it on the card is 3×TF32 tensor work, with
+bytes close behind at the 32-channel blocks at 256². :func:`plan` picks the
+tiles and chunks from :data:`OUT_TILES` (the source's ``OutCfg``, which the
+launcher checks) and splits the hidden channels over blocks where the tiles
+alone cannot fill the card.
+
 :func:`fused_irb_v2` takes the arguments of :func:`.fused_irb.
 fused_irb_v2_plain`. For tensors on the CPU it runs that plain version; for
 CUDA tensors it folds the GroupNorms with :func:`.fused_irb.folded_gn_scales`
@@ -39,29 +51,35 @@ SOURCE = cuda_build.source("fused_irb.cu")
 # Output tile (rows, columns) and hidden chunk of the output pass, by the
 # output channels padded to 32, 64, 128 or 256 (wider outputs: blocks of
 # 256); the same table as OutCfg in the source, which the launcher checks.
-OUT_TILES = {32: (16, 16, 24), 64: (16, 16, 24), 128: (8, 16, 40),
-             256: (8, 8, 80)}
-POOL_TILE, POOL_CHUNK = 16, 32       # the SE pool pass: 16×16 pixels × 32 channels
+OUT_TILES = {32: (12, 16, 64), 64: (8, 16, 48), 128: (8, 16, 64),
+             256: (8, 8, 48)}
+# The SE pool pass (and v1's GN2 statistics): 8×16-pixel tiles, hidden
+# chunks of 64 channels, at most four chunks a block on one staged x̂.
+POOL_TILE, POOL_CHUNK, POOL_CHUNKS = (8, 16), 64, 4
 # Eight blocks of 256 output channels, four times the widest IRB output of
 # any variant (large: 512); each block recomputes its tile's expand.
 MAX_COUT = 2048
-# Two blocks of the output pass fit on each of an H100's 132 SMs; split the
-# hidden channels over blocks only while the tiles alone leave SMs idle.
-_TARGET_BLOCKS = 264
-_MAX_POOL_GROUPS = 64
+# One block of the output pass fits on each of an H100's 132 SMs (its shared
+# memory), two or more of the pool pass; split the hidden channels over
+# blocks only while the tiles alone leave SMs idle.
+_OUT_BLOCKS = 132
+_POOL_BLOCKS = 264
+_MAX_POOL_GROUPS = 128
 _STAT_PIXELS = 256    # v1's GN1 statistics: at least this many pixels a block
 
 # Order of the pointer and int arrays the entry points take (enum Ptr and
 # enum Dim in the source).
-# The last eight pointers and five ints are v1's alone (its a1 .. b2 are
-# scratch that the kernel writes).
+# The last eight pointers and the five ints stat_groups .. fb_stride are
+# v1's alone (its a1 .. b2 are scratch that the kernel writes); pool_chunks,
+# the last int, is the pool pass's.
 _PTRS = ("x", "a1", "b1", "a2", "b2", "wexp", "wdw", "wproj", "wskip",
          "se_w1", "se_b1", "se_w2", "se_b2", "out", "pool", "pooled",
          "squeezed", "gate", "part", "gn1_scale", "gn1_bias", "gn2_scale",
          "gn2_bias", "film_scale", "film_shift", "stats1", "stats2")
 _DIMS = ("batch", "cin", "chid", "cout", "csq", "height", "width", "silu",
          "use_se", "tile_h", "tile_w", "chunk", "groups", "chunks_per_group",
-         "pool_groups", "stat_groups", "g1", "g2", "fs_stride", "fb_stride")
+         "pool_groups", "stat_groups", "g1", "g2", "fs_stride", "fb_stride",
+         "pool_chunks")
 
 
 class Plan(NamedTuple):
@@ -76,6 +94,7 @@ class Plan(NamedTuple):
                            # (and in v1's GN2 statistics)
     co_blocks: int         # blocks over the output channels (256 each)
     stat_groups: int       # blocks over the pixels in v1's GN1 statistics
+    pool_chunks: int       # hidden chunks of the pool pass a block takes
 
 
 def plan(batch: int, chid: int, cout: int, height: int, width: int) -> Plan:
@@ -87,16 +106,21 @@ def plan(batch: int, chid: int, cout: int, height: int, width: int) -> Plan:
     th, tw, cc = OUT_TILES[co_pad]
     blocks = math.ceil(height / th) * math.ceil(width / tw) * batch * co_blocks
     chunks = math.ceil(chid / cc)
-    want = min(chunks, max(1, _TARGET_BLOCKS // blocks))
+    want = min(chunks, max(1, _OUT_BLOCKS // blocks))
     per_group = math.ceil(chunks / want)
-    pool_tiles = math.ceil(height / POOL_TILE) * math.ceil(width / POOL_TILE)
+    pool_tiles = math.ceil(height / POOL_TILE[0]) * math.ceil(width / POOL_TILE[1])
+    pool_chunks_all = math.ceil(chid / POOL_CHUNK)
+    # a block reuses its staged x̂ for up to POOL_CHUNKS hidden chunks, fewer
+    # while the blocks would not fill the card
+    pool_chunks = min(POOL_CHUNKS, pool_chunks_all,
+                      max(1, pool_chunks_all * pool_tiles * batch // _POOL_BLOCKS))
+    hidden_blocks = math.ceil(pool_chunks_all / pool_chunks)
     pool_groups = min(pool_tiles, _MAX_POOL_GROUPS,
-                      max(1, _TARGET_BLOCKS
-                          // (math.ceil(chid / POOL_CHUNK) * batch)))
+                      max(1, _POOL_BLOCKS // (hidden_blocks * batch)))
     stat_groups = max(1, min(math.ceil(height * width / _STAT_PIXELS),
-                             _TARGET_BLOCKS // batch))
+                             _POOL_BLOCKS // batch))
     return Plan(th, tw, cc, math.ceil(chunks / per_group), per_group,
-                pool_groups, co_blocks, stat_groups)
+                pool_groups, co_blocks, stat_groups, pool_chunks)
 
 
 def build() -> cuda_build.Built:

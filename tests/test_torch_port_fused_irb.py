@@ -288,10 +288,11 @@ def test_tile_table_matches_the_source():
     with open(fik.SOURCE) as f:
         src = f.read()
     table = {int(co): (int(th), int(tw), int(cc)) for co, th, tw, cc in re.findall(
-        r"OutCfg<(\d+)> \{ static constexpr int TH = (\d+), TW = (\d+), CC = (\d+);", src)}
+        r"OutCfg<(\d+)> \{ static constexpr int TH = (\d+), TW = (\d+), CC = (\d+),", src)}
     assert table == fik.OUT_TILES
-    assert f"kPoolTile = {fik.POOL_TILE};" in src
+    assert f"kPoolTH = {fik.POOL_TILE[0]}, kPoolTW = {fik.POOL_TILE[1]};" in src
     assert f"kPoolCC = {fik.POOL_CHUNK};" in src
+    assert f"kPoolChunksMax = {fik.POOL_CHUNKS};" in src
     names = re.search(r"enum Ptr \{(.*?)\};", src, re.S).group(1)
     assert len([n for n in names.replace("\n", " ").split(",") if n.strip()]) \
         == len(fik._PTRS) + 1                        # + kNumPtrs
@@ -340,7 +341,10 @@ def test_plan_covers_every_hidden_chunk(b, chid, cout, h):
     chunks = math.ceil(chid / pl.chunk)
     assert pl.groups >= 1 and pl.chunks_per_group >= 1
     assert pl.groups * pl.chunks_per_group >= chunks > (pl.groups - 1) * pl.chunks_per_group
-    assert 1 <= pl.pool_groups <= math.ceil(h / fik.POOL_TILE) ** 2
+    assert 1 <= pl.pool_groups <= math.ceil(h / fik.POOL_TILE[0]) * math.ceil(h / fik.POOL_TILE[1])
+    assert 1 <= pl.pool_chunks <= fik.POOL_CHUNKS
+    pool_chunks = math.ceil(chid / fik.POOL_CHUNK)       # each pool block takes some
+    assert (math.ceil(pool_chunks / pl.pool_chunks) - 1) * pl.pool_chunks < pool_chunks
     # blocks of at most 256 output channels cover every output channel
     co_pad = min(c for c in fik.OUT_TILES if c >= min(cout, max(fik.OUT_TILES)))
     assert pl.co_blocks == math.ceil(cout / co_pad)
