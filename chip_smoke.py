@@ -16,7 +16,10 @@ Phases, one JSON line each on stdout (warnings and build logs go to stderr):
    call replayed from a CUDA graph, device time alone) and the least time
    the card could take (``bound``; for the fused IRB also ``tc_bound_ms``,
    its products on the tensor cores: 3×TF32 or bf16). Linear attention,
-   forward and backward, at ``mid_attn``'s shapes (batch 1 and 8); the
+   forward and backward, at ``mid_attn``'s shapes (batch 1 and 8), edge
+   shapes (N = 1, 5, 100, 4096) and clusters of 16 at D = 64 and 128, each
+   with its plan (cluster size C, shared memory) and its device kernels per
+   call from ``torch.profiler`` (one each); the
    fused IRB, v2 and v1 (both GroupNorms' statistics in the kernel) side by
    side on the same inputs, at every distinct IRB shape of the small UNet at
    256², batch 1 and 8, and at the widest blocks of the base and large
@@ -136,8 +139,7 @@ def bf16_ulp(magnitude: float) -> float:
 
 # kernel name fragments → kind, first match wins (profile phase)
 KINDS = (
-    ("linear_attention", ("reduce_kv", "apply_kv", "combine_partials", "bwd_q",
-                          "bwd_kv")),
+    ("linear_attention", ("linear_attention_fwd", "linear_attention_bwd")),
     ("fused_irb", ("irb_out", "irb_pool", "irb_se_fc", "irb_combine",
                    "irb_gn1_stats", "irb_gn_finalize")),
     ("conv", ("conv", "cudnn", "implicit", "winograd", "fft",
@@ -298,6 +300,8 @@ def main() -> int:
     for (name, module), (built, seconds) in zip(wrappers, builds):
         print(built.log, file=sys.stderr)
         fields = {}
+        if module is lak:      # registers and spills of each instance
+            fields["kernels"] = ptxas_report(built.log)
         if module is fik:      # registers and spills of each fused-IRB kernel
             report = ptxas_report(built.log)
             require(any(k.startswith(NO_SPILL_KERNELS) for k in report),
@@ -344,6 +348,34 @@ def main() -> int:
         flops = elems * (4 * d + 6)   # kv, num: 2·D each; ksum, den, φ, divide
         return bound(moved, flops) + (moved, flops)
 
+    def device_ops_per_call(fn, calls=10) -> float:
+        """Device kernels (and copies) per call of ``fn``, from
+        torch.profiler over ``calls`` calls after one untraced."""
+        from torch.profiler import ProfilerActivity
+        from torch.profiler import profile as trace
+
+        fn()
+        torch.cuda.synchronize()
+        with trace(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+        ops = [e for e in prof.events()
+               if e.device_type == torch.autograd.DeviceType.CUDA
+               and not getattr(e, "is_user_annotation", False)]
+        return len(ops) / calls
+
+    la_lib = cuda_build.load(lak.SOURCE, lak._declare)
+
+    def attention_plan(shape, dtype, backward):
+        """The wrapper's plan, held to the library's own shared-memory
+        size; with the profiler's count of device kernels a call."""
+        p = lak.plan(*shape, dtype, backward=backward)
+        lib_smem = la_lib.linear_attention_smem_bytes(shape[-1], int(backward), p.rows)
+        require(lib_smem == p.smem_bytes,
+                f"plan {p} vs the library's {lib_smem} bytes of shared memory")
+        return dict(p._asdict())
+
     def compare(q, k, v):
         out = lak.linear_attention_kernel(q, k, v)
         again = lak.linear_attention_kernel(q, k, v)
@@ -361,7 +393,9 @@ def main() -> int:
              + [(s, torch.float32, False)
                 for s in ((2, 256, 4, 32), (1, 1000, 4, 32), (2, 64, 2, 32),
                           (1, 128, 1, 128), (1, 128, 6, 32), (1, 192, 8, 32),
-                          (2, 300, 3, 64))]
+                          (2, 300, 3, 64), (1, 1, 1, 32), (1, 5, 2, 32),
+                          (1, 100, 2, 32), (1, 4096, 4, 32), (1, 1024, 1, 128),
+                          (1, 1024, 2, 64))]
              + [((1, 128, 1, 128), torch.bfloat16, False)])
     timings = {}
     for shape, dtype, timed in cases:
@@ -371,7 +405,13 @@ def main() -> int:
         err = compare(q, k, v)
         require(err <= TOL[name], f"kernel vs plain {shape} {name}: {err}")
         row = dict(kernel="linear_attention", shape=list(shape), dtype=name,
-                   max_err=err, tol=TOL[name])
+                   max_err=err, tol=TOL[name],
+                   plan=attention_plan(shape, dtype, False),
+                   kernels_per_call=device_ops_per_call(
+                       lambda: lak.linear_attention_kernel(q, k, v)))
+        require(row["kernels_per_call"] == 1,
+                f"forward {shape} {name}: {row['kernels_per_call']} device "
+                "kernels a call, not 1")
         if timed:
             bound_ms, bound_by, moved, flops = attention_bound(shape, dtype)
             kernel = lambda: lak.linear_attention_kernel(q, k, v)  # noqa: E731
@@ -414,7 +454,9 @@ def main() -> int:
                   for dt in (torch.float32, torch.bfloat16)]
                  + [(s, torch.float32, False)
                     for s in ((2, 256, 4, 32), (1, 100, 2, 32), (1, 128, 6, 32),
-                              (1, 128, 1, 128), (2, 300, 3, 64))])
+                              (1, 128, 1, 128), (2, 300, 3, 64), (1, 1, 1, 32),
+                              (1, 5, 2, 32), (1, 4096, 4, 32), (1, 1024, 1, 128),
+                              (1, 1024, 2, 64))])
     bwd_rows = {}
     for shape, dtype, timed in bwd_cases:
         q, k, v, g = (torch.randn(shape, generator=gen, device=dev).to(dtype)
@@ -423,7 +465,13 @@ def main() -> int:
         err = compare_bwd(q, k, v, g)
         require(err <= BWD_TOL[name], f"backward kernel vs plain {shape} {name}: {err}")
         row = dict(kernel="linear_attention_backward", shape=list(shape),
-                   dtype=name, max_err=err, tol=BWD_TOL[name])
+                   dtype=name, max_err=err, tol=BWD_TOL[name],
+                   plan=attention_plan(shape, dtype, True),
+                   kernels_per_call=device_ops_per_call(
+                       lambda: lak.linear_attention_backward_kernel(q, k, v, g)))
+        require(row["kernels_per_call"] == 1,
+                f"backward {shape} {name}: {row['kernels_per_call']} device "
+                "kernels a call, not 1")
         if timed:
             moved, flops = attention_bwd_work(shape, dtype)
             bound_ms, bound_by = bound(moved, flops)
@@ -1348,6 +1396,7 @@ def main() -> int:
         "library_ms": None,
         "shape": main_row["shape"],
         "dtype": main_row["dtype"],
+        "kernels_per_call": main_row["kernels_per_call"],
     }, {
         "name": "fused_irb_v2",
         "route": "cuda",
@@ -1405,6 +1454,7 @@ def main() -> int:
         "library_ms": None,
         "shape": bwd_main["shape"],
         "dtype": bwd_main["dtype"],
+        "kernels_per_call": bwd_main["kernels_per_call"],
     }]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi_line, flush=True)

@@ -3,23 +3,28 @@
 The kernels (``csrc/linear_attention.cu``) replace the TPU kernel
 ``linear_attention_pallas`` (``cv_diffusion_tpu/ops/pallas_attention.py:82``)
 and the backward of its trainable form ``linear_attention_pallas_trainable``
-(``:180``, ``_trainable_bwd`` ``:202-236``). They are built from the
+(``:180``, ``_trainable_bwd`` ``:202-236``). Each is one launch: the blocks of
+one (batch, head) form a thread-block cluster that reduces kv over all tokens
+in distributed shared memory (:func:`plan` sizes it). They are built from the
 package's own sources with one ``nvcc`` call into a shared library with a
 plain C interface, loaded through ``ctypes``, at first use
 (:mod:`.cuda_build`).
 
 :func:`linear_attention_kernel` (forward) and
 :func:`linear_attention_backward_kernel` launch them for CUDA tensors and
-count each launch in their ``launches``. For tensors on the CPU they run the
-plain versions (:mod:`.attention`); for CUDA tensors they launch the kernel
-or raise. :class:`LinearAttentionFunction` pairs the two as one
-``torch.autograd.Function``, as the JAX ``custom_vjp`` does.
+count each launch in their ``launches``; they allocate only their outputs.
+For tensors on the CPU they run the plain versions (:mod:`.attention`); for
+CUDA tensors they launch the kernel or raise. :class:`LinearAttentionFunction`
+pairs the two as one ``torch.autograd.Function``, as the JAX ``custom_vjp``
+does.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 import math
+from typing import NamedTuple
 
 import torch
 
@@ -30,10 +35,79 @@ from .attention import (linear_attention_backward_plain,
 SOURCE = cuda_build.source("linear_attention.cu")
 HEAD_DIMS = (32, 64, 128)
 
-# Reduce pass: aim for two blocks per SM of an H100 (132 SMs), with at least
-# this many tokens in a chunk.
-_TARGET_BLOCKS = 264
-_MIN_CHUNK = 64
+# Mirrors of the source's constants (tests/test_torch_port_attention.py reads
+# them there): threads a block, floats after each staged row, the largest
+# cluster a launch takes, the mbarriers' room, and the rows of a staged tile
+# by head dim, (forward, backward), with the short tile that ranks of at most
+# that many tokens take (``Tiles<D>``).
+THREADS = 256
+PAD = 4
+KERNEL_MAX_CLUSTER = 16
+BARRIER_FLOATS = 8
+TILE_ROWS = {32: (128, 128), 64: (64, 64), 128: (32, 16)}
+SHORT_ROWS = {32: 64}
+SMEM_LIMIT = 232_448       # bytes of shared memory a block can have (H100)
+# C, the blocks of a cluster: a power of two, small enough that each rank
+# keeps at least MIN_ROWS tokens, and at most the portable 8 -- or the
+# non-portable 16 where the whole grid still has one block per SM of the
+# H100 (SMS): a small grid is bound by each rank's serial work, which 16
+# ranks halve, a full one by the SMs. A rank's tokens are a multiple of 8, so
+# that on a full rank the 4 token groups of the kv reduction at D = 32 take
+# equal shares; the last rank takes the rest.
+MAX_CLUSTER = 8
+SMS = 132
+MIN_ROWS = 32
+ROW_MULTIPLE = 8
+
+
+class Plan(NamedTuple):
+    cluster: int      # C: blocks of a cluster, one cluster per (batch, head)
+    rows: int         # tokens of a rank: rank r takes [r·rows, (r+1)·rows) ∩ [0, N)
+    tile_rows: int    # rows of q, k, v (and g) staged in shared memory at a time
+    smem_bytes: int   # dynamic shared memory of a block
+    blocks: int       # the grid: B·H·C
+
+
+def tile_rows(dim: int, rows: int, backward: bool) -> int:
+    """The rows of the tiles a rank of ``rows`` tokens is staged in."""
+    short = SHORT_ROWS.get(dim, 0)
+    return short if rows <= short else TILE_ROWS[dim][backward]
+
+
+def smem_bytes(dim: int, tile: int, backward: bool) -> int:
+    """Dynamic shared memory of one block with tiles of ``tile`` rows, as the
+    source lays it out: two mbarriers, the staged tiles (forward φ(k), v,
+    φ(q); backward also g, and d_den), what the ranks push to this one (a
+    [D, D+1] buffer and room for uneven slices), the reduced [D, D+1]
+    buffer, and in the backward its transpose."""
+    kv = dim * (dim + 1)
+    recv = kv + 4 * KERNEL_MAX_CLUSTER
+    if not backward:
+        return 4 * (BARRIER_FLOATS + 3 * tile * (dim + PAD) + recv + kv)
+    return 4 * (BARRIER_FLOATS + 4 * tile * (dim + PAD) + tile + recv + kv
+                + dim * dim)
+
+
+@functools.lru_cache(maxsize=None)
+def plan(batch: int, tokens: int, heads: int, dim: int, dtype: torch.dtype,
+         backward: bool = False) -> Plan:
+    """How a call of this shape is launched. A pure function of the shape:
+    reruns sum the partials in the same order."""
+    if dim not in HEAD_DIMS:
+        raise ValueError(f"head dim {dim} not in {HEAD_DIMS}")
+    if dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"the kernel takes float32 or bfloat16, not {dtype}")
+    if min(batch, tokens, heads) < 1:
+        raise ValueError(f"empty shape {(batch, tokens, heads, dim)}")
+    c = 1
+    while (tokens >= 2 * c * MIN_ROWS
+           and (c < MAX_CLUSTER
+                or (c < KERNEL_MAX_CLUSTER and batch * heads * 2 * c <= SMS))):
+        c *= 2
+    rows = ROW_MULTIPLE * math.ceil(math.ceil(tokens / c) / ROW_MULTIPLE)
+    tile = tile_rows(dim, rows, backward)
+    return Plan(c, rows, tile, smem_bytes(dim, tile, backward),
+                batch * heads * c)
 
 
 def build() -> cuda_build.Built:
@@ -43,29 +117,19 @@ def build() -> cuda_build.Built:
 
 
 def _declare(lib) -> None:
-    ptr = ctypes.c_void_p
+    ptr, i32 = ctypes.c_void_p, ctypes.c_int
     for name in ("linear_attention_f32", "linear_attention_bf16"):
         fn = getattr(lib, name)
-        fn.argtypes = [ptr, ptr, ptr, ptr, ptr, ctypes.c_int, ctypes.c_int,
-                       ctypes.c_int, ctypes.c_int, ctypes.c_int,
-                       ctypes.c_int, ctypes.c_float, ptr]
-        fn.restype = ctypes.c_int
+        fn.argtypes = [ptr] * 4 + [i32] * 6 + [ctypes.c_float, ptr]
+        fn.restype = i32
     for name in ("linear_attention_bwd_f32", "linear_attention_bwd_bf16"):
         fn = getattr(lib, name)
-        fn.argtypes = [ptr] * 8 + [ctypes.c_int] * 6 + [ctypes.c_float, ptr]
-        fn.restype = ctypes.c_int
-    lib.linear_attention_error_string.argtypes = [ctypes.c_int]
+        fn.argtypes = [ptr] * 7 + [i32] * 6 + [ctypes.c_float, ptr]
+        fn.restype = i32
+    lib.linear_attention_smem_bytes.argtypes = [i32, i32, i32]
+    lib.linear_attention_smem_bytes.restype = i32
+    lib.linear_attention_error_string.argtypes = [i32]
     lib.linear_attention_error_string.restype = ctypes.c_char_p
-
-
-def reduce_chunks(batch: int, tokens: int, heads: int) -> tuple:
-    """(S, chunk): how many blocks the reduce pass splits N into, and the
-    tokens each takes. A function of the shape alone, so reruns sum the
-    partials in the same order."""
-    s = max(1, min(math.ceil(tokens / _MIN_CHUNK),
-                   math.ceil(_TARGET_BLOCKS / (batch * heads))))
-    chunk = math.ceil(tokens / s)
-    return math.ceil(tokens / chunk), chunk
 
 
 def _check(*ts: torch.Tensor) -> None:
@@ -84,14 +148,58 @@ def _check(*ts: torch.Tensor) -> None:
         raise ValueError(f"head dim {q.shape[-1]} not in {HEAD_DIMS}")
     if not all(t.is_contiguous() for t in ts):
         raise ValueError("the kernel takes contiguous q, k, v (and g)")
+    if any(t.data_ptr() % 16 for t in ts):
+        raise ValueError("the kernel takes q, k, v (and g) on 16-byte "
+                         "boundaries (it loads 16 bytes at a time)")
     if q.numel() >= 2 ** 31:
         raise ValueError("the kernel takes fewer than 2**31 elements")
 
 
-def _raise_on(lib, err: int, what: str) -> None:
+def _raise_on(lib, err: int, what: str, p: Plan) -> None:
     if err != 0:
         msg = lib.linear_attention_error_string(err).decode()
-        raise RuntimeError(f"{what} kernel launch failed: {msg} ({err})")
+        raise RuntimeError(
+            f"{what} kernel launch failed: {msg} ({err}); clusters of "
+            f"{p.cluster} blocks with {p.smem_bytes} bytes of shared memory each")
+
+
+def _stream(device: torch.device) -> int:
+    return torch.cuda.current_stream(device).cuda_stream
+
+
+def _launch_forward(lib, stream, q, k, v, eps: float):
+    """One launch of the forward kernel on ``stream`` for q, k, v as they
+    are (no device check here); returns the output, the one allocation."""
+    b, n, h, d = q.shape
+    p = plan(b, n, h, d, q.dtype)
+    out = torch.empty_like(q)
+    fn = (lib.linear_attention_f32 if q.dtype == torch.float32
+          else lib.linear_attention_bf16)
+    err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+             b, n, h, d, p.cluster, p.rows, float(eps), stream)
+    _raise_on(lib, err, "linear-attention", p)
+    return out
+
+
+def _launch_backward(lib, stream, q, k, v, g, eps: float):
+    """One launch of the backward kernel; returns (dq, dk, dv), its only
+    allocations."""
+    b, n, h, d = q.shape
+    p = plan(b, n, h, d, q.dtype, backward=True)
+    grads = tuple(torch.empty_like(t) for t in (q, k, v))
+    fn = (lib.linear_attention_bwd_f32 if q.dtype == torch.float32
+          else lib.linear_attention_bwd_bf16)
+    err = fn(*(t.data_ptr() for t in (q, k, v, g) + grads),
+             b, n, h, d, p.cluster, p.rows, float(eps), stream)
+    _raise_on(lib, err, "linear-attention backward", p)
+    return grads
+
+
+def _on_device(q: torch.Tensor, launch, *args):
+    """Run ``launch(lib, stream, *args)`` with q's device current."""
+    lib = cuda_build.load(SOURCE, _declare)
+    with torch.cuda.device(q.device):
+        return launch(lib, _stream(q.device), *args)
 
 
 def linear_attention_kernel(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -103,19 +211,7 @@ def linear_attention_kernel(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if q.device.type != "cuda":
         raise ValueError(f"no linear-attention kernel for device {q.device}")
     _check(q, k, v)
-    b, n, h, d = q.shape
-    s, chunk = reduce_chunks(b, n, h)
-    lib = cuda_build.load(SOURCE, _declare)
-    out = torch.empty_like(q)
-    scratch = torch.empty((b, h, s, d, d + 1), dtype=torch.float32,
-                          device=q.device)
-    fn = (lib.linear_attention_f32 if q.dtype == torch.float32
-          else lib.linear_attention_bf16)
-    with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream(q.device).cuda_stream
-        err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-                 scratch.data_ptr(), b, n, h, d, s, chunk, float(eps), stream)
-    _raise_on(lib, err, "linear-attention")
+    out = _on_device(q, _launch_forward, q, k, v, eps)
     linear_attention_kernel.launches += 1
     return out
 
@@ -134,22 +230,9 @@ def linear_attention_backward_kernel(q: torch.Tensor, k: torch.Tensor,
     if q.device.type != "cuda":
         raise ValueError(f"no linear-attention kernel for device {q.device}")
     _check(q, k, v, g)
-    b, n, h, d = q.shape
-    s, chunk = reduce_chunks(b, n, h)
-    lib = cuda_build.load(SOURCE, _declare)
-    dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
-    # the reduce's partials (then d_kv's), kv and d_kv, each [D, D+1] a head
-    scratch = torch.empty((b * h * (s + 2), d, d + 1), dtype=torch.float32,
-                          device=q.device)
-    fn = (lib.linear_attention_bwd_f32 if q.dtype == torch.float32
-          else lib.linear_attention_bwd_bf16)
-    with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream(q.device).cuda_stream
-        err = fn(*(t.data_ptr() for t in (q, k, v, g, dq, dk, dv, scratch)),
-                 b, n, h, d, s, chunk, float(eps), stream)
-    _raise_on(lib, err, "linear-attention backward")
+    grads = _on_device(q, _launch_backward, q, k, v, g, eps)
     linear_attention_backward_kernel.launches += 1
-    return dq, dk, dv
+    return grads
 
 
 linear_attention_backward_kernel.launches = 0
