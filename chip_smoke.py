@@ -25,14 +25,16 @@ Phases, one JSON line each on stdout (warnings and build logs go to stderr):
    256², batch 1 and 8, and at the widest blocks of the base and large
    UNets (Cout 384 and 512); v1 also at the JAX tests' shapes (``tile_h=8``)
    and in bf16 at the widest block of each UNet level.
-4. serve   -- the main path at full width: ``ServingPipeline`` for the small
-   1-step student (``artifacts/vreg1b_gt03_ema``, grid [739]), the 2-step
-   one (``vreg2b_gt03_ema``, [739, 259]), and the 1-step student with
-   ``use_pallas_irb=True`` (every IRB through the fused kernel), at 256²,
-   random weights from a seed. Single requests of several sizes and a batch
-   of 8; each configuration's launch counts against its UNet calls, with the
-   counts set to 0 just before it; latency, images/s and peak memory at
-   steady state.
+4. serve   -- the main path at full width: the committed 1-step student
+   on its own weights (``ServingPipeline.from_artifact("vreg1b_gt03_ema")``:
+   ``artifacts_torch/vreg1b_gt03_ema.npz``, grid [739]; the file's size and
+   load time), the same student with ``use_pallas_irb=True`` (every IRB
+   through the fused kernel), and ``vreg2b_gt03_ema``'s grid [739, 259] on
+   the 1-step student's weights (the 2-step student's own are not in the
+   tree; its line says ``"weights": "vreg1b_gt03_ema"``), at 256². Single
+   requests of several sizes and a batch of 8; each configuration's launch
+   counts against its UNet calls, with the counts set to 0 just before it;
+   latency, images/s and peak memory at steady state.
 5. check   -- each kernel against its plain version on the main path's own
    inputs (``mid_attn``'s q/k/v, ``decoder_blocks.3.0``'s x); on that x, the
    Gram fold's GN2⊕FiLM affine against the statistics of h1 itself (and the
@@ -41,16 +43,25 @@ Phases, one JSON line each on stdout (warnings and build logs go to stderr):
    launch count set to 0 just before), against each block's own output and
    against v2, and its device-side GN affines at ``decoder_blocks.3.0``
    against float64 statistics of x and h1; the card's
-   sampler output against the CPU's on the same weights and noise, and the
-   fused configuration's sampler against the unfused one's on the card.
-6. profile -- only with ``--profile``: where the card's time goes when the
+   sampler output against the CPU's on the same (trained) weights and
+   noise, and the fused configuration's sampler against the unfused one's
+   on the card.
+6. eval    -- the student's quality on the card: the 15 pairs of the
+   synthetic validation split at 256² and their noise, made anew
+   (``cv_diffusion_tpu_torch.evaluate``) and held by SHA-256 to the JAX
+   reference (``artifacts_torch/vreg1b_gt03_ema.eval_ref.json``); served
+   unfused and fused (the counts set to 0 just before each), PSNR, SSIM,
+   MAE, MS-SSIM and GMSD per image against the JAX package's values, images
+   0 and 1 against JAX's uint8 outputs (``….eval_ref_u8.npz``), and the
+   card's metrics against the CPU port's on the same outputs.
+7. profile -- only with ``--profile``: where the card's time goes when the
    1-step student serves, unfused and fused, from ``torch.profiler`` over
    five single requests (480×720) and five batches of 8 (and, in the train
    phase, over three train steps). Wall and device
    time per request, the device's busy share, kernels per request, device
    time by kind and the top kernels; and, per configuration, the UNet
    blocks inside which a batch of 8 reaches its highest memory peaks.
-7. train   -- the training path at full width: ``Trainer`` on the small
+8. train   -- the training path at full width: ``Trainer`` on the small
    UNet at 256² (v-prediction, float32, batch 8), random weights from seed
    0 and synthetic batches from a numpy seed. Two warm-up steps, then ten
    timed ones (``train_epoch``); ms per step, images/s, peak memory, and
@@ -65,7 +76,8 @@ Then the ``kernels`` line, the ``nvidia-smi`` line, and last
 ``{"ok": true, "device": {...}}``. Any failed check raises, and the script
 exits non-zero without that last line. It needs one CUDA device and the
 repository beside it; only ``model_config.json`` and
-``student_timesteps.json`` are read from ``artifacts/``.
+``student_timesteps.json`` are read from ``artifacts/``, and the weights and
+the JAX reference from ``artifacts_torch/``.
 """
 
 from __future__ import annotations
@@ -86,10 +98,19 @@ from collections import defaultdict
 from concurrent.futures import ThreadPoolExecutor
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
-# (label, artifact, grid, use_pallas_irb)
+# (label, artifact, grid, use_pallas_irb); every row serves the weights of
+# STUDENT, the one artifact whose weights are in the tree
+STUDENT = "vreg1b_gt03_ema"
 SERVED = (("vreg1b_gt03_ema", "vreg1b_gt03_ema", (739,), False),
           ("vreg2b_gt03_ema", "vreg2b_gt03_ema", (739, 259), False),
           ("vreg1b_gt03_ema+use_pallas_irb", "vreg1b_gt03_ema", (739,), True))
+# the eval phase's bounds per image against the JAX package's values: PSNR
+# 0.1 dB (scripts/parity_eval.py's gate), the others in their units; uint8
+# outputs within 1 LSB (the sampler's 5e-3 is 0.64 LSB before the cast);
+# the card's metrics against the CPU port's on the same outputs
+EVAL_TOL = {"psnr": 0.1, "ssim": 2e-3, "mae": 1e-3, "ms_ssim": 2e-3, "gmsd": 2e-3}
+EVAL_U8_TOL = 1
+EVAL_CPU_REL_TOL = 1e-5
 IRBS_PER_UNET_CALL = 22       # small UNet: 8 encoder, 2 middle, 12 decoder
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM device memory
 F32_FLOPS_PER_S = 67e12       # H100 SXM float32 outside the tensor cores
@@ -272,7 +293,8 @@ def main() -> int:
     from cv_diffusion_tpu_torch.ops.fused_irb import (folded_gn_scales,
                                                      fused_irb_v1_plain,
                                                      fused_irb_v2_plain, irb_args)
-    from cv_diffusion_tpu_torch.weights import init_weights
+    from cv_diffusion_tpu_torch import evaluate as ev
+    from cv_diffusion_tpu_torch.weights import init_weights, load_state_dict_npz
 
     dev = torch.device("cuda")
     kind = torch.cuda.get_device_name(0)
@@ -348,22 +370,31 @@ def main() -> int:
         flops = elems * (4 * d + 6)   # kv, num: 2·D each; ksum, den, φ, divide
         return bound(moved, flops) + (moved, flops)
 
-    def device_ops_per_call(fn, calls=10) -> float:
+    def device_ops_per_call(fn, calls=10, traces=3) -> float:
         """Device kernels (and copies) per call of ``fn``, from
-        torch.profiler over ``calls`` calls after one untraced."""
+        torch.profiler over ``calls`` calls after one untraced. The profiler
+        now and then drops an event (a trace of 10 one-kernel calls has read
+        9 on the card), never adds one: a trace that reads a fraction of a
+        kernel a call is taken again, up to ``traces`` times, and the
+        largest reading counts."""
         from torch.profiler import ProfilerActivity
         from torch.profiler import profile as trace
 
         fn()
         torch.cuda.synchronize()
-        with trace(activities=[ProfilerActivity.CUDA]) as prof:
-            for _ in range(calls):
-                fn()
-            torch.cuda.synchronize()
-        ops = [e for e in prof.events()
-               if e.device_type == torch.autograd.DeviceType.CUDA
-               and not getattr(e, "is_user_annotation", False)]
-        return len(ops) / calls
+        readings = []
+        for _ in range(traces):
+            with trace(activities=[ProfilerActivity.CUDA]) as prof:
+                for _ in range(calls):
+                    fn()
+                torch.cuda.synchronize()
+            ops = [e for e in prof.events()
+                   if e.device_type == torch.autograd.DeviceType.CUDA
+                   and not getattr(e, "is_user_annotation", False)]
+            readings.append(len(ops) / calls)
+            if len(ops) % calls == 0:
+                break
+        return max(readings)
 
     la_lib = cuda_build.load(lak.SOURCE, lak._declare)
 
@@ -749,23 +780,33 @@ def main() -> int:
 
     # 4. serve: the main path at full width --------------------------------
     t0 = time.perf_counter()
+    npz = os.path.join(ROOT, "artifacts_torch", f"{STUDENT}.npz")
+    torch.cuda.synchronize()
+    a = time.perf_counter()
+    trained = load_state_dict_npz(npz, dev)     # bytes put together, SHA-256 checked
+    torch.cuda.synchronize()
+    emit("weights", artifact=STUDENT, file=os.path.relpath(npz, ROOT),
+         bytes=os.path.getsize(npz), load_s=time.perf_counter() - a,
+         tensors=len(trained), params=sum(t.numel() for t in trained.values()))
     pipes = []
     for label, name, grid, fused in SERVED:
         path = art[name]
-        if fused:
-            model, schedule = create_model(fused_cfg, device=dev)
-            model.load_state_dict(weights, strict=True)
-            pipe = ServingPipeline(model, schedule, dataclasses.replace(
-                pipes[0].config, batch_size=8), device=dev)
-        else:
+        if name == STUDENT:
+            a = time.perf_counter()
+            pipe = ServingPipeline.from_artifact(name, dev, use_pallas_irb=fused,
+                                                 batch_size=8)
+            emit("from_artifact", student=label, seconds=time.perf_counter() - a)
+        else:       # another grid, on the student's weights
             pipe = ServingPipeline.from_config(
                 os.path.join(path, "model_config.json"),
-                os.path.join(path, "student_timesteps.json"), weights,
+                os.path.join(path, "student_timesteps.json"), trained,
                 device=dev, batch_size=8)
         require(pipe.config.timesteps == grid,
                 f"{label}: grid {pipe.config.timesteps} != {grid}")
         require(pipe.model.config.unet.use_pallas_irb == fused,
                 f"{label}: use_pallas_irb is {pipe.model.config.unet.use_pallas_irb}")
+        require(all(torch.equal(t, trained[k]) for k, t in pipe.model.state_dict().items()),
+                f"{label}: the served weights are not {STUDENT}'s")
         pipes.append(pipe)
 
     unet_calls = [0]
@@ -886,7 +927,7 @@ def main() -> int:
         peak_mem = torch.cuda.max_memory_allocated()
         resident = torch.cuda.memory_allocated()
         row = dict(student=label, grid=list(grid), use_pallas_irb=fused,
-                   image=list(images[2].shape),
+                   weights=STUDENT, image=list(images[2].shape),
                    latency_ms_mean=float(np.mean(lat)),
                    latency_ms_p50=float(np.median(lat)),
                    latency_ms_min=float(np.min(lat)),
@@ -1074,7 +1115,7 @@ def main() -> int:
     # the card's samplers against the CPU's, and fused against unfused on
     # the card: same weights, same numpy noise
     small = 64
-    cpu_sd = {k: t.cpu() for k, t in weights.items()}
+    cpu_sd = {k: t.cpu() for k, t in trained.items()}
     ref_rng = np.random.default_rng(1)
     low = ref_rng.uniform(-1, 1, (2, small, small, 3)).astype(np.float32)
     sampler_err, card_out = {}, {}
@@ -1116,7 +1157,86 @@ def main() -> int:
          fused_vs_unfused_sampler_max_abs_err=fused_vs_unfused,
          sampler_tol=SAMPLER_TOL, seconds=time.perf_counter() - t0)
 
-    # 6. profile (optional) -------------------------------------------------
+    # 6. eval: the student's quality on the card against the JAX package ----
+    t0 = time.perf_counter()
+    ref_base = os.path.join(ROOT, "artifacts_torch", STUDENT)
+    with open(ref_base + ".eval_ref.json") as f:
+        ref = json.load(f)
+    with np.load(ref_base + ".eval_ref_u8.npz", allow_pickle=False) as z:
+        ref_u8 = z["pred_u8"]
+    grid = list(pipes[0].config.timesteps)
+    eval_n = ref["n"]
+    require(ref["timesteps"] == grid and ref["size"] == size and eval_n == 15,
+            f"eval reference is for {ref['timesteps']} n={eval_n} size={ref['size']}")
+    eval_low, eval_high = ev.eval_split(eval_n, size, ref["seed"])
+    eval_init, eval_step = ev.eval_noise(eval_n, size, ref["seed"], len(grid))
+    hashes = ev.input_hashes(eval_low, eval_high, eval_init)
+    for i, (h, im) in enumerate(zip(hashes, ref["images"])):
+        for what in ("low", "high", "noise"):
+            require(h[what] == im[f"{what}_sha256"],
+                    f"eval image {i}: its {what} array's SHA-256 {h[what]} is not "
+                    f"the reference's {im[f'{what}_sha256']}: the inputs differ")
+    require(len(hashes) == len(ref["images"]) == eval_n, "eval: image count")
+    eval_target = ev.target_unit(eval_high, dev)
+    eval_rows = {}
+    for pipe, (label, _, _, fused) in ((pipes[0], SERVED[0]), (pipes[-1], SERVED[-1])):
+        pin_fp32()
+        lak.linear_attention_kernel.launches = 0
+        fik.fused_irb_v2.launches = 0
+        fik.fused_irb_v1.launches = 0
+        for _ in range(2):      # the first pass sets up cuDNN; the second is timed
+            torch.cuda.synchronize()
+            a = time.perf_counter()
+            pred = ev.enhance_split(pipe.model, pipe.schedule, eval_low, eval_init,
+                                    eval_step, grid, device=dev)
+            per = ev.per_image_metrics(pred, eval_target)
+            torch.cuda.synchronize()
+            seconds = time.perf_counter() - a
+        batches = 2 * -(-eval_n // ev.BATCH_SIZE) * len(grid)
+        counts = {"linear_attention": lak.linear_attention_kernel.launches,
+                  "fused_irb_v2": fik.fused_irb_v2.launches,
+                  "fused_irb_v1": fik.fused_irb_v1.launches}
+        require(counts == {"linear_attention": batches,
+                           "fused_irb_v2": IRBS_PER_UNET_CALL * batches if fused else 0,
+                           "fused_irb_v1": 0},
+                f"{label}: eval launches {counts} for {batches} UNet calls")
+        deltas = {k: [abs(v - im[k]) for v, im in zip(per[k], ref["images"])]
+                  for k in EVAL_TOL}
+        for k, tol in EVAL_TOL.items():
+            worst = int(np.argmax(deltas[k]))
+            require(deltas[k][worst] <= tol,
+                    f"{label}: image {worst}: |Δ{k}| {deltas[k][worst]} against JAX > {tol}")
+        u8 = ev.to_u8(pred[list(ref["u8_images"])])
+        u8_err = int(np.abs(u8.astype(np.int16) - ref_u8.astype(np.int16)).max())
+        u8_off = int((u8 != ref_u8).sum())
+        require(u8_err <= EVAL_U8_TOL,
+                f"{label}: images {ref['u8_images']} {u8_err} LSB from JAX's uint8")
+        cpu_per = ev.per_image_metrics(pred.cpu(), eval_target.cpu())
+        cpu_rel = max(abs(a_ - b_) / max(abs(b_), 1e-12)
+                      for k in EVAL_TOL for a_, b_ in zip(per[k], cpu_per[k]))
+        require(cpu_rel <= EVAL_CPU_REL_TOL,
+                f"{label}: card metrics vs the CPU port's on the same outputs: {cpu_rel}")
+        eval_rows[label] = row = dict(
+            student=label, weights=STUDENT, grid=grid, images=eval_n, size=size,
+            batch=ev.BATCH_SIZE, launches=counts,
+            mean={k: float(np.mean(per[k])) for k in EVAL_TOL},
+            jax_mean={k: ref["summary"][f"{k}_mean"] for k in EVAL_TOL},
+            max_abs_delta={k: max(v) for k, v in deltas.items()},
+            worst_image={k: int(np.argmax(v)) for k, v in deltas.items()},
+            tol=EVAL_TOL, u8_max_lsb=u8_err, u8_pixels_off=u8_off,
+            u8_tol=EVAL_U8_TOL, card_vs_cpu_metrics_max_rel=cpu_rel,
+            cpu_rel_tol=EVAL_CPU_REL_TOL, seconds=seconds,
+            images_per_s=eval_n / seconds, per_image=per)
+        emit("eval", **row)
+        del pred
+    emit("eval_summary", inputs_sha256_match=eval_n,
+         psnr_mean={k: r["mean"]["psnr"] for k, r in eval_rows.items()},
+         jax_psnr_mean=ref["summary"]["psnr_mean"],
+         max_abs_delta={k: r["max_abs_delta"] for k, r in eval_rows.items()},
+         images_per_s={k: r["images_per_s"] for k, r in eval_rows.items()},
+         seconds=time.perf_counter() - t0)
+
+    # 7. profile (optional) -------------------------------------------------
     if args.profile:
         for pipe, (label, *_) in ((pipes[0], SERVED[0]), (pipes[-1], SERVED[-1])):
             resident, peak_blocks = peak_where(pipe)
@@ -1131,7 +1251,7 @@ def main() -> int:
             profile(f"{label}batch8_mixed_sizes",
                     lambda pipe=pipe: pipe.batch(batch_images, seed=1), 8)
 
-    # 7. train: the training path at full width ----------------------------
+    # 8. train: the training path at full width ----------------------------
     t0 = time.perf_counter()
     del pipes, fused_pipe, blk
     torch.cuda.empty_cache()
@@ -1386,6 +1506,7 @@ def main() -> int:
         "replaces": "cv_diffusion_tpu/ops/pallas_attention.py:82",
         "launches": launches["linear_attention"],
         "launches_train": train_launches["linear_attention"],
+        "launches_eval": sum(r["launches"]["linear_attention"] for r in eval_rows.values()),
         "max_abs_err": mid_err,
         "ms": main_row["kernel_ms"],
         "plain_ms": main_row["plain_ms"],
@@ -1403,6 +1524,7 @@ def main() -> int:
         "source": "cv_diffusion_tpu_torch/csrc/fused_irb.cu",
         "replaces": "cv_diffusion_tpu/ops/pallas_irb.py:607",
         "launches": launches["fused_irb_v2"],
+        "launches_eval": sum(r["launches"]["fused_irb_v2"] for r in eval_rows.values()),
         "max_abs_err": irb_err_all,
         "ms": per_unet["kernel_ms"],
         "plain_ms": per_unet["plain_ms"],

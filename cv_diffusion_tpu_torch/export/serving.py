@@ -6,11 +6,15 @@ normalise ``u8 / 127.5 − 1``, the LCM sampler, ``clip(x·127.5 + 127.5, 0,
 255)`` cast to uint8 by truncation, post-process back to the input's size.
 Everything from the canvas on runs on the device. As in the JAX package's
 ``load_serving_package``, serving routes linear attention through the
-hand-written kernel.
+hand-written kernel. :meth:`ServingPipeline.from_artifact` serves a
+committed artifact on its own weights (the fp32 path of
+``load_serving_package``).
 """
 
 from __future__ import annotations
 
+import dataclasses
+import os
 from dataclasses import dataclass
 from typing import Dict, List, Optional, Sequence
 
@@ -21,7 +25,13 @@ from ..config import load_model_config, load_timesteps
 from ..device import pin_fp32, resolve_device
 from ..models.diffusion import LowLightDiffusion, create_model, enhance
 from ..models.scheduler import LCMSchedule
+from ..weights import load_state_dict_npz
 from .preprocess import PostProcessor, PreProcessor
+
+# the repository's root: ``artifacts/<name>/`` holds an artifact's JSON
+# files, ``artifacts_torch/<name>.npz`` its weights in the port's format
+REPO_ROOT = os.path.dirname(os.path.dirname(os.path.dirname(
+    os.path.abspath(__file__))))
 
 
 @dataclass
@@ -70,7 +80,37 @@ class ServingPipeline:
         UNet widths and resolution; other keywords set ServingConfig
         fields."""
         cfg = load_model_config(model_config_path, variant, image_size)
-        grid = load_timesteps(timesteps_path)
+        return cls._build(cfg, load_timesteps(timesteps_path), weights, device,
+                          serving_overrides)
+
+    @classmethod
+    def from_artifact(cls, name: str, device="cuda", *,
+                      use_pallas_irb: bool = False,
+                      **serving_overrides) -> "ServingPipeline":
+        """The committed artifact ``name`` on its own weights: the model
+        and grid from ``artifacts/<name>/``'s ``model_config.json`` and
+        ``student_timesteps.json``, the weights from
+        ``artifacts_torch/<name>.npz`` (``weights.load_state_dict_npz``) of
+        this repository. ``use_pallas_irb`` routes
+        every stride-1 IRB through the fused kernel; other keywords set
+        ServingConfig fields. Raises ``FileNotFoundError`` for an artifact
+        whose weights file is not in the tree."""
+        path = os.path.join(REPO_ROOT, "artifacts", name)
+        npz = os.path.join(REPO_ROOT, "artifacts_torch", f"{name}.npz")
+        if not os.path.isfile(npz):
+            raise FileNotFoundError(
+                f"{npz}: artifact {name!r} has no weights file in the port's "
+                "format in this tree (only vreg1b_gt03_ema fits the copy "
+                "limit; ROADMAP queue 1 item 1)")
+        cfg = load_model_config(os.path.join(path, "model_config.json"))
+        cfg = dataclasses.replace(cfg, unet=dataclasses.replace(
+            cfg.unet, use_pallas_irb=use_pallas_irb))
+        grid = load_timesteps(os.path.join(path, "student_timesteps.json"))
+        return cls._build(cfg, grid, load_state_dict_npz(npz, device), device,
+                          serving_overrides)
+
+    @classmethod
+    def _build(cls, cfg, grid, weights, device, serving_overrides):
         model, schedule = create_model(cfg, device=device)
         model.load_state_dict(weights, strict=True)
         config = ServingConfig(image_size=cfg.image_size,

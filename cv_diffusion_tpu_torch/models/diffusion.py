@@ -166,7 +166,8 @@ def enhance(model: LowLightDiffusion, schedule: LCMSchedule,
             step_noise: Optional[torch.Tensor] = None,
             generator: Optional[torch.Generator] = None,
             deterministic: bool = False,
-            device="cuda") -> torch.Tensor:
+            device="cuda",
+            params: Optional[Dict[str, torch.Tensor]] = None) -> torch.Tensor:
     """LCM sampling. ``low_light`` [B, H, W, 3] in [-1, 1] → [B, H, W, 3] in
     [-1, 1].
 
@@ -175,7 +176,8 @@ def enhance(model: LowLightDiffusion, schedule: LCMSchedule,
     ``num_inference_steps`` (default: the config's) is used.
     ``init_noise`` [B, H, W, 3] and ``step_noise`` [steps, B, H, W, 3] are
     explicit noise; what is not given is drawn from ``generator``.
-    ``deterministic`` takes renoise-free DDIM-style steps.
+    ``deterministic`` takes renoise-free DDIM-style steps. ``params`` (e.g.
+    the EMA weights) replaces the module's own parameters.
     """
     dev = resolve_device(device)
     if next(model.parameters()).device != dev:
@@ -203,11 +205,18 @@ def enhance(model: LowLightDiffusion, schedule: LCMSchedule,
 
     for i, (t, prev_t) in enumerate(zip(grid, prev)):
         t_vec = torch.full((batch,), t, dtype=torch.int32, device=dev)
-        pred = model(latents, low, t_vec).float()
+        args = (latents, low, t_vec)
+        pred = (model(*args) if params is None
+                else torch.func.functional_call(model, params, args)).float()
         if deterministic:
             latents, _ = sched.ddim_step(schedule, pred, t, prev_t, latents)
         else:
             latents, _ = sched.step(schedule, pred, t, prev_t, latents,
                                     noise=step_noise[i])
     return latents.clamp(-1.0, 1.0).permute(0, 2, 3, 1)
+
+
+def denormalize_image(image: torch.Tensor) -> torch.Tensor:
+    """[-1, 1] → [0, 1] (JAX ``denormalize_image``)."""
+    return (image + 1.0) / 2.0
 

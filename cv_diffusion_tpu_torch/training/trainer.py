@@ -3,22 +3,26 @@
 Counterpart of ``cv_diffusion_tpu/training/trainer.py:71-337`` with the same
 loop: epochs, per-epoch validation on the EMA weights, periodic, best and
 final checkpoints, resume at epoch + 1. The loss is read back to the host
-at log intervals and once per epoch, never after each step. Sample grids,
-W&B and the full-sampler quality evaluation are not ported (ROADMAP queue 1
+at log intervals and once per epoch, never after each step.
+:meth:`Trainer.evaluate_quality` is the full-sampler PSNR/SSIM evaluation
+(``metrics.py``). Sample grids and W&B are not ported (ROADMAP queue 1
 item 4); checkpoints are written synchronously.
 """
 
 from __future__ import annotations
 
 from pathlib import Path
-from typing import Dict, Optional
+from typing import Dict, Iterable, Optional, Tuple
 
+import numpy as np
 import torch
 
 from ..config import TrainConfig, diffusion_config, to_json
-from ..models.diffusion import LowLightDiffusion, create_model
+from ..models.diffusion import (LowLightDiffusion, create_model,
+                                denormalize_image, enhance)
 from ..models.scheduler import LCMSchedule
 from . import checkpoint as ckpt
+from .metrics import psnr, ssim
 from .train_state import (check_trainable, create_train_state, make_eval_step,
                           make_train_step)
 
@@ -96,6 +100,40 @@ class Trainer:
             total += float(self.eval_step(params, generator, batch, n)) * n
             count += n
         return total / max(1, count)
+
+    @torch.no_grad()
+    def evaluate_quality(self, num_inference_steps: Optional[int] = None,
+                         max_batches: Optional[int] = None,
+                         noise: Optional[Iterable[Tuple[torch.Tensor, torch.Tensor]]] = None
+                         ) -> Dict[str, float]:
+        """Full-sampler PSNR and SSIM on the validation set under the EMA
+        weights (the JAX ``Trainer.evaluate_quality``): each batch enhanced
+        on the stock grid of ``num_inference_steps`` (default: the
+        config's), the output in [0, 1] clipped, each metric's batch mean
+        averaged over the batches. The noise comes from a generator seeded
+        0, or from ``noise``, one (init_noise, step_noise) per batch."""
+        params = self._eval_params()
+        steps = (num_inference_steps if num_inference_steps is not None
+                 else self.config.num_inference_steps)
+        generator = torch.Generator(device=self.device).manual_seed(0)
+        explicit = iter(noise) if noise is not None else None
+        self.model.eval()
+        psnrs, ssims = [], []
+        for i, batch in enumerate(self.val_loader):
+            if max_batches is not None and i >= max_batches:
+                break
+            init, step = next(explicit) if explicit is not None else (None, None)
+            out = enhance(self.model, self.schedule,
+                          torch.as_tensor(batch["low_light"]).to(self.device),
+                          num_inference_steps=steps, init_noise=init,
+                          step_noise=step, generator=generator,
+                          device=self.device, params=params)
+            pred = denormalize_image(out.float()).clamp(0.0, 1.0)
+            target = denormalize_image(
+                torch.as_tensor(batch["normal_light"]).to(self.device).float())
+            psnrs.append(float(psnr(pred, target)))
+            ssims.append(float(ssim(pred, target)))
+        return {"psnr": float(np.mean(psnrs)), "ssim": float(np.mean(ssims))}
 
     def save_checkpoint(self, name: str) -> str:
         path = str(self.checkpoint_dir / f"{name}.pt")

@@ -2,12 +2,15 @@
 
 That machine has Python, PyTorch with CUDA, Triton, the CUDA toolkit, numpy,
 scipy, einops, pytest and hypothesis, and none of JAX, flax, optax, orbax,
-tensorstore, PyYAML, OpenCV, Pillow or safetensors. A subprocess here refuses
-to import any of those, or anything of the JAX package, and under that block
-imports every module of the port and ``chip_smoke``, then serves one request
-through ``ServingPipeline.from_config`` on the CPU, the same request with
+tensorstore, PyYAML, OpenCV, Pillow, safetensors or scikit-learn. A
+subprocess here refuses to import any of those, or anything of the JAX
+package, and under that block imports every module of the port and
+``chip_smoke``, then serves one request through
+``ServingPipeline.from_config`` on the CPU, the same request with
 ``use_pallas_irb`` on, runs ``fused_irb_v1`` on one block, and takes one
-train step.
+train step; then loads the committed student's ``.npz`` and serves a request
+through ``ServingPipeline.from_artifact``, makes a small synthetic split and
+computes the five quality metrics.
 """
 
 import os
@@ -22,12 +25,17 @@ import torch
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PORT = os.path.join(REPO, "cv_diffusion_tpu_torch")
 BLOCKED = ("jax", "jaxlib", "flax", "optax", "orbax", "tensorstore", "yaml",
-           "cv2", "PIL", "safetensors", "cv_diffusion_tpu")
+           "cv2", "PIL", "safetensors", "sklearn", "cv_diffusion_tpu")
 
 _CHILD = textwrap.dedent("""
     import importlib, importlib.abc, pkgutil, sys
 
     BLOCKED = {blocked!r}
+
+    # torch probes for optional libraries (scikit-learn among them) with
+    # importlib.util.find_spec, which returns None on the card and would
+    # raise under the block below: its probe runs first
+    import torch._dynamo
 
     class Refuse(importlib.abc.MetaPathFinder):
         def find_spec(self, name, path=None, target=None):
@@ -101,6 +109,20 @@ _CHILD = textwrap.dedent("""
     state = create_train_state(model, tcfg)
     state, metrics = make_train_step(model, schedule, tcfg)(state, batch)
     assert state.step == 1 and bool(torch.isfinite(metrics["loss"]))
+
+    # the committed student from its weights file, the split, the metrics
+    student = ServingPipeline.from_artifact("vreg1b_gt03_ema", device="cpu")
+    out = student(img, seed=0)
+    assert out.shape == img.shape and out.dtype == np.uint8
+    from cv_diffusion_tpu_torch.data.synthetic import make_split
+    from cv_diffusion_tpu_torch.training import metrics as M
+    low, high = make_split(2, 64, 0)
+    assert low.shape == high.shape == (2, 64, 64, 3) and low.dtype == np.uint8
+    p, t = (torch.from_numpy(a).float() / 255 for a in (low, high))
+    big = torch.rand(1, 176, 176, 3, generator=torch.Generator().manual_seed(0))
+    vals = [M.psnr(p, t), M.ssim(p, t), M.mae(p, t), M.gmsd(p, t),
+            M.ms_ssim(big, (big * 0.9).clamp(0, 1))]
+    assert all(bool(torch.isfinite(v)) for v in vals), vals
     loaded = sorted(m for m in sys.modules if m.split(".")[0] in BLOCKED)
     assert not loaded, loaded
     print("ISOLATED-OK", len(names))
@@ -118,7 +140,7 @@ def test_port_runs_without_the_jax_stack():
 
 _FORBIDDEN = re.compile(
     r"^\s*(?:import|from)\s+(?:jax|jaxlib|flax|optax|orbax|tensorstore|yaml"
-    r"|cv2|PIL|safetensors)\b"
+    r"|cv2|PIL|safetensors|sklearn)\b"
     r"|^\s*(?:import|from)\s+cv_diffusion_tpu(?:\.|\s|,|$)", re.M)
 
 

@@ -593,3 +593,53 @@ def test_synthetic_dataset_and_loader_match_jax(tmp_path):
     np.testing.assert_array_equal(
         taugment.synthetic_low_light(rng_a, images[0]),
         jaugment.synthetic_low_light(rng_b, images[0]))
+
+
+
+# --- the full-sampler quality evaluation --------------------------------------
+
+def test_evaluate_quality_matches_the_jax_formula(tmp_path):
+    """``Trainer.evaluate_quality`` on tiny@32 with explicit noise against
+    the JAX ``Trainer.evaluate_quality``'s formula (``trainer.py:277-295``):
+    the JAX sampler on the stock 2-step grid under the EMA weights, the
+    output denormalised and clipped, PSNR and SSIM batch means averaged over
+    the batches. The module's own weights are moved away from the EMA's
+    first, so the EMA must be the weights used. PSNR within 1e-3 dB, SSIM
+    within 1e-4."""
+    from cv_diffusion_tpu.models.diffusion import denormalize_image
+    from cv_diffusion_tpu.training import metrics as jm
+
+    jcfg, tcfg, params = random_jax_params("tiny", SIZE, seed=3,
+                                           perturb_norms=False)
+    model, schedule = create_model(tcfg, device="cpu")
+    model.load_state_dict(state_dict_from_jax(params, tcfg), strict=True)
+    val = list(_loaders(n=4, seed=2)[1])   # the loader draws anew each epoch
+    trainer = Trainer(model, schedule, [None], val, TrainConfig(
+        use_amp=False, use_ema=True, checkpoint_dir=str(tmp_path)))
+    with torch.no_grad():
+        for p in model.parameters():
+            p.mul_(0.5)
+    rng = np.random.default_rng(9)
+    noise = [(rng.standard_normal((2, SIZE, SIZE, 3)).astype(np.float32),
+              rng.standard_normal((2, 2, SIZE, SIZE, 3)).astype(np.float32))
+             for _ in range(len(val))]
+    got = trainer.evaluate_quality(
+        num_inference_steps=2,
+        noise=[(torch.from_numpy(a), torch.from_numpy(b)) for a, b in noise])
+
+    jmodel, jschedule = jax_create_model(jcfg)
+    psnrs, ssims = [], []
+    for batch, (init, step) in zip(val, noise):
+        out = jdiffusion.enhance(jmodel, jschedule, {"params": params},
+                                 jax.random.key(0), jnp.asarray(batch["low_light"]),
+                                 num_inference_steps=2, init_noise=jnp.asarray(init),
+                                 step_noise=jnp.asarray(step))
+        pred = jnp.clip(denormalize_image(out.astype(jnp.float32)), 0.0, 1.0)
+        target = denormalize_image(jnp.asarray(batch["normal_light"]))
+        psnrs.append(float(jm.psnr(pred, target)))
+        ssims.append(float(jm.ssim(pred, target)))
+    assert abs(got["psnr"] - np.mean(psnrs)) <= 1e-3, (got, psnrs)
+    assert abs(got["ssim"] - np.mean(ssims)) <= 1e-4, (got, ssims)
+    # without explicit noise it draws from a generator seeded 0: repeatable
+    a = trainer.evaluate_quality(num_inference_steps=2, max_batches=1)
+    assert a == trainer.evaluate_quality(num_inference_steps=2, max_batches=1)
