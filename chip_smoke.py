@@ -25,43 +25,64 @@ Phases, one JSON line each on stdout (warnings and build logs go to stderr):
    256², batch 1 and 8, and at the widest blocks of the base and large
    UNets (Cout 384 and 512); v1 also at the JAX tests' shapes (``tile_h=8``)
    and in bf16 at the widest block of each UNet level.
-4. serve   -- the main path at full width: the committed 1-step student
-   on its own weights (``ServingPipeline.from_artifact("vreg1b_gt03_ema")``:
+4. serve   -- the main path at full width, through the CUDA graphs: the
+   committed 1-step student on its own weights
+   (``ServingPipeline.from_artifact("vreg1b_gt03_ema")``:
    ``artifacts_torch/vreg1b_gt03_ema.npz``, grid [739]; the file's size and
    load time), the same student with ``use_pallas_irb=True`` (every IRB
    through the fused kernel), and ``vreg2b_gt03_ema``'s grid [739, 259] on
    the 1-step student's weights (the 2-step student's own are not in the
    tree; its line says ``"weights": "vreg1b_gt03_ema"``), at 256². Single
-   requests of several sizes and a batch of 8; each configuration's launch
-   counts against its UNet calls, with the counts set to 0 just before it;
-   latency, images/s and peak memory at steady state.
-5. check   -- each kernel against its plain version on the main path's own
-   inputs (``mid_attn``'s q/k/v, ``decoder_blocks.3.0``'s x); on that x, the
-   Gram fold's GN2⊕FiLM affine against the statistics of h1 itself (and the
-   same fold in TF32, which that check must reject); ``fused_irb_v1`` on the
-   x and FiLM of each of the 22 IRBs of one unfused served request (its
-   launch count set to 0 just before), against each block's own output and
-   against v2, and its device-side GN affines at ``decoder_blocks.3.0``
-   against float64 statistics of x and h1; the card's
-   sampler output against the CPU's on the same (trained) weights and
-   noise, and the fused configuration's sampler against the unfused one's
-   on the card.
-6. eval    -- the student's quality on the card: the 15 pairs of the
+   requests of several sizes (the batch-1 graph is captured at the first),
+   batches of 8 one chunk a call and ``REPS`` chunks pipelined in one call
+   (the batch-8 graph), latency, images/s, peak memory and the memory the
+   graphs hold, and the ``benchmark()`` dict (a ``benchmark`` line). Each
+   configuration's kernel launches, with the counts set to 0 just before
+   it: the wrappers' (each graph's warm-up and capture, one eager call) and
+   those inside replays (replays times each graph's launches a replay).
+5. graph   -- each configuration's graphs, batch 1 and 8, against its eager
+   sampler on the same seed (uint8, equal or at most 1 LSB, the values off
+   counted), capture seconds, eager and graph latency in paired runs, and
+   from ``torch.profiler`` the host's CUDA launch calls and the device's
+   kernels per sampler call and per request (a replay must run one
+   attention kernel a UNet call, and the fused IRB's kernels when on).
+6. package -- the student's serving packages, fp32, bf16 and int8, written
+   into ``cv_diffusion_tpu_torch/_build/packages/``: bytes, the
+   quantization report and error, write and load seconds; the loaded
+   weights equal the codec's; the card's sampler on each package's weights
+   against the CPU's on the same noise, unfused and fused (5e-3); each
+   package served through ``from_package``, unfused and fused, at batch 1
+   and 8 (latency, images/s, peak memory, launches).
+7. check   -- each kernel against its plain version on the main path's own
+   inputs (``mid_attn``'s q/k/v, ``decoder_blocks.3.0``'s x, taken from
+   eager requests); on that x, the Gram fold's GN2⊕FiLM affine against the
+   statistics of h1 itself (and the same fold in TF32, which that check
+   must reject); ``fused_irb_v1`` on the x and FiLM of each of the 22 IRBs
+   of one unfused request (its launch count set to 0 just before), against
+   each block's own output and against v2, and its device-side GN affines
+   at ``decoder_blocks.3.0`` against float64 statistics of x and h1; the
+   card's sampler output against the CPU's on the same (trained) weights
+   and noise, and the fused configuration's sampler against the unfused
+   one's on the card.
+8. eval    -- the student's quality on the card: the 15 pairs of the
    synthetic validation split at 256² and their noise, made anew
    (``cv_diffusion_tpu_torch.evaluate``) and held by SHA-256 to the JAX
    reference (``artifacts_torch/vreg1b_gt03_ema.eval_ref.json``); served
    unfused and fused (the counts set to 0 just before each), PSNR, SSIM,
    MAE, MS-SSIM and GMSD per image against the JAX package's values, images
    0 and 1 against JAX's uint8 outputs (``….eval_ref_u8.npz``), and the
-   card's metrics against the CPU port's on the same outputs.
-7. profile -- only with ``--profile``: where the card's time goes when the
-   1-step student serves, unfused and fused, from ``torch.profiler`` over
-   five single requests (480×720) and five batches of 8 (and, in the train
-   phase, over three train steps). Wall and device
+   card's metrics against the CPU port's on the same outputs; then the bf16
+   and int8 packages, unfused, per image against the JAX package's own
+   packages of those codecs (``….eval_ref_bf16.json``, ``…_int8.json``).
+9. profile -- only with ``--profile``: where the card's time goes when the
+   1-step student serves through its graphs, unfused and fused, from
+   ``torch.profiler`` over five single requests (480×720) and five batches
+   of 8 (and, in the train phase, over three train steps). Wall and device
    time per request, the device's busy share, kernels per request, device
    time by kind and the top kernels; and, per configuration, the UNet
-   blocks inside which a batch of 8 reaches its highest memory peaks.
-8. train   -- the training path at full width: ``Trainer`` on the small
+   blocks inside which an eager batch of 8 reaches its highest memory
+   peaks.
+10. train  -- the training path at full width: ``Trainer`` on the small
    UNet at 256² (v-prediction, float32, batch 8), random weights from seed
    0 and synthetic batches from a numpy seed. Two warm-up steps, then ten
    timed ones (``train_epoch``); ms per step, images/s, peak memory, and
@@ -125,6 +146,12 @@ TOL = {"float32": 2e-5, "bfloat16": 2e-2}   # tests/test_pallas_kernels.py:43,60
 BWD_TOL = {"float32": 5e-4, "bfloat16": 2e-2}
 IRB_TOL = {"float32": 2e-4, "bfloat16": 5e-2}   # tests/test_pallas_kernels.py:172,252
 SAMPLER_TOL = 5e-3            # README "Testing": full sampler vs reference
+# a graph's uint8 output against eager's on the same seed: equal, unless
+# cuDNN takes another algorithm under capture, then at most 1 LSB
+GRAPH_LSB_TOL = 1
+REPS = 10                     # chunks of 8 in the serve phase's batch timings
+# the serving packages' codecs: (label, create_serving_package's quantize)
+CODECS = (("fp32", "none"), ("bf16", "bf16"), ("int8", "int8"))
 # one train step against another (kernels vs plain attention, card vs CPU):
 # loss relative, the gradients' difference relative to their norm, each
 # gradient's largest difference relative to its largest entry, and the share
@@ -281,7 +308,11 @@ def main() -> int:
         apply_update, create_train_state, make_train_step)
     from cv_diffusion_tpu_torch.training.trainer import Trainer
     from cv_diffusion_tpu_torch.device import pin_fp32
-    from cv_diffusion_tpu_torch.export.serving import ServingPipeline
+    from cv_diffusion_tpu_torch.export.quantization import (
+        dequantize_int8, quantization_error, quantization_report, quantize_model)
+    from cv_diffusion_tpu_torch.export.serving import (
+        GRAPH_WARMUP, ServingPipeline, create_serving_package, kernel_launches,
+        load_serving_package)
     from cv_diffusion_tpu_torch.models.blocks import (InvertedResidualBlock,
                                                       LinearAttention)
     from cv_diffusion_tpu_torch.models.diffusion import create_model, enhance
@@ -809,26 +840,27 @@ def main() -> int:
                 f"{label}: the served weights are not {STUDENT}'s")
         pipes.append(pipe)
 
-    unet_calls = [0]
-
-    def count_call(module, args):
-        unet_calls[0] += 1
-
-    hooks = [p.model.unet.register_forward_pre_hook(count_call) for p in pipes]
     rng = np.random.default_rng(0)
     sizes = ((400, 600), (256, 256), (480, 720), (720, 480), (97, 301))
     images = [rng.integers(0, 256, (h, w, 3), dtype=np.uint8) for h, w in sizes]
     batch_images = [images[i % len(images)] for i in range(8)]
 
     def check_outputs(inputs, outputs):
+        require(len(outputs) == len(inputs), f"{len(outputs)} outputs for {len(inputs)} inputs")
         for img, out in zip(inputs, outputs):
             require(out.dtype == np.uint8 and out.shape == img.shape,
                     f"output {out.dtype} {out.shape} for input {img.shape}")
             require(int(out.max()) > int(out.min()), "constant output image")
 
+    def eager_request(pipe, img, seed=0):
+        """One request's sampler op by op (forward hooks see it; a graph's
+        replay runs no Python)."""
+        canvas, _ = pipe.pre(img)
+        return pipe.run_eager(canvas, pipe._generator(seed))
+
     def peak_where(pipe):
-        """Peak device memory of one batch of 8, and the three blocks of the
-        UNet inside which the highest peaks are reached."""
+        """Peak device memory of one eager batch of 8, and the three blocks
+        of the UNet inside which the highest peaks are reached."""
         unet, blocks_, hooks_ = pipe.model.unet, [], []
 
         def walk(module, prefix):
@@ -852,31 +884,60 @@ def main() -> int:
             hooks_.append(m.register_forward_pre_hook(enter))
             hooks_.append(m.register_forward_hook(
                 lambda mod, a, o, name=name: leave(mod, a, o, name)))
+        canvas = torch.cat([pipe.pre(img)[0] for img in batch_images])
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         base = torch.cuda.memory_allocated()
-        pipe.batch(batch_images, seed=300)
+        pipe.run_eager(canvas, pipe._generator(300))
         torch.cuda.synchronize()
         for h in hooks_:
             h.remove()
         top = sorted(peaks.items(), key=lambda kv: -kv[1])[:3]
         return base, [{"block": n, "peak_mem_bytes": v} for n, v in top]
 
-    launches = {"linear_attention": 0, "fused_irb_v2": 0, "fused_irb_v1": 0}
-    for pipe, (label, _, grid, fused) in zip(pipes, SERVED):
-        steps = len(grid)
-        # the counts go to 0 just before this configuration runs
+    def per_replay(steps, fused):
+        """The hand-written kernels' launches inside one replay of a graph
+        of a sampler of ``steps`` UNet calls."""
+        return {"linear_attention": steps,
+                "fused_irb_v2": IRBS_PER_UNET_CALL * steps if fused else 0,
+                "fused_irb_v1": 0}      # no model path runs v1, as in JAX
+
+    def reset_launches():
         lak.linear_attention_kernel.launches = 0
         fik.fused_irb_v2.launches = 0
         fik.fused_irb_v1.launches = 0
-        unet_calls[0] = 0
-        expected_calls = 0
+
+    def graph_accounting(pipe, label, want, eager_calls):
+        """Hold the launches of a configuration's run to its graphs: each
+        graph's replay launches ``want``; the wrappers launched (GRAPH_WARMUP
+        + 1)·``want`` for each graph (warm-up and capture) and ``want`` for
+        each of ``eager_calls`` eager sampler calls. Returns (wrapper
+        launches, launches inside replays, replays by batch size)."""
+        counts = kernel_launches()
+        for b, g in pipe.graphs.items():
+            require(g.launches == want, f"{label}: the batch-{b} graph launches "
+                                        f"{g.launches} a replay, not {want}")
+        direct = {k: ((GRAPH_WARMUP + 1) * len(pipe.graphs) + eager_calls) * v
+                  for k, v in want.items()}
+        require(counts == direct, f"{label}: wrapper launches {counts} != {direct}")
+        replays = {b: g.replays for b, g in sorted(pipe.graphs.items())}
+        return counts, {k: sum(replays.values()) * v for k, v in want.items()}, replays
+
+    launches = {"linear_attention": 0, "fused_irb_v2": 0, "fused_irb_v1": 0}
+    replayed = dict(launches)
+    for pipe, (label, _, grid, fused) in zip(pipes, SERVED):
+        steps = len(grid)
+        require(not pipe.graphs, f"{label}: graphs before the run")
+        # the counts go to 0 just before this configuration runs
+        reset_launches()
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        reserved_before = torch.cuda.memory_reserved()
         torch.cuda.reset_peak_memory_stats()
-        outs = [pipe(img, seed=i) for i, img in enumerate(images)]
+        outs = [pipe(img, seed=i) for i, img in enumerate(images)]   # captures batch 1
         check_outputs(images, outs)
-        outs = pipe.batch(batch_images, seed=100)
+        outs = pipe.batch(batch_images, seed=100)                     # captures batch 8
         check_outputs(batch_images, outs)
-        expected_calls += (len(images) + 1) * steps
 
         # steady state: single requests (host clock, the output is on the host)
         lat, stages = [], []
@@ -895,37 +956,33 @@ def main() -> int:
             require(res.shape == img.shape, "steady-state output shape")
             lat.append((d - a) * 1e3)
             stages.append(((b - a) * 1e3, (c - b) * 1e3, (d - c) * 1e3))
-        expected_calls += 10 * steps
-        reps = 10
+        # batches of 8: one chunk a call, then REPS chunks pipelined in one call
         torch.cuda.synchronize()
         a = time.perf_counter()
-        for r in range(reps):
+        for r in range(REPS):
             outs = pipe.batch(batch_images, seed=200 + r)
-        elapsed = time.perf_counter() - a
+        one_chunk_s = time.perf_counter() - a
         check_outputs(batch_images, outs)
-        expected_calls += reps * steps
+        a = time.perf_counter()
+        outs = pipe.batch(batch_images * REPS, seed=400)
+        pipelined = time.perf_counter() - a
+        check_outputs(batch_images * REPS, outs)
         st = np.asarray(stages)
-        with FlopCounterMode(display=False) as flop_counter:
-            pipe(images[2], seed=0)
-        expected_calls += steps
-        counts = {"linear_attention": lak.linear_attention_kernel.launches,
-                  "fused_irb_v2": fik.fused_irb_v2.launches,
-                  "fused_irb_v1": fik.fused_irb_v1.launches}
-        calls = unet_calls[0]
-        require(calls == expected_calls,
-                f"{label}: UNet calls {calls} != expected {expected_calls}")
-        require(counts["linear_attention"] == calls,
-                f"{label}: linear-attention launches {counts['linear_attention']} "
-                f"!= UNet calls {calls} (one mid_attn per call)")
-        want_irb = IRBS_PER_UNET_CALL * calls if fused else 0
-        require(counts["fused_irb_v2"] == want_irb,
-                f"{label}: fused-IRB launches {counts['fused_irb_v2']} != {want_irb}")
-        require(counts["fused_irb_v1"] == 0,     # no model path runs v1, as in JAX
-                f"{label}: fused_irb_v1 launched {counts['fused_irb_v1']} times")
+        with FlopCounterMode(display=False) as flop_counter:   # one eager call
+            eager_request(pipe, images[2])
+        bench = pipe.benchmark()
+        torch.cuda.synchronize()
+        peak_mem = torch.cuda.max_memory_allocated()
+        torch.cuda.empty_cache()
+        # what the graphs hold: their pool, and the pipeline's own tensors
+        graph_mem = torch.cuda.memory_reserved() - reserved_before
+        counts, in_replays, replays = graph_accounting(pipe, label, per_replay(steps, fused), 1)
+        bench_runs = 20 + 3
+        want_replays = {1: len(images) + 10 + bench_runs, 8: 1 + 2 * REPS}
+        require(replays == want_replays, f"{label}: replays {replays} != {want_replays}")
         for k in launches:
             launches[k] += counts[k]
-        peak_mem = torch.cuda.max_memory_allocated()
-        resident = torch.cuda.memory_allocated()
+            replayed[k] += in_replays[k]
         row = dict(student=label, grid=list(grid), use_pallas_irb=fused,
                    weights=STUDENT, image=list(images[2].shape),
                    latency_ms_mean=float(np.mean(lat)),
@@ -933,16 +990,203 @@ def main() -> int:
                    latency_ms_min=float(np.min(lat)),
                    pre_ms=float(st[:, 0].mean()), sampler_ms=float(st[:, 1].mean()),
                    post_ms=float(st[:, 2].mean()),
-                   batch=8, images_per_s=reps * 8 / elapsed,
+                   batch=8, images_per_s=REPS * 8 / pipelined,
+                   images_per_s_one_chunk_a_call=REPS * 8 / one_chunk_s,
                    conv_matmul_gflop_per_request=flop_counter.get_total_flops() / 1e9,
-                   peak_mem_bytes=peak_mem, resident_mem_bytes=resident,
-                   unet_calls=calls, launches=counts)
+                   peak_mem_bytes=peak_mem, graph_mem_bytes=graph_mem,
+                   capture_s={b: g.seconds for b, g in sorted(pipe.graphs.items())},
+                   replays=replays, launches=counts, launches_in_replays=in_replays)
         emit("serve", **row)
-    for h in hooks:
-        h.remove()
-    emit("serve_done", kernel_launches=launches, seconds=time.perf_counter() - t0)
+        emit("benchmark", student=label, **bench)
+    emit("serve_done", kernel_launches=launches, kernel_launches_in_replays=replayed,
+         seconds=time.perf_counter() - t0)
 
-    # 5. checks on the main path's own tensors ------------------------------
+    # 5. graph: each configuration's CUDA graphs against its eager sampler --
+    t0 = time.perf_counter()
+    launch_api = re.compile(r"^cu(da)?(LaunchKernel|LaunchCooperativeKernel|"
+                            r"GraphLaunch|Memcpy|Memset)")
+
+    def launch_calls(fn, calls=3):
+        """Per call of ``fn``, from torch.profiler over ``calls`` calls after
+        one untraced: the host's CUDA launch and copy calls by API name,
+        and the device's kernels (and copies) in all and by kind."""
+        from torch.profiler import ProfilerActivity
+        from torch.profiler import profile as trace
+
+        fn()
+        torch.cuda.synchronize()
+        with trace(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+        api, kinds, device = defaultdict(int), defaultdict(int), 0
+        for e in prof.events():
+            if e.device_type == torch.autograd.DeviceType.CUDA:
+                if not getattr(e, "is_user_annotation", False):
+                    device += 1
+                    kinds[kernel_kind(e.name)] += 1
+            elif launch_api.match(e.name):
+                api[e.name] += 1
+        return ({k: v / calls for k, v in sorted(api.items())}, device / calls,
+                {k: v / calls for k, v in sorted(kinds.items())})
+
+    for pipe, (label, _, grid, fused) in zip(pipes, SERVED):
+        for b in (1, 8):
+            canvas = torch.cat([pipe.pre(img)[0] for img in (batch_images[:b])])
+            graph_out = pipe._run(canvas, pipe._generator(7))
+            eager_out = pipe.run_eager(canvas, pipe._generator(7))
+            diff = (graph_out.int() - eager_out.int()).abs()
+            lsb, off = int(diff.max()), int((diff > 0).sum())
+            require(lsb <= GRAPH_LSB_TOL,
+                    f"{label} batch {b}: graph vs eager {lsb} LSB ({off} values)")
+            # paired runs, eager and graph in turn
+            eager_ms, graph_ms = [], []
+            for i in range(10 if b == 1 else 4):
+                for fn, into in ((pipe.run_eager, eager_ms), (pipe._run, graph_ms)):
+                    torch.cuda.synchronize()
+                    a = time.perf_counter()
+                    fn(canvas, pipe._generator(i))
+                    torch.cuda.synchronize()
+                    into.append((time.perf_counter() - a) * 1e3)
+            eager_api, eager_dev, _ = launch_calls(
+                lambda: pipe.run_eager(canvas, pipe._generator(1)))
+            graph_api, graph_dev, graph_kinds = launch_calls(
+                lambda: pipe._run(canvas, pipe._generator(1)))
+            # the replay runs the hand-written kernels: one attention kernel
+            # a UNet call, and the fused IRB's kernels when it is on
+            require(graph_kinds.get("linear_attention") == len(grid),
+                    f"{label} batch {b}: {graph_kinds} in a replay")
+            require(bool(graph_kinds.get("fused_irb")) == fused,
+                    f"{label} batch {b}: {graph_kinds} in a replay")
+            row = dict(
+                student=label, batch=b, grid=list(grid), use_pallas_irb=fused,
+                graph_vs_eager_max_lsb=lsb, graph_vs_eager_values_off=off,
+                lsb_tol=GRAPH_LSB_TOL, capture_s=pipe.graphs[b].seconds,
+                eager_ms_mean=float(np.mean(eager_ms)),
+                eager_ms_p50=float(np.median(eager_ms)),
+                graph_ms_mean=float(np.mean(graph_ms)),
+                graph_ms_p50=float(np.median(graph_ms)),
+                host_launch_calls_eager=sum(eager_api.values()),
+                host_launch_calls_graph=sum(graph_api.values()),
+                host_calls_eager_by_api=eager_api, host_calls_graph_by_api=graph_api,
+                device_ops_eager=eager_dev, device_ops_graph=graph_dev,
+                device_ops_graph_by_kind=graph_kinds)
+            emit("graph", **row)
+        # a whole request of 480×720 through the pipeline: pre, graph, post
+        api, dev_ops, _ = launch_calls(lambda: pipe(images[2], seed=1))
+        emit("graph_request", student=label, image=list(images[2].shape),
+             host_launch_calls=sum(api.values()), host_calls_by_api=api,
+             device_ops=dev_ops)
+    emit("graph_done", seconds=time.perf_counter() - t0)
+
+    # 6. package: the student's serving packages, fp32 / bf16 / int8 -------
+    t0 = time.perf_counter()
+    pkg_root = os.path.join(cuda_build.BUILD_DIR, "packages")
+    student = pipes[0].model
+    original = {k: t.detach().cpu() for k, t in student.state_dict().items()}
+    small = 64
+    pkg_rng = np.random.default_rng(5)
+    pkg_low = torch.from_numpy(pkg_rng.uniform(-1, 1, (2, small, small, 3)).astype(np.float32))
+    pkg_init = torch.from_numpy(pkg_rng.standard_normal((2, small, small, 3)).astype(np.float32))
+    pkg_noise = torch.from_numpy(pkg_rng.standard_normal((1, 2, small, small, 3)).astype(np.float32))
+    packages = {}
+    pkg_launches = {"linear_attention": 0, "fused_irb_v2": 0, "fused_irb_v1": 0}
+    pkg_replayed = dict(pkg_launches)
+    for codec, quantize in CODECS:
+        path = packages[codec] = os.path.join(pkg_root, codec)
+        shutil.rmtree(path, ignore_errors=True)
+        a = time.perf_counter()
+        files = create_serving_package(path, student, pipes[0].schedule,
+                                       quantize=quantize, timesteps=SERVED[0][2])
+        write_s = time.perf_counter() - a
+        qparams, tag = quantize_model(original, student.config, quantize)
+        require(tag == codec, f"codec {tag} for {quantize}")
+        deq = (dequantize_int8(qparams) if tag == "int8"
+               else {k: t.float() for k, t in qparams.items()})
+        torch.cuda.synchronize()
+        a = time.perf_counter()
+        _, _, state, meta = load_serving_package(path, dev)
+        torch.cuda.synchronize()
+        load_s = time.perf_counter() - a
+        require(meta["quantization"] == codec and tuple(meta["timesteps"]) == SERVED[0][2],
+                f"{codec}: package config {meta['quantization']} {meta['timesteps']}")
+        require(all(torch.equal(state[k].cpu(), deq[k]) for k in original),
+                f"{codec}: the loaded weights are not the codec's")
+        del state
+        # the card's sampler on the package's weights against the CPU's,
+        # unfused and fused: same weights, same numpy noise
+        cpu_model, cpu_sched, _, _ = load_serving_package(path, "cpu")
+        want = enhance(cpu_model, cpu_sched, pkg_low, timesteps=SERVED[0][2],
+                       init_noise=pkg_init, step_noise=pkg_noise, device="cpu")
+        vs_cpu = {}
+        for fused in (False, True):
+            card_model, card_sched, _, _ = load_serving_package(path, dev,
+                                                                use_pallas_irb=fused)
+            got = enhance(card_model, card_sched, pkg_low, timesteps=SERVED[0][2],
+                          init_noise=pkg_init, step_noise=pkg_noise, device=dev).cpu()
+            require(bool(torch.isfinite(got).all()), f"{codec}: non-finite sampler output")
+            vs_cpu["fused" if fused else "unfused"] = err = float((got - want).abs().max())
+            require(err <= SAMPLER_TOL, f"{codec} fused={fused}: card vs CPU sampler {err}")
+            del card_model
+        del cpu_model
+        serve_rows = {}
+        for fused in (False, True):
+            reset_launches()
+            torch.cuda.synchronize()
+            torch.cuda.empty_cache()
+            reserved_before = torch.cuda.memory_reserved()
+            torch.cuda.reset_peak_memory_stats()
+            a = time.perf_counter()
+            pipe = ServingPipeline.from_package(path, device=dev, use_pallas_irb=fused,
+                                                batch_size=8)
+            from_package_s = time.perf_counter() - a
+            require(pipe.grid == list(SERVED[0][2]), f"{codec}: grid {pipe.grid}")
+            outs = [pipe(img, seed=i) for i, img in enumerate(images)]
+            check_outputs(images, outs)
+            lat = []
+            for i in range(5):
+                torch.cuda.synchronize()
+                a = time.perf_counter()
+                pipe(images[2], seed=i)
+                lat.append((time.perf_counter() - a) * 1e3)
+            pkg_reps = 4
+            pipe.batch(batch_images, seed=0)          # captures batch 8
+            a = time.perf_counter()
+            outs = pipe.batch(batch_images * pkg_reps, seed=500)
+            pipelined = time.perf_counter() - a
+            check_outputs(batch_images * pkg_reps, outs)
+            torch.cuda.synchronize()
+            peak_mem = torch.cuda.max_memory_allocated()
+            counts, in_replays, replays = graph_accounting(
+                pipe, f"{codec} package", per_replay(1, fused), 0)
+            require(replays == {1: len(images) + 5, 8: 1 + pkg_reps},
+                    f"{codec} package: replays {replays}")
+            for k in pkg_launches:
+                pkg_launches[k] += counts[k]
+                pkg_replayed[k] += in_replays[k]
+            capture_s = {b: g.seconds for b, g in sorted(pipe.graphs.items())}
+            del pipe, outs
+            torch.cuda.empty_cache()
+            serve_rows["fused" if fused else "unfused"] = dict(
+                from_package_s=from_package_s, latency_ms_mean=float(np.mean(lat)),
+                latency_ms_p50=float(np.median(lat)), batch=8,
+                images_per_s=pkg_reps * 8 / pipelined, peak_mem_bytes=peak_mem,
+                capture_s=capture_s, replays=replays, launches=counts,
+                launches_in_replays=in_replays)
+        row = dict(
+            codec=codec, quantize=quantize,
+            file_bytes={role: os.path.getsize(f) for role, f in files.items()},
+            bytes=sum(os.path.getsize(f) for f in files.values()),
+            report=quantization_report(original, qparams),
+            error=quantization_error(original, deq), write_s=write_s, load_s=load_s,
+            sampler_vs_cpu_max_abs_err=vs_cpu, sampler_tol=SAMPLER_TOL,
+            serve=serve_rows)
+        emit("package", **row)
+        del qparams, deq
+    emit("package_done", kernel_launches=pkg_launches,
+         kernel_launches_in_replays=pkg_replayed, seconds=time.perf_counter() - t0)
+
+    # 7. checks on the main path's own tensors ------------------------------
     t0 = time.perf_counter()
     captured = {}
 
@@ -950,7 +1194,7 @@ def main() -> int:
         captured["qkv"] = [a.detach().clone() for a in args]
 
     h = pipes[0].model.unet.mid_attn.attn.register_forward_pre_hook(capture)
-    pipes[0](images[0], seed=0)
+    eager_request(pipes[0], images[0])
     h.remove()
     q, k, v = captured["qkv"]
     require(tuple(q.shape) == (1, 1024, 4, 32) and q.dtype == torch.float32,
@@ -967,7 +1211,7 @@ def main() -> int:
         captured["irb"] = [a.detach().clone() for a in args[:2]]   # x, time_emb
 
     h = blk.register_forward_pre_hook(capture_irb)
-    fused_pipe(images[0], seed=0)
+    eager_request(fused_pipe, images[0])
     h.remove()
     xb, temb = captured["irb"]
     require(tuple(xb.shape) == (1, 96, size, size), f"{widest} x {tuple(xb.shape)}")
@@ -1031,7 +1275,7 @@ def main() -> int:
              for n, m in named]
     hooks += [m.register_forward_hook(lambda mod, a, o, n=n: keep_out(mod, a, o, n))
               for n, m in named]
-    pipes[0](images[0], seed=0)
+    eager_request(pipes[0], images[0])
     for h in hooks:
         h.remove()
     require(all(len(irb_io.get(n, ())) == 3 for n, _ in named), "an IRB was not captured")
@@ -1157,7 +1401,7 @@ def main() -> int:
          fused_vs_unfused_sampler_max_abs_err=fused_vs_unfused,
          sampler_tol=SAMPLER_TOL, seconds=time.perf_counter() - t0)
 
-    # 6. eval: the student's quality on the card against the JAX package ----
+    # 8. eval: the student's quality on the card against the JAX package ----
     t0 = time.perf_counter()
     ref_base = os.path.join(ROOT, "artifacts_torch", STUDENT)
     with open(ref_base + ".eval_ref.json") as f:
@@ -1229,14 +1473,55 @@ def main() -> int:
             images_per_s=eval_n / seconds, per_image=per)
         emit("eval", **row)
         del pred
+    # the bf16 and int8 packages, unfused, against the JAX package's own
+    # package of that codec (eval_ref_<codec>.json) on the same inputs
+    for codec in ("bf16", "int8"):
+        with open(f"{ref_base}.eval_ref_{codec}.json") as f:
+            cref = json.load(f)
+        require(cref["quantization"] == codec and cref["timesteps"] == grid
+                and cref["n"] == eval_n and cref["size"] == size
+                and [im[f"{w}_sha256"] for im in cref["images"] for w in ("low", "high", "noise")]
+                == [im[f"{w}_sha256"] for im in ref["images"] for w in ("low", "high", "noise")],
+                f"{codec} eval reference is not for the fp32 reference's inputs")
+        model, schedule, _, _ = load_serving_package(packages[codec], dev)
+        reset_launches()
+        torch.cuda.synchronize()
+        a = time.perf_counter()
+        pred = ev.enhance_split(model, schedule, eval_low, eval_init, eval_step, grid,
+                                device=dev)
+        per = ev.per_image_metrics(pred, eval_target)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - a
+        batches = -(-eval_n // ev.BATCH_SIZE) * len(grid)
+        counts = kernel_launches()
+        require(counts == {"linear_attention": batches, "fused_irb_v2": 0, "fused_irb_v1": 0},
+                f"{codec}: eval launches {counts} for {batches} UNet calls")
+        deltas = {k: [abs(v - im[k]) for v, im in zip(per[k], cref["images"])]
+                  for k in EVAL_TOL}
+        for k, tol in EVAL_TOL.items():
+            worst = int(np.argmax(deltas[k]))
+            require(deltas[k][worst] <= tol,
+                    f"{codec} package: image {worst}: |Δ{k}| {deltas[k][worst]} "
+                    f"against JAX's {codec} package > {tol}")
+        eval_rows[f"{STUDENT}:{codec}"] = row = dict(
+            student=STUDENT, package=codec, weights=STUDENT, grid=grid, images=eval_n,
+            size=size, batch=ev.BATCH_SIZE, launches=counts,
+            mean={k: float(np.mean(per[k])) for k in EVAL_TOL},
+            jax_mean={k: cref["summary"][f"{k}_mean"] for k in EVAL_TOL},
+            max_abs_delta={k: max(v) for k, v in deltas.items()},
+            worst_image={k: int(np.argmax(v)) for k, v in deltas.items()},
+            tol=EVAL_TOL, seconds=seconds, images_per_s=eval_n / seconds, per_image=per)
+        emit("eval", **row)
+        del model, pred
     emit("eval_summary", inputs_sha256_match=eval_n,
          psnr_mean={k: r["mean"]["psnr"] for k, r in eval_rows.items()},
          jax_psnr_mean=ref["summary"]["psnr_mean"],
+         jax_psnr_mean_by_run={k: r["jax_mean"]["psnr"] for k, r in eval_rows.items()},
          max_abs_delta={k: r["max_abs_delta"] for k, r in eval_rows.items()},
          images_per_s={k: r["images_per_s"] for k, r in eval_rows.items()},
          seconds=time.perf_counter() - t0)
 
-    # 7. profile (optional) -------------------------------------------------
+    # 9. profile (optional) -------------------------------------------------
     if args.profile:
         for pipe, (label, *_) in ((pipes[0], SERVED[0]), (pipes[-1], SERVED[-1])):
             resident, peak_blocks = peak_where(pipe)
@@ -1251,9 +1536,9 @@ def main() -> int:
             profile(f"{label}batch8_mixed_sizes",
                     lambda pipe=pipe: pipe.batch(batch_images, seed=1), 8)
 
-    # 8. train: the training path at full width ----------------------------
+    # 10. train: the training path at full width ---------------------------
     t0 = time.perf_counter()
-    del pipes, fused_pipe, blk
+    del pipes, fused_pipe, blk, pipe, student
     torch.cuda.empty_cache()
     train_cfg = TrainConfig(unet_variant="small", image_size=size, batch_size=8,
                             use_amp=False, epochs=1, warmup_epochs=0,
@@ -1505,6 +1790,9 @@ def main() -> int:
         "source": "cv_diffusion_tpu_torch/csrc/linear_attention.cu",
         "replaces": "cv_diffusion_tpu/ops/pallas_attention.py:82",
         "launches": launches["linear_attention"],
+        "launches_in_replays": replayed["linear_attention"],
+        "launches_package": pkg_launches["linear_attention"],
+        "launches_package_in_replays": pkg_replayed["linear_attention"],
         "launches_train": train_launches["linear_attention"],
         "launches_eval": sum(r["launches"]["linear_attention"] for r in eval_rows.values()),
         "max_abs_err": mid_err,
@@ -1524,6 +1812,9 @@ def main() -> int:
         "source": "cv_diffusion_tpu_torch/csrc/fused_irb.cu",
         "replaces": "cv_diffusion_tpu/ops/pallas_irb.py:607",
         "launches": launches["fused_irb_v2"],
+        "launches_in_replays": replayed["fused_irb_v2"],
+        "launches_package": pkg_launches["fused_irb_v2"],
+        "launches_package_in_replays": pkg_replayed["fused_irb_v2"],
         "launches_eval": sum(r["launches"]["fused_irb_v2"] for r in eval_rows.values()),
         "max_abs_err": irb_err_all,
         "ms": per_unet["kernel_ms"],

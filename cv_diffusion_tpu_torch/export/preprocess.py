@@ -53,7 +53,14 @@ class PreProcessor:
                              f"{image_u8.dtype} {image_u8.shape}")
         h, w = image_u8.shape[:2]
         s = self.target_size
-        img = torch.from_numpy(np.ascontiguousarray(image_u8)).to(self.device)
+        img = torch.from_numpy(np.ascontiguousarray(image_u8))
+        if self.device.type == "cuda":
+            # from pinned memory the copy is queued on the stream, without
+            # waiting for the work already queued there (a pipelined batch's
+            # earlier chunks)
+            img = img.pin_memory().to(self.device, non_blocking=True)
+        else:
+            img = img.to(self.device)
         if not self.keep_aspect:
             canvas = resize_u8(img, s, s)
             return canvas[None], PreprocessMeta((h, w), (s / h, s / w),
@@ -74,9 +81,15 @@ class PostProcessor:
 
     def __call__(self, output_u8: torch.Tensor,
                  meta: PreprocessMeta) -> np.ndarray:
+        return self.on_device(output_u8, meta).cpu().numpy()
+
+    @staticmethod
+    def on_device(output_u8: torch.Tensor, meta: PreprocessMeta) -> torch.Tensor:
+        """The padding cropped and the image resized back, on the output's
+        device: uint8 [h, w, 3]."""
         img = output_u8
         if meta.keep_aspect:
             top, bottom, left, right = meta.pad
             img = img[top:img.shape[0] - bottom, left:img.shape[1] - right]
         h, w = meta.original_size
-        return resize_u8(img, h, w).cpu().numpy()
+        return resize_u8(img, h, w)

@@ -157,6 +157,25 @@ def compute_loss(model: LowLightDiffusion, schedule: LCMSchedule,
     return diffusion_loss(out["noise_pred"], out["target"], loss_type)
 
 
+def sampler_noise(generator: Optional[torch.Generator],
+                  shape: Sequence[int], steps: int, device,
+                  out: Optional[Tuple[torch.Tensor, torch.Tensor]] = None
+                  ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The sampler's noise, ε ~ N(0, 1) in float32 drawn from ``generator``
+    in this order: ``init_noise`` of ``shape`` [B, H, W, 3], then
+    ``step_noise`` [steps, B, H, W, 3], one slice a step (drawn for every
+    grid, the 1-step one too, whose renoise is unused). :func:`enhance`
+    draws its noise here, and the serving pipeline's CUDA graph fills its
+    buffers here (``out``, filled in place), so a seed gives the same image
+    either way."""
+    if out is None:
+        out = (torch.empty(tuple(shape), device=device),
+               torch.empty((steps,) + tuple(shape), device=device))
+    for t in out:
+        t.normal_(generator=generator)
+    return out
+
+
 @torch.inference_mode()
 def enhance(model: LowLightDiffusion, schedule: LCMSchedule,
             low_light: torch.Tensor, *,
@@ -175,7 +194,8 @@ def enhance(model: LowLightDiffusion, schedule: LCMSchedule,
     ``[739]``); without it the stock ``lcm_timesteps`` grid of
     ``num_inference_steps`` (default: the config's) is used.
     ``init_noise`` [B, H, W, 3] and ``step_noise`` [steps, B, H, W, 3] are
-    explicit noise; what is not given is drawn from ``generator``.
+    explicit noise; when either is not given, both are drawn from
+    ``generator`` (:func:`sampler_noise`) and the drawn one is used.
     ``deterministic`` takes renoise-free DDIM-style steps. ``params`` (e.g.
     the EMA weights) replaces the module's own parameters.
     """
@@ -193,12 +213,10 @@ def enhance(model: LowLightDiffusion, schedule: LCMSchedule,
     prev = sched.prev_timesteps(grid)
 
     batch, height, width = low_light.shape[:3]
-    shape = (batch, height, width, 3)
-    if init_noise is None:
-        init_noise = torch.randn(shape, generator=generator, device=dev)
-    if step_noise is None:
-        step_noise = torch.randn((len(grid),) + shape, generator=generator,
-                                 device=dev)
+    if init_noise is None or step_noise is None:
+        drawn = sampler_noise(generator, (batch, height, width, 3), len(grid), dev)
+        init_noise = drawn[0] if init_noise is None else init_noise
+        step_noise = drawn[1] if step_noise is None else step_noise
     latents = _to_nchw(init_noise.to(dev, torch.float32))
     step_noise = step_noise.to(dev, torch.float32).permute(0, 1, 4, 2, 3).contiguous()
     low = _to_nchw(low_light.to(dev, torch.float32))

@@ -41,7 +41,8 @@ def check_ported(config: UNetConfig) -> None:
     if config.dtype != "float32":
         raise NotImplementedError(
             f"UNet dtype {config.dtype!r}: only float32 is ported; bf16 "
-            "compute comes with the codecs (ROADMAP queue 1 item 3)")
+            "compute is ROADMAP queue 1 item 3b (serving packages' bf16 "
+            "weights are upcast to float32 at load)")
 
 
 class EfficientUNet(nn.Module):

@@ -2,7 +2,7 @@
 """The JAX package's quality numbers on the port's evaluation inputs.
 
     python scripts/torch_port_eval_reference.py [--artifact vreg1b_gt03_ema]
-        [--n 15] [--size 256] [--seed 0]
+        [--n 15] [--size 256] [--seed 0] [--quantize bf16|int8]
 
 Runs the JAX package's ``enhance`` (``cv_diffusion_tpu/models/diffusion.py``)
 on the orbax weights of ``artifacts/<artifact>`` over the inputs and noise
@@ -17,15 +17,22 @@ writes:
   (``clip(pred·255)``) of images 0 and 1 (``pred_u8`` [2, S, S, 3]).
 
 The model runs as its ``model_config.json`` says (float32; linear attention
-through XLA, which computes what the Pallas kernel does). Needs the JAX
-stack and orbax; ``chip_smoke.py`` holds the card's numbers against these
-files.
+through XLA, which computes what the Pallas kernel does). With
+``--quantize bf16`` or ``int8`` the weights go through the JAX package's own
+serving package instead: ``create_serving_package(quantize=…)`` into a
+temporary directory and ``load_serving_package`` back (bf16 params served
+as they are, int8 dequantized; linear attention through the Pallas kernel,
+in interpret mode on the CPU), and only
+``artifacts_torch/<artifact>.eval_ref_<codec>.json`` is written (no uint8
+outputs). Needs the JAX stack and orbax; ``chip_smoke.py`` holds the card's
+numbers against these files.
 """
 
 import argparse
 import json
 import os
 import sys
+from typing import Optional
 
 import numpy as np
 
@@ -35,12 +42,17 @@ sys.path.insert(0, REPO)
 U8_IMAGES = (0, 1)
 
 
-def reference(artifact: str, n: int, size: int, seed: int):
+def reference(artifact: str, n: int, size: int, seed: int,
+              quantize: Optional[str] = None):
+    import tempfile
+
     import jax
     import jax.numpy as jnp
 
     from cv_diffusion_tpu.config import DiffusionConfig, from_dict
     from cv_diffusion_tpu.data.augment import normalize
+    from cv_diffusion_tpu.export.serving import (create_serving_package,
+                                                 load_serving_package)
     from cv_diffusion_tpu.models.diffusion import (create_model,
                                                    denormalize_image, enhance)
     from cv_diffusion_tpu.training.checkpoint import load_inference_params
@@ -56,6 +68,15 @@ def reference(artifact: str, n: int, size: int, seed: int):
         grid = [int(t) for t in json.load(f)["timesteps"]]
     model, schedule = create_model(cfg)
     variables = {"params": load_inference_params(path, verbose=False)}
+    if quantize:
+        with tempfile.TemporaryDirectory() as tmp:
+            create_serving_package(tmp, model, schedule, variables["params"],
+                                   quantize=quantize, timesteps=grid)
+            model, schedule, params, meta = load_serving_package(tmp)
+        if meta["quantization"] != quantize:
+            raise ValueError(f"package codec {meta['quantization']!r}, "
+                             f"not {quantize!r}")
+        variables = {"params": params}
     low, high = eval_split(n, size, seed)
     init, step = eval_noise(n, size, seed, len(grid))
     with_perceptual = size >= MS_SSIM_MIN_SIZE
@@ -104,7 +125,12 @@ def reference(artifact: str, n: int, size: int, seed: int):
                "noise": NOISE_RECIPE, "batch_size": BATCH_SIZE,
                "reference": f"cv_diffusion_tpu enhance + training.metrics, "
                             f"jax {jax.__version__}, {jax.default_backend()}",
-               "u8_images": list(U8_IMAGES), "summary": means, "images": images}
+               "u8_images": [] if quantize else list(U8_IMAGES),
+               "summary": means, "images": images}
+    if quantize:
+        payload["quantization"] = quantize
+        payload["package"] = ("cv_diffusion_tpu create_serving_package + "
+                              "load_serving_package")
     return payload, u8[list(U8_IMAGES)]
 
 
@@ -114,13 +140,19 @@ def main():
     p.add_argument("--n", type=int, default=15)
     p.add_argument("--size", type=int, default=256)
     p.add_argument("--seed", type=int, default=0)
+    p.add_argument("--quantize", choices=("bf16", "int8"), default=None,
+                   help="serve the JAX package's own serving package of "
+                        "this codec")
     args = p.parse_args()
-    payload, u8 = reference(args.artifact, args.n, args.size, args.seed)
+    payload, u8 = reference(args.artifact, args.n, args.size, args.seed,
+                            args.quantize)
     out = os.path.join(REPO, "artifacts_torch", args.artifact)
-    with open(out + ".eval_ref.json", "w") as f:
+    suffix = f"_{args.quantize}" if args.quantize else ""
+    with open(out + f".eval_ref{suffix}.json", "w") as f:
         json.dump(payload, f, indent=1)
         f.write("\n")
-    np.savez_compressed(out + ".eval_ref_u8.npz", pred_u8=u8)
+    if not args.quantize:
+        np.savez_compressed(out + ".eval_ref_u8.npz", pred_u8=u8)
     print(json.dumps(payload["summary"]))
 
 

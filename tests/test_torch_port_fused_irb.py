@@ -34,7 +34,7 @@ from cv_diffusion_tpu_torch.ops import fused_irb_kernel as fik
 from cv_diffusion_tpu_torch.ops import linear_attention_kernel as lak
 from cv_diffusion_tpu_torch.ops.fused_irb import fused_irb_v2_plain, irb_args
 from cv_diffusion_tpu_torch.ops.norms import gn2_film_affine_gram
-from cv_diffusion_tpu_torch.weights import _irb
+from cv_diffusion_tpu_torch.weights import _from_jax, _irb_entries
 
 from test_torch_port_sampler import _both_enhance
 from test_torch_port_weights import one_torch_thread  # noqa: F401
@@ -133,8 +133,7 @@ def _block_case(cin=32, cout=32, exp=4, size=32, batch=2, use_se=True,
         lambda a: (np.asarray(a) + (0.1 * rng.standard_normal(a.shape)
                                     if a.ndim == 1 else 0)).astype(np.float32),
         params)
-    sd = {}
-    _irb(sd, "b", params)
+    sd = _from_jax(params, _irb_entries("b", ()))
     block = tblocks.InvertedResidualBlock(
         cin, cout, 64, expansion_ratio=exp, use_se=use_se,
         quantization_friendly=quant)

@@ -6,7 +6,8 @@ tensorstore, PyYAML, OpenCV, Pillow, safetensors or scikit-learn. A
 subprocess here refuses to import any of those, or anything of the JAX
 package, and under that block imports every module of the port and
 ``chip_smoke``, then serves one request through
-``ServingPipeline.from_config`` on the CPU, the same request with
+``ServingPipeline.from_config`` on the CPU, writes, loads and serves a bf16
+and an int8 serving package of that model, serves the same request with
 ``use_pallas_irb`` on, runs ``fused_irb_v1`` on one block, and takes one
 train step; then loads the committed student's ``.npz`` and serves a request
 through ``ServingPipeline.from_artifact``, makes a small synthetic split and
@@ -67,6 +68,18 @@ _CHILD = textwrap.dedent("""
     img = np.random.default_rng(0).integers(0, 256, (24, 40, 3), dtype=np.uint8)
     out = pipe(img, seed=0)
     assert out.shape == img.shape and out.dtype == np.uint8
+
+    # bf16 and int8 serving packages written, loaded and served
+    import tempfile
+    from cv_diffusion_tpu_torch.export.serving import create_serving_package
+    with tempfile.TemporaryDirectory() as tmp:
+        for codec in ("bf16", "int8"):
+            create_serving_package(f"{{tmp}}/{{codec}}", pipe.model, pipe.schedule,
+                                   quantize=codec, timesteps=[739])
+            packaged = ServingPipeline.from_package(f"{{tmp}}/{{codec}}", device="cpu")
+            assert packaged.config.timesteps == (739,)
+            got = packaged(img, seed=0)
+            assert got.shape == img.shape and got.dtype == np.uint8
 
     # the same request with every IRB through the fused kernel's wrapper
     import dataclasses
