@@ -92,6 +92,39 @@ Phases, one JSON line each on stdout (warnings and build logs go to stderr):
    step through the kernels against the same step with the attention on
    its plain autograd path, one step on the card against the CPU (small at
    64², batch 2), a validation pass, and a checkpoint save and restore.
+11. conv_workspace -- each ``Upsample`` conv of the small UNet at 256², float32
+   and bf16, batch 1, 4, 5 and 8: cuDNN's own choice (``F.conv2d``) against
+   the port's ``Upsample`` (cuDNN off where ``blocks.CUDNN_FFT_FROM_BATCH``
+   says cuDNN takes an FFT): the memory each holds beyond its output,
+   CUDA-event times, whether an FFT ran, and their difference.
+12. bf16_serve -- the student with ``unet.dtype = "bfloat16"`` on its float32
+   weights (``models.diffusion.with_dtype``), unfused, with
+   ``use_pallas_irb`` and on the grid [739, 259], through the CUDA graphs:
+   latency, pipelined images/s, peak and graph memory, launches (counts set
+   to 0 before each configuration), each graph against the eager sampler at
+   batch 1 and 8 (≤ 1 LSB), the profiler's kernels in a replay (bf16
+   instances of attention, one a UNet call, and of the fused IRB's output
+   pass), the bf16 attention kernel on ``mid_attn``'s and the fused IRB on
+   ``decoder_blocks.3.0``'s own bf16 inputs against their plain versions,
+   and the fused IRB's bf16 entry timed at each IRB shape of a UNet call.
+13. bf16_eval -- the 15 pairs of phase 8 in bf16 compute, unfused and fused,
+   per image against the JAX package's bf16 compute at phase 8's bounds
+   (``….eval_ref_bf16compute.json``, ``…_fused.json``; inputs held by
+   SHA-256), with the port's bf16-vs-float32 mean PSNR gap beside JAX's.
+14. train_amp -- ``use_amp=True`` training of small@256 at batch 8 (warm-up
+   and ten timed steps as phase 10): ms per step, images/s, peak memory, the
+   attention kernels' launches, one bf16 backward kernel a step in the
+   profiler; the first step on the student's weights in bf16 against
+   float32 (loss and gradients relative to their norms), and the bf16
+   backward kernel on that step's own inputs against its plain version.
+15. remat -- at batch 8, float32 and bf16, the plain step (twice) and
+   ``remat`` with ``full`` and ``conv`` × ``all`` and ``decoder``: peak
+   memory, ms per step, the first step's gradients equal to the plain
+   step's bit for bit (deterministic algorithms on); and the bytes the
+   plain backward keeps, by UNet block.
+16. warm_start -- ``init_params_from`` the committed ``.npz`` (bit for bit
+   before the first step, a fresh state), three ``use_amp`` steps, and
+   ``init_params_ema`` from a checkpoint written in the run.
 
 Then the ``kernels`` line, the ``nvidia-smi`` line, and last
 ``{"ok": true, "device": {...}}``. Any failed check raises, and the script
@@ -115,6 +148,7 @@ import subprocess
 import sys
 import tempfile
 import time
+import warnings
 from collections import defaultdict
 from concurrent.futures import ThreadPoolExecutor
 
@@ -169,6 +203,37 @@ STEP_PARAM_SHARE = 1e-2        # ... and at most this share of them may
 # v1's own affines (GN1's on x, GN2⊕FiLM's on h1, from the kernel's one-pass
 # float32 partials) are held to it against float64 statistics
 FOLD_TOL = 5e-5
+# bf16 compute (phases 12-16): the student served with unet.dtype = "bfloat16"
+BF16_SERVED = (("vreg1b_gt03_ema+bfloat16", "vreg1b_gt03_ema", (739,), False),
+               ("vreg1b_gt03_ema+use_pallas_irb+bfloat16", "vreg1b_gt03_ema", (739,), True),
+               ("vreg2b_gt03_ema+bfloat16", "vreg2b_gt03_ema", (739, 259), False))
+# bf16 eval: per image at EVAL_TOL against JAX's bf16 compute (artifacts_torch/
+# …eval_ref_bf16compute[_fused].json, compiled with XLA's excess precision off
+# so that every cast of the model's code rounds; with it on, XLA's CPU
+# compiler skips some and moves JAX's own per-image PSNR by up to 0.145 dB),
+# and the mean |ΔPSNR| over the 15 images at BF16_EVAL_MEAN_PSNR_TOL (the CPU
+# port: 0.003 dB either route; a float32 computation of the same model is
+# 0.16 / 0.11 dB away unfused / fused, and up to 0.40 / 0.30 on one image)
+BF16_EVAL_MEAN_PSNR_TOL = 0.02
+# a use_amp step against the float32 step on the same batch, t and ε (the
+# trained student): the loss, and the gradients' norm and difference,
+# relative (on the CPU at 48² JAX's own bf16 step is 4.4e-4 and 2.7e-2 from
+# its float32 one)
+AMP_LOSS_TOL = 1e-2
+AMP_GRAD_TOL = 0.1
+# remat: (remat, policy, scope); the first two are the plain step, twice.
+# Steps timed a case. Each remat step's first gradients against the plain
+# step's, which must be equal bit for bit: the recompute runs the same
+# operations, and the phase runs with cuDNN's deterministic algorithms and
+# torch.use_deterministic_algorithms, without which the bilinear resize's
+# backward adds with atomics in an order that varies (two plain float32
+# steps then differ by ~4.4e-7 of the gradients' norm; in bf16 that noise
+# is mostly rounded away, and flipped one run's gradients by 4.9e-4:
+# scripts/torch_port_grad_determinism.py)
+REMAT_CASES = ((False, "full", "all"), (False, "full", "all"), (True, "full", "all"),
+               (True, "full", "decoder"), (True, "conv", "all"), (True, "conv", "decoder"))
+REMAT_STEPS = 3
+WARM_START_STEPS = 3
 
 
 def emit(phase: str, **fields) -> None:
@@ -280,6 +345,37 @@ def profile(label: str, fn, requests_per_run: int, runs: int = 5) -> None:
                        "calls_per_request": c / n} for name, (t, c) in top])
 
 
+def device_kernels(fn, calls: int = 2, traces: int = 3) -> dict:
+    """The device kernels (and copies) one call of ``fn`` runs, by name,
+    from torch.profiler over ``calls`` calls after one untraced. The
+    profiler now and then drops an event (a trace of 10 one-kernel calls has
+    read 9 on the card), never adds one: a trace that reads a fraction of a
+    kernel a call is taken again, up to ``traces`` times, and the one that
+    read the most counts."""
+    import torch
+    from torch.profiler import ProfilerActivity
+    from torch.profiler import profile as trace
+
+    fn()
+    torch.cuda.synchronize()
+    best = {}
+    for _ in range(traces):
+        with trace(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+        counts = defaultdict(int)
+        for e in prof.events():
+            if (e.device_type == torch.autograd.DeviceType.CUDA
+                    and not getattr(e, "is_user_annotation", False)):
+                counts[e.name] += 1
+        if sum(counts.values()) > sum(best.values()):
+            best = counts
+        if all(v % calls == 0 for v in counts.values()):
+            break
+    return {n: v / calls for n, v in best.items()}
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--profile", action="store_true",
@@ -315,7 +411,8 @@ def main() -> int:
         load_serving_package)
     from cv_diffusion_tpu_torch.models.blocks import (InvertedResidualBlock,
                                                       LinearAttention)
-    from cv_diffusion_tpu_torch.models.diffusion import create_model, enhance
+    from cv_diffusion_tpu_torch.models.diffusion import create_model, enhance, with_dtype
+    from cv_diffusion_tpu_torch.models import blocks as tblocks
     from cv_diffusion_tpu_torch.ops import fused_irb_kernel as fik
     from cv_diffusion_tpu_torch.ops import linear_attention_kernel as lak
     from cv_diffusion_tpu_torch.ops.attention import (
@@ -401,31 +498,9 @@ def main() -> int:
         flops = elems * (4 * d + 6)   # kv, num: 2·D each; ksum, den, φ, divide
         return bound(moved, flops) + (moved, flops)
 
-    def device_ops_per_call(fn, calls=10, traces=3) -> float:
-        """Device kernels (and copies) per call of ``fn``, from
-        torch.profiler over ``calls`` calls after one untraced. The profiler
-        now and then drops an event (a trace of 10 one-kernel calls has read
-        9 on the card), never adds one: a trace that reads a fraction of a
-        kernel a call is taken again, up to ``traces`` times, and the
-        largest reading counts."""
-        from torch.profiler import ProfilerActivity
-        from torch.profiler import profile as trace
-
-        fn()
-        torch.cuda.synchronize()
-        readings = []
-        for _ in range(traces):
-            with trace(activities=[ProfilerActivity.CUDA]) as prof:
-                for _ in range(calls):
-                    fn()
-                torch.cuda.synchronize()
-            ops = [e for e in prof.events()
-                   if e.device_type == torch.autograd.DeviceType.CUDA
-                   and not getattr(e, "is_user_annotation", False)]
-            readings.append(len(ops) / calls)
-            if len(ops) % calls == 0:
-                break
-        return max(readings)
+    def device_ops_per_call(fn, calls=10) -> float:
+        """Device kernels (and copies) per call of ``fn`` (:func:`device_kernels`)."""
+        return sum(device_kernels(fn, calls).values())
 
     la_lib = cuda_build.load(lak.SOURCE, lak._declare)
 
@@ -1040,9 +1115,9 @@ def main() -> int:
             require(lsb <= GRAPH_LSB_TOL,
                     f"{label} batch {b}: graph vs eager {lsb} LSB ({off} values)")
             # paired runs, eager and graph in turn
-            eager_ms, graph_ms = [], []
+            eager_lat, graph_lat = [], []
             for i in range(10 if b == 1 else 4):
-                for fn, into in ((pipe.run_eager, eager_ms), (pipe._run, graph_ms)):
+                for fn, into in ((pipe.run_eager, eager_lat), (pipe._run, graph_lat)):
                     torch.cuda.synchronize()
                     a = time.perf_counter()
                     fn(canvas, pipe._generator(i))
@@ -1062,10 +1137,10 @@ def main() -> int:
                 student=label, batch=b, grid=list(grid), use_pallas_irb=fused,
                 graph_vs_eager_max_lsb=lsb, graph_vs_eager_values_off=off,
                 lsb_tol=GRAPH_LSB_TOL, capture_s=pipe.graphs[b].seconds,
-                eager_ms_mean=float(np.mean(eager_ms)),
-                eager_ms_p50=float(np.median(eager_ms)),
-                graph_ms_mean=float(np.mean(graph_ms)),
-                graph_ms_p50=float(np.median(graph_ms)),
+                eager_ms_mean=float(np.mean(eager_lat)),
+                eager_ms_p50=float(np.median(eager_lat)),
+                graph_ms_mean=float(np.mean(graph_lat)),
+                graph_ms_p50=float(np.median(graph_lat)),
                 host_launch_calls_eager=sum(eager_api.values()),
                 host_launch_calls_graph=sum(graph_api.values()),
                 host_calls_eager_by_api=eager_api, host_calls_graph_by_api=graph_api,
@@ -1766,6 +1841,552 @@ def main() -> int:
     require(within(kernel_vs_plain), f"kernel vs plain-attention step: {kernel_vs_plain}")
     require(within(card_vs_cpu), f"card vs CPU step: {card_vs_cpu}")
 
+    # 11. conv_workspace: the upsample convolutions, cuDNN against the port's --
+    t0 = time.perf_counter()
+    torch.cuda.empty_cache()
+    ups = create_model(model_cfg, device=dev)[0].unet.upsamplers
+    ws_rows = []
+    for i, up in enumerate(ups):
+        c = up.conv.in_channels
+        res = size // 2 ** (len(ups) - i)          # the resolution it upsamples from
+        for dtype in (torch.float32, torch.bfloat16):
+            for b in (1, 4, 5, 8):
+                x = torch.randn((b, c, res, res), generator=gen, device=dev).to(dtype)
+                w, bias = up.conv.weight.to(dtype), up.conv.bias.to(dtype)
+                tblocks.set_compute_dtype(up, None if dtype == torch.float32 else dtype)
+                xu = torch.nn.functional.interpolate(x.float(), scale_factor=2, mode="bilinear",
+                                                     align_corners=False).to(dtype)
+
+                def cudnn(xu=xu, w=w, bias=bias):
+                    return torch.nn.functional.conv2d(xu, w, bias, padding=1)
+
+                def port(x=x, up=up):
+                    return up(x)
+
+                def interp(x=x):
+                    return torch.nn.functional.interpolate(
+                        x.float(), scale_factor=2, mode="bilinear", align_corners=False).to(x.dtype)
+
+                row = dict(block=f"upsamplers.{i}", channels=c, out_hw=2 * res, batch=b,
+                           dtype=str(dtype).replace("torch.", ""))
+                with torch.no_grad():
+                    for how, fn in (("cudnn", cudnn), ("port", port)):
+                        fn()
+                        torch.cuda.synchronize()
+                        torch.cuda.empty_cache()
+                        torch.cuda.reset_peak_memory_stats()
+                        base = torch.cuda.memory_allocated()
+                        out = fn()
+                        torch.cuda.synchronize()
+                        row[f"{how}_held_bytes"] = (torch.cuda.max_memory_allocated() - base
+                                                    - out.numel() * out.element_size())
+                        row[f"{how}_ms"] = cuda_ms(fn, 10, 2)
+                        row[f"{how}_fft"] = any("fft" in n.lower()
+                                                for n in device_kernels(fn))
+                        del out
+                    row["interpolate_ms"] = cuda_ms(interp, 10, 2)
+                    row["port_conv_ms"] = row["port_ms"] - row["interpolate_ms"]
+                    conv_ref = cudnn().float()
+                    row["port_vs_cudnn_max_abs"] = float((up(x).float() - conv_ref).abs().max())
+                tol = IRB_TOL["float32"] if dtype == torch.float32 else bf16_ulp(
+                    float(conv_ref.abs().max()))
+                require(row["port_vs_cudnn_max_abs"] <= tol,
+                        f"upsamplers.{i} {row['dtype']} b{b}: port vs cuDNN "
+                        f"{row['port_vs_cudnn_max_abs']} > {tol}")
+                require(not row["port_fft"], f"upsamplers.{i}: the port's conv ran an FFT")
+                ws_rows.append(row)
+                emit("conv_workspace", **row)
+    del ups
+    torch.cuda.empty_cache()
+    emit("conv_workspace_done", seconds=time.perf_counter() - t0)
+
+    # 12. bf16_serve: the student in bf16 compute, through the CUDA graphs ----
+    t0 = time.perf_counter()
+
+    def bf16_pipeline(name, fused):
+        """The artifact's pipeline with its model in bf16 compute: the same
+        float32 weights under ``unet.dtype = "bfloat16"``."""
+        if name == STUDENT:
+            base = ServingPipeline.from_artifact(name, dev, use_pallas_irb=fused, batch_size=8)
+        else:
+            base = ServingPipeline.from_config(
+                os.path.join(art[name], "model_config.json"),
+                os.path.join(art[name], "student_timesteps.json"), trained,
+                device=dev, batch_size=8)
+        return ServingPipeline(with_dtype(base.model, "bfloat16"), base.schedule,
+                               base.config, device=dev)
+
+    def irb16_tol(x, kw):
+        """The bf16 entry against its plain version, which rounds the same
+        product operands to bf16 (``fused_irb_v2_plain``): the float32
+        accumulations differ in order only, so an output lands at most on the
+        neighbouring bf16 value: one bf16 ulp of the output's largest
+        magnitude (trained activations reach ~40, where it is 0.25), and at
+        least the random-input bound IRB_TOL["bfloat16"]."""
+        with torch.inference_mode():
+            top = float(fused_irb_v2_plain(x, **kw).float().abs().max())
+        return max(IRB_TOL["bfloat16"], bf16_ulp(top))
+
+    bf16_launches = {"linear_attention": 0, "fused_irb_v2": 0, "fused_irb_v1": 0}
+    bf16_replayed = dict(bf16_launches)
+    bf16_rows, bf16_checks = {}, {}
+    for label, name, grid16, fused in BF16_SERVED:
+        pipe = bf16_pipeline(name, fused)
+        require(pipe.model.compute_dtype == torch.bfloat16
+                and pipe.model.config.unet.dtype == "bfloat16"
+                and all(p.dtype == torch.float32 for p in pipe.model.parameters()),
+                f"{label}: not a bf16-compute model on float32 weights")
+        require(pipe.grid == list(grid16) and pipe.model.config.unet.use_pallas_irb == fused,
+                f"{label}: grid {pipe.grid}, fused {pipe.model.config.unet.use_pallas_irb}")
+        reset_launches()
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        reserved_before = torch.cuda.memory_reserved()
+        torch.cuda.reset_peak_memory_stats()
+        outs = [pipe(img, seed=i) for i, img in enumerate(images)]   # captures batch 1
+        check_outputs(images, outs)
+        outs = pipe.batch(batch_images, seed=100)                     # captures batch 8
+        check_outputs(batch_images, outs)
+        lat = []
+        for i in range(10):
+            torch.cuda.synchronize()
+            a = time.perf_counter()
+            pipe(images[2], seed=i)
+            lat.append((time.perf_counter() - a) * 1e3)
+        a = time.perf_counter()
+        outs = pipe.batch(batch_images * REPS, seed=400)
+        pipelined = time.perf_counter() - a
+        check_outputs(batch_images * REPS, outs)
+        torch.cuda.synchronize()
+        peak_mem = torch.cuda.max_memory_allocated()
+        torch.cuda.empty_cache()
+        graph_mem = torch.cuda.memory_reserved() - reserved_before
+        counts, in_replays, replays = graph_accounting(pipe, label, per_replay(len(grid16), fused), 0)
+        require(replays == {1: len(images) + 10, 8: 1 + REPS},
+                f"{label}: replays {replays}")
+        for k in bf16_launches:
+            bf16_launches[k] += counts[k]
+            bf16_replayed[k] += in_replays[k]
+        # each graph against the eager sampler on the same seed, and what a
+        # replay runs: bf16 instances of the hand-written kernels only
+        lsb = {}
+        for b in (1, 8):
+            canvas = torch.cat([pipe.pre(img)[0] for img in batch_images[:b]])
+            diff = (pipe._run(canvas, pipe._generator(7)).int()
+                    - pipe.run_eager(canvas, pipe._generator(7)).int()).abs()
+            lsb[b] = {"max_lsb": int(diff.max()), "values_off": int((diff > 0).sum())}
+            require(lsb[b]["max_lsb"] <= GRAPH_LSB_TOL,
+                    f"{label} batch {b}: graph vs eager {lsb[b]}")
+            names = device_kernels(lambda: pipe._run(canvas, pipe._generator(1)))
+            attn = {n: v for n, v in names.items() if "linear_attention_fwd" in n}
+            irb = {n: v for n, v in names.items() if "irb_out" in n}
+            require(sum(attn.values()) == len(grid16) and all("bfloat16" in n for n in attn),
+                    f"{label} batch {b}: attention kernels in a replay {attn}")
+            require(bool(irb) == fused and all("bfloat16" in n for n in irb),
+                    f"{label} batch {b}: fused-IRB output kernels in a replay {irb}")
+            lsb[b].update(attention_kernels_per_replay=sum(attn.values()),
+                          irb_out_kernels_per_replay=sum(irb.values()),
+                          device_kernels_per_replay=sum(names.values()))
+        bf16_rows[label] = row = dict(
+            student=label, grid=list(grid16), use_pallas_irb=fused, dtype="bfloat16",
+            weights=STUDENT, image=list(images[2].shape),
+            latency_ms_mean=float(np.mean(lat)), latency_ms_p50=float(np.median(lat)),
+            latency_ms_min=float(np.min(lat)), batch=8,
+            images_per_s=REPS * 8 / pipelined, peak_mem_bytes=peak_mem,
+            graph_mem_bytes=graph_mem,
+            capture_s={b: g.seconds for b, g in sorted(pipe.graphs.items())},
+            replays=replays, launches=counts, launches_in_replays=in_replays,
+            graph_vs_eager=lsb, lsb_tol=GRAPH_LSB_TOL)
+        # the bf16 kernels against their plain versions on this request's
+        # own bf16 inputs: mid_attn's q, k, v; decoder_blocks.3.0's x
+        if not fused and len(grid16) == 1:
+            h = pipe.model.unet.mid_attn.attn.register_forward_pre_hook(capture)
+            eager_request(pipe, images[0])
+            h.remove()
+            q, k, v = captured["qkv"]
+            require(q.dtype == torch.bfloat16 and tuple(q.shape) == (1, 1024, 4, 32),
+                    f"bf16 mid_attn q {q.dtype} {tuple(q.shape)}")
+            bf16_checks["mid_attn_max_err"] = compare(q, k, v)
+            require(bf16_checks["mid_attn_max_err"] <= TOL["bfloat16"],
+                    f"bf16 mid_attn kernel vs plain: {bf16_checks['mid_attn_max_err']}")
+        if fused:
+            blk16 = dict(pipe.model.unet.named_modules())[widest]
+            h = blk16.register_forward_pre_hook(capture_irb)
+            eager_request(pipe, images[0])
+            h.remove()
+            xb16, temb16 = captured["irb"]
+            require(xb16.dtype == torch.bfloat16 and tuple(xb16.shape) == (1, 96, size, size),
+                    f"bf16 {widest} x {xb16.dtype} {tuple(xb16.shape)}")
+            with torch.inference_mode():
+                fs16, fb16 = blk16.time_mlp(temb16).chunk(2, dim=-1)
+            kw16 = dict(film_scale=fs16, film_shift=fb16, **irb_args(blk16))
+            bf16_checks["irb_max_err"] = irb_compare(xb16, kw16)
+            bf16_checks["irb_tol"] = irb16_tol(xb16, kw16)
+            require(bf16_checks["irb_max_err"] <= bf16_checks["irb_tol"],
+                    f"bf16 {widest} kernel vs plain: {bf16_checks['irb_max_err']} > "
+                    f"{bf16_checks['irb_tol']}")
+            bf16_checks["irb_block"] = widest
+        emit("bf16_serve", **row)
+        del pipe, outs
+        torch.cuda.empty_cache()
+
+    # the fused IRB's bf16 entry at every IRB shape of one UNet call, batch 1
+    irb16_rows = {}
+    for (cin, chid, cout, height), (name, count) in sorted(per_call.items()):
+        x, kw = irb_inputs(blocks[name], 1, height, height, torch.bfloat16)
+        err, tol = irb_compare(x, kw), irb16_tol(x, kw)
+        require(err <= tol, f"bf16 fused kernel vs plain {name}: {err} > {tol}")
+        moved, flops = irb_work(x, kw)
+        bound_ms, bound_by = bound(moved, flops)
+
+        def kernel(x=x, kw=kw):
+            with torch.inference_mode():
+                fik.fused_irb_v2(x, **kw)
+
+        def plain(x=x, kw=kw):
+            with torch.inference_mode():
+                fused_irb_v2_plain(x, **kw)
+
+        irb16_rows[name] = row = dict(
+            kernel="fused_irb_v2", block=name, shape=[1, cin, height, height], chid=chid,
+            cout=cout, dtype="bfloat16", per_unet_call=count, max_err=err,
+            tol=tol, kernel_ms=cuda_ms(kernel, 20, 3),
+            plain_ms=cuda_ms(plain, 20, 3), kernel_graph_ms=graph_ms(kernel, 20, 3),
+            plain_graph_ms=graph_ms(plain, 20, 3), bound_ms=bound_ms, bound_by=bound_by,
+            tc_bound_ms=irb_tc_bound(x, kw, True),
+            tc_bound_by="bytes" if moved / HBM_BYTES_PER_S * 1e3
+            >= irb_tc_bound(x, kw, True) else "operations", bytes=moved, flops=flops)
+        emit("kernel", **row)
+    emit("bf16_serve_done", kernel_launches=bf16_launches,
+         kernel_launches_in_replays=bf16_replayed, checks=bf16_checks,
+         seconds=time.perf_counter() - t0)
+
+    # 13. bf16_eval: the student's quality in bf16 compute against JAX's ----
+    t0 = time.perf_counter()
+    bf16_eval_rows = {}
+    for fused in (False, True):
+        suffix = "_fused" if fused else ""
+        with open(f"{ref_base}.eval_ref_bf16compute{suffix}.json") as f:
+            bref = json.load(f)
+        require(bref["dtype"] == "bfloat16" and bref.get("use_pallas_irb", False) == fused
+                and bref.get("xla_allow_excess_precision") is False
+                and bref["timesteps"] == grid and bref["n"] == eval_n and bref["size"] == size
+                and [im[f"{w}_sha256"] for im in bref["images"] for w in ("low", "high", "noise")]
+                == [im[f"{w}_sha256"] for im in ref["images"] for w in ("low", "high", "noise")],
+                f"bf16{suffix} eval reference is not for the fp32 reference's inputs")
+        base = ServingPipeline.from_artifact(STUDENT, dev, use_pallas_irb=fused)
+        model, pipes_schedule = with_dtype(base.model, "bfloat16"), base.schedule
+        del base
+        reset_launches()
+        for _ in range(2):      # the first pass sets up cuDNN; the second is timed
+            torch.cuda.synchronize()
+            a = time.perf_counter()
+            pred = ev.enhance_split(model, pipes_schedule, eval_low, eval_init, eval_step,
+                                    grid, device=dev)
+            per = ev.per_image_metrics(pred, eval_target)
+            torch.cuda.synchronize()
+            seconds = time.perf_counter() - a
+        calls = 2 * -(-eval_n // ev.BATCH_SIZE) * len(grid)
+        counts = kernel_launches()
+        require(counts == {"linear_attention": calls,
+                           "fused_irb_v2": IRBS_PER_UNET_CALL * calls if fused else 0,
+                           "fused_irb_v1": 0},
+                f"bf16{suffix} eval: launches {counts} for {calls} UNet calls")
+        tol = EVAL_TOL
+        deltas = {k: [abs(v - im[k]) for v, im in zip(per[k], bref["images"])] for k in tol}
+        for k, t in tol.items():
+            worst = int(np.argmax(deltas[k]))
+            require(deltas[k][worst] <= t,
+                    f"bf16{suffix}: image {worst}: |Δ{k}| {deltas[k][worst]} against "
+                    f"JAX's bf16 compute > {t}")
+        mean_gap = float(np.mean(deltas["psnr"]))
+        require(mean_gap <= BF16_EVAL_MEAN_PSNR_TOL,
+                f"bf16{suffix}: mean |ΔPSNR| {mean_gap} dB from JAX's bf16 compute")
+        f32_label = SERVED[-1][0] if fused else SERVED[0][0]
+        bf16_eval_rows[f"bfloat16{suffix}"] = row = dict(
+            student=STUDENT, use_pallas_irb=fused, dtype="bfloat16", grid=grid,
+            images=eval_n, size=size, batch=ev.BATCH_SIZE, launches=counts,
+            mean={k: float(np.mean(per[k])) for k in tol},
+            jax_mean={k: bref["summary"][f"{k}_mean"] for k in tol},
+            max_abs_delta={k: max(v) for k, v in deltas.items()},
+            worst_image={k: int(np.argmax(v)) for k, v in deltas.items()},
+            tol=tol, mean_abs_delta_psnr=mean_gap, mean_abs_delta_psnr_tol=BF16_EVAL_MEAN_PSNR_TOL,
+            port_bf16_minus_f32_mean_psnr=float(np.mean(per["psnr"]))
+            - eval_rows[f32_label]["mean"]["psnr"],
+            jax_bf16_minus_f32_mean_psnr=bref["summary"]["psnr_mean"]
+            - ref["summary"]["psnr_mean"],
+            seconds=seconds, images_per_s=eval_n / seconds, per_image=per)
+        emit("bf16_eval", **row)
+        del model, pred
+        torch.cuda.empty_cache()
+    emit("bf16_eval_done", seconds=time.perf_counter() - t0)
+
+    # 14. train_amp: small@256 with use_amp (bf16 compute, float32 state) ---
+    t0 = time.perf_counter()
+    amp_cfg = dataclasses.replace(train_cfg, use_amp=True)
+    amp_model_cfg = diffusion_config("small", size, prediction_type="v_prediction",
+                                     dtype="bfloat16")
+    model, schedule = train_model_on_card(amp_model_cfg)
+    trainer = Trainer(model, schedule, timed, val, amp_cfg)
+    require(model.compute_dtype == torch.bfloat16
+            and all(p.dtype == torch.float32 for p in model.parameters()),
+            "train_amp: not bf16 compute on float32 parameters")
+    lak.linear_attention_kernel.launches = 0
+    lak.linear_attention_backward_kernel.launches = 0
+    fik.fused_irb_v2.launches = 0
+    amp_metrics = []
+    for batch in warm:
+        trainer.state, m = trainer.train_step(trainer.state, batch)
+        amp_metrics.append(m)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    a = time.perf_counter()
+    with contextlib.redirect_stdout(sys.stderr):
+        amp_loss = trainer.train_epoch()
+    torch.cuda.synchronize()
+    amp_elapsed = time.perf_counter() - a
+    amp_peak = torch.cuda.max_memory_allocated()
+    amp_launches = {"linear_attention": lak.linear_attention_kernel.launches,
+                    "linear_attention_backward": lak.linear_attention_backward_kernel.launches,
+                    "fused_irb_v2": fik.fused_irb_v2.launches}
+    amp_steps = len(warm) + len(timed)
+    require(amp_launches == {"linear_attention": amp_steps * n_attn,
+                             "linear_attention_backward": amp_steps * n_attn,
+                             "fused_irb_v2": 0},
+            f"train_amp: launches {amp_launches} for {amp_steps} steps")
+    require(np.isfinite(amp_loss) and all(
+        bool(torch.isfinite(m["loss"]) & torch.isfinite(m["grad_norm"])) for m in amp_metrics),
+        f"train_amp: loss {amp_loss}")
+    require(all(p.grad is not None and p.grad.dtype == torch.float32
+                and bool(torch.isfinite(p.grad).all()) for p in model.parameters())
+            and all(e.dtype == torch.float32 for e in trainer.state.ema_params.values()),
+            "train_amp: gradients or EMA not finite float32")
+    # one step under the profiler: its attention backward is one bf16 kernel
+    names = device_kernels(lambda: trainer.train_step(trainer.state, timed[0]), calls=1)
+    amp_bwd = {n: v for n, v in names.items() if "linear_attention_bwd" in n}
+    require(sum(amp_bwd.values()) == n_attn and all("bfloat16" in n for n in amp_bwd),
+            f"train_amp: attention backward kernels in a step {amp_bwd}")
+    del trainer, model
+    shutil.rmtree(os.path.dirname(train_cfg.checkpoint_dir), ignore_errors=True)
+    torch.cuda.empty_cache()
+
+    # the first step in bf16 against the float32 step on the same batch, t
+    # and ε, on the trained student's weights (random weights leave the
+    # attention block's GroupNorm ill-conditioned, and bf16 gradients there
+    # differ by factors between any two implementations)
+    student_cfg = dataclasses.replace(cfg, unet=dataclasses.replace(cfg.unet, dtype="float32"))
+    amp_inputs = {}
+
+    def first_step(dtype):
+        mcfg = dataclasses.replace(student_cfg, unet=dataclasses.replace(
+            student_cfg.unet, dtype=dtype))
+        model, schedule = train_model_on_card(mcfg, trained)
+        model.train()
+        attn = model.unet.mid_attn.attn
+
+        def keep_qkv(module, args):      # the backward's q, k, v ...
+            amp_inputs["qkv"] = [x.detach().clone() for x in args]
+
+        def keep_g(module, args, out):   # ... and its upstream gradient
+            out.register_hook(lambda g: amp_inputs.__setitem__("g", g.detach().clone()))
+
+        hooks_ = [attn.register_forward_pre_hook(keep_qkv),
+                  attn.register_forward_hook(keep_g)]
+        out = train_forward(model, schedule, torch.from_numpy(warm[0]["low_light"]).to(dev),
+                            torch.from_numpy(warm[0]["normal_light"]).to(dev),
+                            timesteps=torch.tensor([739, 259, 37, 801, 500, 100, 900, 5],
+                                                   device=dev),
+                            noise=torch.from_numpy(np.random.default_rng(3).standard_normal(
+                                (8, size, size, 3)).astype(np.float32)).to(dev))
+        loss = diffusion_loss(out["noise_pred"], out["target"])
+        loss.backward()
+        for h_ in hooks_:
+            h_.remove()
+        return float(loss), {n: p.grad.detach().clone() for n, p in model.named_parameters()}
+
+    loss16, grads16 = first_step("bfloat16")
+    q, k, v = amp_inputs["qkv"]
+    g = amp_inputs["g"].contiguous()
+    require(q.dtype == torch.bfloat16 and g.dtype == torch.bfloat16,
+            f"train_amp: attention backward inputs {q.dtype} {g.dtype}")
+    amp_bwd_err = compare_bwd(q, k, v, g)
+    require(amp_bwd_err <= BWD_TOL["bfloat16"],
+            f"bf16 backward kernel vs plain on the step's own inputs: {amp_bwd_err}")
+    loss32, grads32 = first_step("float32")
+    norm16 = math.sqrt(sum(float(t.double().square().sum()) for t in grads16.values()))
+    norm32 = math.sqrt(sum(float(t.double().square().sum()) for t in grads32.values()))
+    gdiff = math.sqrt(sum(float((grads16[n] - grads32[n]).double().square().sum())
+                          for n in grads32))
+    amp_check = dict(loss_bf16=loss16, loss_f32=loss32,
+                     loss_rel=abs(loss16 - loss32) / abs(loss32),
+                     grad_norm_bf16=norm16, grad_norm_f32=norm32,
+                     grad_norm_rel=abs(norm16 - norm32) / norm32, grad_diff_rel=gdiff / norm32)
+    require(amp_check["loss_rel"] <= AMP_LOSS_TOL and amp_check["grad_norm_rel"] <= AMP_GRAD_TOL
+            and amp_check["grad_diff_rel"] <= AMP_GRAD_TOL,
+            f"train_amp: bf16 step vs float32 step {amp_check}")
+    del grads16, grads32, q, k, v, g
+    torch.cuda.empty_cache()
+    emit("train_amp", config=f"small@{size} v-prediction use_amp (bfloat16 compute)",
+         batch=8, warmup_steps=len(warm), timed_steps=len(timed),
+         ms_per_step=amp_elapsed * 1e3 / len(timed),
+         images_per_s=len(timed) * 8 / amp_elapsed, peak_mem_bytes=amp_peak,
+         f32_ms_per_step=elapsed * 1e3 / len(timed), f32_peak_mem_bytes=peak_train,
+         train_loss=amp_loss, launches=amp_launches,
+         attention_backward_kernels_per_step=sum(amp_bwd.values()),
+         backward_on_step_inputs_max_abs_err=amp_bwd_err, bwd_tol=BWD_TOL["bfloat16"],
+         first_step_vs_float32=amp_check,
+         first_step_tol=dict(loss_rel=AMP_LOSS_TOL, grad_rel=AMP_GRAD_TOL),
+         seconds=time.perf_counter() - t0)
+
+    # 15. remat: memory and time of each policy and scope, f32 and bf16 ------
+    t0 = time.perf_counter()
+
+    def saved_by_block(model, schedule, batch):
+        """Bytes the backward keeps from one forward (each storage once), by
+        the UNet block that saved them, largest first."""
+        current, sizes, seen = ["other"], defaultdict(int), set()
+
+        def pack(t):
+            key = t.untyped_storage().data_ptr()
+            if key not in seen:
+                seen.add(key)
+                sizes[current[0]] += t.untyped_storage().nbytes()
+            return t
+
+        hooks_ = []
+        for name, mod in model.unet.named_modules():
+            if name.count(".") == (0 if not name.startswith(("encoder", "decoder", "down", "up"))
+                                   else 1 if name.startswith(("down", "up")) else 2) and name:
+                hooks_.append(mod.register_forward_pre_hook(
+                    lambda m, a, n=name: current.__setitem__(0, n)))
+                hooks_.append(mod.register_forward_hook(
+                    lambda m, a, o: current.__setitem__(0, "other")))
+        with torch.autograd.graph.saved_tensors_hooks(pack, lambda t: t):
+            out = train_forward(model, schedule, torch.from_numpy(batch["low_light"]).to(dev),
+                                torch.from_numpy(batch["normal_light"]).to(dev),
+                                generator=torch.Generator(device=dev).manual_seed(0))
+            loss = diffusion_loss(out["noise_pred"], out["target"])
+        loss.backward()
+        for h_ in hooks_:
+            h_.remove()
+        return sorted(sizes.items(), key=lambda kv: -kv[1])
+
+    remat_rows = []
+    remat_launches = {"linear_attention": 0, "linear_attention_backward": 0}
+    # gradients comparable bit for bit; PyTorch's warnings name any operation
+    # that has no deterministic implementation
+    torch.backends.cudnn.deterministic = True
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    with warnings.catch_warnings(record=True) as nondeterministic:
+        warnings.simplefilter("always")
+        try:
+            for dtype in ("float32", "bfloat16"):
+                base_grads = None
+                for remat, policy, scope in REMAT_CASES:
+                    rcfg = diffusion_config("small", size, prediction_type="v_prediction",
+                                            dtype=dtype, remat=remat, remat_policy=policy,
+                                            remat_scope=scope)
+                    model, schedule = train_model_on_card(rcfg)
+                    tc = dataclasses.replace(train_cfg, use_amp=dtype == "bfloat16", remat=remat)
+                    state = create_train_state(model, tc)
+                    step = make_train_step(model, schedule, tc)
+                    before = (lak.linear_attention_kernel.launches,
+                              lak.linear_attention_backward_kernel.launches)
+                    state, _ = step(state, warm[0])
+                    grads = {n: p.grad.detach().clone() for n, p in model.named_parameters()}
+                    torch.cuda.synchronize()
+                    torch.cuda.reset_peak_memory_stats()
+                    a = time.perf_counter()
+                    for batch in timed[:REMAT_STEPS]:
+                        state, _ = step(state, batch)
+                    torch.cuda.synchronize()
+                    ms = (time.perf_counter() - a) * 1e3 / REMAT_STEPS
+                    peak = torch.cuda.max_memory_allocated()
+                    remat_launches["linear_attention"] += (
+                        lak.linear_attention_kernel.launches - before[0])
+                    remat_launches["linear_attention_backward"] += (
+                        lak.linear_attention_backward_kernel.launches - before[1])
+                    diff_rel, tol = 0.0, None
+                    if base_grads is None:
+                        base_grads = grads
+                    else:
+                        num = sum(float((grads[n] - base_grads[n]).double().square().sum())
+                                  for n in grads)
+                        den = sum(float(t.double().square().sum()) for t in base_grads.values())
+                        diff_rel, tol = math.sqrt(num / den), 0.0
+                        require(diff_rel == 0, f"remat {dtype} {remat} {policy} {scope}: "
+                                               f"gradients {diff_rel} from the plain step's")
+                    worst = sorted(((float((grads[n] - base_grads[n]).abs().max()
+                                           / (base_grads[n].abs().max() + 1e-30)), n)
+                                    for n in grads), reverse=True)[:3]
+                    row = dict(dtype=dtype, remat=remat, policy=policy if remat else None,
+                               scope=scope if remat else None, batch=8, ms_per_step=ms,
+                               peak_mem_bytes=peak, grad_vs_no_remat_rel=diff_rel, grad_tol=tol,
+                               grad_tensors_differ=sum(not torch.equal(grads[n], base_grads[n])
+                                                       for n in grads),
+                               grad_worst_tensors=[{"name": n, "max_rel": r} for r, n in worst])
+                    if grads is base_grads:
+                        del state, step, grads
+                        model.zero_grad(set_to_none=True)
+                        torch.cuda.empty_cache()
+                        top = saved_by_block(model, schedule, warm[0])
+                        row["saved_for_backward_bytes"] = sum(v for _, v in top)
+                        row["saved_by_block"] = [{"block": n, "bytes": v} for n, v in top[:8]]
+                    remat_rows.append(row)
+                    emit("remat", **row)
+                    del model
+                    torch.cuda.empty_cache()
+        finally:
+            torch.backends.cudnn.deterministic = False
+            torch.use_deterministic_algorithms(False)
+    emit("remat_done", launches=remat_launches,
+         nondeterministic_ops_reported=sorted({str(w.message)[:160] for w in nondeterministic
+                                               if "determinis" in str(w.message)}),
+         seconds=time.perf_counter() - t0)
+
+    # 16. warm_start: init_params_from the committed student, then use_amp --
+    t0 = time.perf_counter()
+    ws_dir = tempfile.mkdtemp(prefix="chip_smoke_ws_")
+    ws_cfg = dataclasses.replace(amp_cfg, init_params_from=npz, init_params_ema=False,
+                                 checkpoint_dir=os.path.join(ws_dir, "ckpt"))
+    amp_student = dataclasses.replace(cfg, unet=dataclasses.replace(cfg.unet, dtype="bfloat16"))
+    model, schedule = create_model(amp_student, device=dev)     # PyTorch's random init
+    trainer = Trainer(model, schedule, timed[:WARM_START_STEPS], None, ws_cfg)
+    file_weights = load_state_dict_npz(npz, dev)
+    require(all(torch.equal(t, file_weights[k]) for k, t in model.state_dict().items()),
+            "warm start: the loaded parameters are not the file's")
+    require(trainer.state.step == 0 and trainer.epoch == 0
+            and not trainer.state.optimizer.state_dict()["state"]
+            and all(torch.equal(trainer.state.ema_params[k], file_weights[k])
+                    for k in trainer.state.ema_params),
+            "warm start: not a fresh state on the file's weights")
+    ws_losses = []
+    for batch in timed[:WARM_START_STEPS]:
+        trainer.state, m = trainer.train_step(trainer.state, batch)
+        ws_losses.append(float(m["loss"]))
+    require(all(np.isfinite(ws_losses)) and trainer.state.step == WARM_START_STEPS,
+            f"warm start: losses {ws_losses}")
+    moved = max(float((p.detach() - file_weights[n]).abs().max())
+                for n, p in model.named_parameters())
+    require(0 < moved <= WARM_START_STEPS * 2 * amp_cfg.learning_rate,
+            f"warm start: parameters moved {moved} in {WARM_START_STEPS} steps")
+    ws_ckpt = trainer.save_checkpoint("warm")
+    ema_saved = {k: e.detach().clone() for k, e in trainer.state.ema_params.items()}
+    fresh, _ = create_model(amp_student, device=dev)
+    from_ema = Trainer(fresh, schedule, timed[:1], None,
+                       dataclasses.replace(ws_cfg, init_params_from=ws_ckpt, init_params_ema=True))
+    require(all(torch.equal(t, ema_saved[k]) for k, t in fresh.state_dict().items())
+            and from_ema.state.step == 0
+            and all(torch.equal(from_ema.state.ema_params[k], ema_saved[k]) for k in ema_saved),
+            "warm start from the checkpoint's EMA: not its EMA")
+    emit("warm_start", file=os.path.relpath(npz, ROOT), params=len(file_weights),
+         loaded_equal_file=True, steps=WARM_START_STEPS, use_amp=True, losses=ws_losses,
+         max_param_move=moved, checkpoint_bytes=os.path.getsize(ws_ckpt),
+         ema_checkpoint_loaded_equal=True, seconds=time.perf_counter() - t0)
+    del trainer, from_ema, model, fresh, file_weights
+    shutil.rmtree(ws_dir, ignore_errors=True)
+    torch.cuda.empty_cache()
+
     # kernels line, nvidia-smi line, last line -----------------------------
     main_row = timings[((1, 1024, 4, 32), "float32")]
     bwd_main = bwd_rows[((8, 1024, 4, 32), "float32")]    # the train batch
@@ -1868,6 +2489,74 @@ def main() -> int:
         "shape": bwd_main["shape"],
         "dtype": bwd_main["dtype"],
         "kernels_per_call": bwd_main["kernels_per_call"],
+    }]
+    # the bf16 entries of the same kernels, on the bf16 model paths: their
+    # launches per phase (the wrappers' counts, set to 0 before each)
+    main16 = timings[((1, 1024, 4, 32), "bfloat16")]
+    bwd16 = bwd_rows[((8, 1024, 4, 32), "bfloat16")]
+    irb16 = {f: sum(r[f] * r["per_unet_call"] for r in irb16_rows.values())
+             for f in ("kernel_ms", "plain_ms", "kernel_graph_ms", "plain_graph_ms",
+                       "bound_ms", "tc_bound_ms", "flops")}
+    bf16_eval_launches = {k: sum(r["launches"][k] for r in bf16_eval_rows.values())
+                          for k in ("linear_attention", "fused_irb_v2")}
+    kernels += [{
+        "name": "linear_attention_bf16",
+        "route": "cuda",
+        "source": "cv_diffusion_tpu_torch/csrc/linear_attention.cu",
+        "replaces": "cv_diffusion_tpu/ops/pallas_attention.py:82",
+        "launches": bf16_launches["linear_attention"],
+        "launches_in_replays": bf16_replayed["linear_attention"],
+        "launches_bf16_eval": bf16_eval_launches["linear_attention"],
+        "launches_train_amp": amp_launches["linear_attention"],
+        "max_abs_err": bf16_checks["mid_attn_max_err"],
+        "ms": main16["kernel_ms"],
+        "plain_ms": main16["plain_ms"],
+        "graph_ms": main16["kernel_graph_ms"],
+        "plain_graph_ms": main16["plain_graph_ms"],
+        "bound_ms": main16["bound_us"] / 1e3,
+        "bound_by": main16["bound_by"],
+        "library_ms": None,
+        "shape": main16["shape"],
+        "dtype": "bfloat16",
+    }, {
+        "name": "linear_attention_backward_bf16",
+        "route": "cuda",
+        "source": "cv_diffusion_tpu_torch/csrc/linear_attention.cu",
+        "replaces": "cv_diffusion_tpu/ops/pallas_attention.py:202",
+        "launches": amp_launches["linear_attention_backward"],
+        "max_abs_err": amp_bwd_err,
+        "ms": bwd16["kernel_ms"],
+        "plain_ms": bwd16["plain_ms"],
+        "graph_ms": bwd16["kernel_graph_ms"],
+        "plain_graph_ms": bwd16["plain_graph_ms"],
+        "bound_ms": bwd16["bound_ms"],
+        "bound_by": bwd16["bound_by"],
+        "library_ms": None,
+        "shape": bwd16["shape"],
+        "dtype": "bfloat16",
+    }, {
+        "name": "fused_irb_v2_bf16",
+        "route": "cuda",
+        "source": "cv_diffusion_tpu_torch/csrc/fused_irb.cu",
+        "replaces": "cv_diffusion_tpu/ops/pallas_irb.py:607",
+        "launches": bf16_launches["fused_irb_v2"],
+        "launches_in_replays": bf16_replayed["fused_irb_v2"],
+        "launches_bf16_eval": bf16_eval_launches["fused_irb_v2"],
+        "max_abs_err": max([bf16_checks["irb_max_err"]]
+                           + [r["max_err"] for r in irb16_rows.values()]),
+        "ms": irb16["kernel_ms"],
+        "plain_ms": irb16["plain_ms"],
+        "graph_ms": irb16["kernel_graph_ms"],
+        "plain_graph_ms": irb16["plain_graph_ms"],
+        # its products at the bf16 rate, the depthwise at the float32 one
+        "bound_ms": irb16["tc_bound_ms"],
+        "bound_by": "operations" if all(r["tc_bound_by"] == "operations"
+                                        for r in irb16_rows.values()) else "bytes",
+        "f32_rate_bound_ms": irb16["bound_ms"],
+        "library_ms": None,
+        "shape": f"the {IRBS_PER_UNET_CALL} IRBs of one small-UNet call at "
+                 f"{size}², batch 1 ({irb16['flops'] / 1e9:.2f} GFLOP)",
+        "dtype": "bfloat16",
     }]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi_line, flush=True)

@@ -29,10 +29,13 @@ class UNetConfig:
     CUDA kernel's wrapper, which runs the plain version on the CPU.
     ``use_pallas_irb`` routes every stride-1 IRB at inference through the
     fused-IRB kernel's wrapper in the same way, and ``fold_gn`` folds GN2 ⊕
-    FiLM at inference, as in the JAX package. The other execution knobs
-    (``split_skip``, ``act_quant``, ``remat``, a dtype other than float32)
-    are read likewise, and building a model that asks for them raises
-    ``NotImplementedError``.
+    FiLM at inference, as in the JAX package. ``dtype`` is the compute
+    dtype (``"float32"`` or ``"bfloat16"``; the parameters are float32
+    either way), and ``remat`` with ``remat_policy`` (``"full"``,
+    ``"conv"``) and ``remat_scope`` (``"all"``, ``"decoder"``)
+    rematerialises blocks in the backward (``models/unet.py``). The other
+    execution knobs (``split_skip``, ``act_quant``) are read likewise, and
+    building a model that asks for them raises ``NotImplementedError``.
     """
 
     in_channels: int = 3
@@ -163,14 +166,16 @@ class TrainConfig:
     """Training configuration, field for field and default for default the
     JAX ``TrainConfig`` (``cv_diffusion_tpu/config.py:242``).
 
-    The port trains in float32 with linear attention through its CUDA
-    kernels (forward and backward); ``use_pallas`` is read and ignored, as
-    in :class:`UNetConfig`. Fields the port does not have yet make the
-    trainer raise ``NotImplementedError``
-    (``training.train_state.check_trainable``): ``use_amp=True`` (so pass
-    ``use_amp=False``), ``remat``, ``qat``/``qat_act``, a ``mesh_shape`` over
-    more than one device, ``use_wandb``, ``data_on_device``,
-    ``native_loader=True`` and ``init_params_from``. Checkpoints are written
+    The port trains with linear attention through its CUDA kernels (forward
+    and backward); ``use_pallas`` is read and ignored, as in
+    :class:`UNetConfig`. ``use_amp`` (the default) trains the model in
+    bfloat16 compute on float32 parameters, ``remat`` rematerialises its
+    blocks, and ``init_params_from`` / ``init_params_ema`` warm-start from a
+    checkpoint, as in the JAX trainer. Fields the port does not have yet
+    make the trainer raise ``NotImplementedError``
+    (``training.train_state.check_trainable``): ``qat``/``qat_act``, a
+    ``mesh_shape`` over more than one device, ``use_wandb``,
+    ``data_on_device`` and ``native_loader=True``. Checkpoints are written
     synchronously whatever ``async_checkpoints`` says, and no sample grids
     are written (``sample_interval``, ``num_samples`` and ``output_dir`` are
     read and unused).

@@ -2,7 +2,7 @@
 
     python -m cv_diffusion_tpu_torch.evaluate --artifact vreg1b_gt03_ema \\
         --n 15 --size 256 --seed 0 --json out.json [--device cuda]
-        [--use_pallas_irb]
+        [--use_pallas_irb] [--dtype bfloat16]
 
 The port's counterpart of ``scripts/evaluate.py`` on the split that
 ``scripts/make_synthetic_dataset.py`` writes as ``val`` (seed + 77,
@@ -16,6 +16,9 @@ denormalised and clipped to [0, 1] in float, the target denormalised from
 the normalised uint8, then PSNR, SSIM, MAE, MS-SSIM (``null`` below 176²,
 where its five scales do not fit) and GMSD. The JSON has the shape of
 ``benchmarks/evals_r5/*.json`` (``scripts/compare_eval.py`` pairs two).
+``--dtype bfloat16`` computes in bf16 on the artifact's float32 weights
+(``models.diffusion.with_dtype``); ``scripts/torch_port_eval_reference.py
+--dtype bfloat16`` writes the JAX package's numbers for it.
 """
 
 from __future__ import annotations
@@ -35,7 +38,7 @@ from .config import variant_of
 from .data.augment import normalize
 from .data.synthetic import make_split
 from .device import pin_fp32, resolve_device
-from .models.diffusion import denormalize_image, enhance
+from .models.diffusion import denormalize_image, enhance, with_dtype
 from .training import metrics
 
 NOISE_RECIPE = ("init_noise = np.random.default_rng(seed).standard_normal("
@@ -112,7 +115,7 @@ def enhance_split(model, schedule, low_u8: np.ndarray, init: np.ndarray,
         out = enhance(model, schedule, torch.from_numpy(normalize(low_u8[chunk])),
                       timesteps=grid, init_noise=torch.from_numpy(init[chunk]),
                       step_noise=torch.from_numpy(step[:, chunk]), device=dev)
-        outs.append(denormalize_image(out).clamp(0.0, 1.0))
+        outs.append(denormalize_image(out.float()).clamp(0.0, 1.0))
     return torch.cat(outs)
 
 
@@ -139,7 +142,8 @@ def summary(per_image: Dict[str, List[Optional[float]]]) -> Dict[str, Optional[f
 
 
 def evaluate_artifact(artifact: str, n: int = 15, size: int = 256, seed: int = 0,
-                      use_pallas_irb: bool = False, device="cuda") -> Dict:
+                      use_pallas_irb: bool = False, device="cuda",
+                      dtype: str = "float32") -> Dict:
     """The JSON payload of one evaluation run (see the module docstring),
     with ``inputs`` (the per-image SHA-256s) and ``seconds``."""
     from .export.serving import ServingPipeline
@@ -149,15 +153,17 @@ def evaluate_artifact(artifact: str, n: int = 15, size: int = 256, seed: int = 0
         pin_fp32()
     pipe = ServingPipeline.from_artifact(artifact, dev,
                                          use_pallas_irb=use_pallas_irb)
+    model = pipe.model if dtype == "float32" else with_dtype(pipe.model, dtype)
     grid = list(pipe.config.timesteps)
     low, high = eval_split(n, size, seed)
     init, step = eval_noise(n, size, seed, len(grid))
     t0 = time.perf_counter()
-    pred = enhance_split(pipe.model, pipe.schedule, low, init, step, grid, dev)
+    pred = enhance_split(model, pipe.schedule, low, init, step, grid, dev)
     per_image = per_image_metrics(pred, target_unit(high, dev))
     seconds = time.perf_counter() - t0
     per_image["files"] = [f"{i:05d}.png" for i in range(n)]
-    return {"model": artifact + ("+use_pallas_irb" if use_pallas_irb else ""),
+    return {"model": artifact + ("+use_pallas_irb" if use_pallas_irb else "")
+            + ("" if dtype == "float32" else f"+{dtype}"), "dtype": dtype,
             "variant": variant_of(dataclasses.asdict(pipe.model.config.unet)),
             "image_size": size, "num_steps": len(grid),
             "deterministic": False, "timesteps": grid,
@@ -175,10 +181,12 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--use_pallas_irb", action="store_true")
     p.add_argument("--device", default="cuda")
+    p.add_argument("--dtype", choices=("float32", "bfloat16"), default="float32",
+                   help="the compute dtype (float32 weights either way)")
     p.add_argument("--json", default=None)
     args = p.parse_args(argv)
     payload = evaluate_artifact(args.artifact, args.n, args.size, args.seed,
-                                args.use_pallas_irb, args.device)
+                                args.use_pallas_irb, args.device, args.dtype)
     s = payload["summary"]
     print(f"{args.n} images | PSNR {s['psnr_mean']:.4f} dB | SSIM "
           f"{s['ssim_mean']:.4f} | MAE {s['mae_mean']:.4f} | MS-SSIM "

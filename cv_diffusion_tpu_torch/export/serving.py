@@ -22,9 +22,12 @@ Serving packages (:func:`create_serving_package`,
 ``model_config.json`` in the JAX package's schema, ``noise_schedule.npz``,
 and the params in the port's weights format (``params.npz``), as float32,
 bfloat16 or int8 with float32 scales (``export/quantization.py``); bf16
-and int8 are brought back to float32 at load, and the model computes in
-float32. :meth:`ServingPipeline.from_artifact` serves a committed
-artifact on its own weights (the fp32 path of ``load_serving_package``).
+and int8 are brought back to float32 at load. :meth:`ServingPipeline.
+from_artifact` serves a committed artifact on its own weights (the fp32 path
+of ``load_serving_package``). Every pipeline computes in its model config's
+``unet.dtype`` (JAX ``serving.py:292-294``): a package or config that says
+``"bfloat16"`` is served in bf16 compute on float32 weights, through both
+kernels' bf16 entries.
 """
 
 from __future__ import annotations
@@ -64,7 +67,8 @@ GRAPH_WARMUP = 3
 @dataclass
 class ServingConfig:
     """Serving settings (the JAX ``ServingConfig`` without its XLA-only
-    fields)."""
+    fields, and without ``dtype``, which nothing in the JAX package reads:
+    a pipeline computes in its model config's ``unet.dtype``)."""
 
     image_size: int = 256
     num_inference_steps: int = 4
@@ -257,7 +261,7 @@ class ServingPipeline:
         out = enhance(self.model, self.schedule, low, timesteps=self.grid,
                       init_noise=init_noise, step_noise=step_noise,
                       deterministic=self.config.deterministic,
-                      device=self.device)
+                      device=self.device).float()
         return (out * 127.5 + 127.5).clamp(0, 255).to(torch.uint8)
 
     @torch.inference_mode()

@@ -4,6 +4,16 @@ Counterpart of ``cv_diffusion_tpu/models/blocks.py`` (float path). Module and
 parameter names are those of the reference torch EfficientUNet, which the
 JAX package's ``export_unet_state_dict`` emits, so a state dict from either
 loads with ``strict=True``.
+
+Compute dtype, as flax's ``dtype``: the parameters are float32, and a
+:class:`Conv2d` or :class:`Linear` whose ``compute_dtype`` is bfloat16 casts
+its input and its weight to bf16 at each use, returns a bf16 output and adds
+its bias in bf16 after that rounding (``ops/qconv.py:90-115``, flax
+``Dense``); with ``compute_dtype`` None it is the torch module itself.
+:func:`set_compute_dtype` sets it on every such module of a model. What
+flax keeps in float32 stays so here: GroupNorm's statistics and affine, the
+sinusoidal embedding, the SE sigmoid and the bilinear resize, each cast
+back to its input's dtype.
 """
 
 from __future__ import annotations
@@ -22,11 +32,84 @@ from ..ops.norms import (gn2_film_affine_gram, gn_num_groups, group_norm,
                          group_norm_film)
 
 
+def dense(x: torch.Tensor, weight: torch.Tensor, bias: Optional[torch.Tensor],
+          dtype: Optional[torch.dtype]) -> torch.Tensor:
+    """``x·Wᵀ + b`` in the compute dtype ``dtype`` (None: torch's own
+    ``F.linear``): input and weight cast to it, then the bias added in it
+    after the product's rounding, as flax's ``Dense(dtype=...)``."""
+    if dtype is None:
+        return F.linear(x, weight, bias)
+    y = F.linear(x.to(dtype), weight.to(dtype))
+    return y if bias is None else y + bias.to(dtype)
+
+
+class Conv2d(nn.Conv2d):
+    """``nn.Conv2d`` with a compute dtype (``ops/qconv.py::QConv``'s float
+    path): with ``compute_dtype`` set, the input and the weight are cast to
+    it, the convolution's output has it, and the bias is added in it after
+    that rounding."""
+
+    compute_dtype: Optional[torch.dtype] = None
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        dt = self.compute_dtype
+        if dt is None:
+            return super().forward(x)
+        y = self._conv_forward(x.to(dt), self.weight.to(dt), None)
+        return y if self.bias is None else y + self.bias.to(dt)[:, None, None]
+
+
+class Linear(nn.Linear):
+    """``nn.Linear`` with a compute dtype, as flax's ``Dense`` (:func:`dense`)."""
+
+    compute_dtype: Optional[torch.dtype] = None
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return dense(x, self.weight, self.bias, self.compute_dtype)
+
+
+def compute_dtype(name: str) -> Optional[torch.dtype]:
+    """A config's ``dtype`` as the modules' ``compute_dtype``: None for
+    float32 (the parameters' own dtype, so a float64 reference model stays
+    float64), torch.bfloat16 for bfloat16."""
+    if name == "float32":
+        return None
+    if name == "bfloat16":
+        return torch.bfloat16
+    raise ValueError(f"UNet dtype {name!r}: the port computes in float32 or "
+                     "bfloat16")
+
+
+def set_compute_dtype(module: nn.Module, dtype: Optional[torch.dtype]) -> None:
+    """Set ``compute_dtype`` on every :class:`Conv2d` and :class:`Linear`
+    inside ``module``."""
+    for m in module.modules():
+        if isinstance(m, (Conv2d, Linear)):
+            m.compute_dtype = dtype
+
+
+def silu(x: torch.Tensor) -> torch.Tensor:
+    """x·σ(x): ``F.silu`` in float32; in bfloat16 the op sequence the JAX
+    package's ``jax.nn.silu`` runs, x·(1/(1 + e^−x)) with each operation
+    rounded to bf16 (so the result equals XLA's bit for bit on the CPU,
+    where ``F.silu``, rounding once, differs in ~4 of 10 values)."""
+    if x.dtype == torch.bfloat16:
+        return x * (1.0 / (1.0 + torch.exp(-x)))
+    return F.silu(x)
+
+
+class SiLU(nn.Module):
+    """:func:`silu` as a module."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return silu(x)
+
+
 def activation(x: torch.Tensor, quantization_friendly: bool) -> torch.Tensor:
     """ReLU6 when quantization friendly, SiLU otherwise."""
     if quantization_friendly:
         return x.clamp(0.0, 6.0)
-    return F.silu(x)
+    return silu(x)
 
 
 def sinusoidal_pos_emb(t: torch.Tensor, dim: int, max_period: int = 10000,
@@ -86,8 +169,8 @@ class TimeEmbedding(nn.Sequential):
 
     def __init__(self, base_channels: int, time_embed_dim: int):
         super().__init__(SinusoidalPosEmb(base_channels),
-                         nn.Linear(base_channels, time_embed_dim), nn.SiLU(),
-                         nn.Linear(time_embed_dim, time_embed_dim))
+                         Linear(base_channels, time_embed_dim), SiLU(),
+                         Linear(time_embed_dim, time_embed_dim))
 
     def forward(self, t: torch.Tensor) -> torch.Tensor:
         dtype = self[1].weight.dtype
@@ -103,14 +186,16 @@ class SqueezeExcitation(nn.Module):
         super().__init__()
         squeezed = max(1, int(channels * ratio))
         self.quantization_friendly = quantization_friendly
-        self.fc1 = nn.Conv2d(channels, squeezed, 1)
-        self.fc2 = nn.Conv2d(squeezed, channels, 1)
+        self.fc1 = Conv2d(channels, squeezed, 1)
+        self.fc2 = Conv2d(squeezed, channels, 1)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         s = x.mean(dim=(2, 3))
-        s = F.linear(s, self.fc1.weight.flatten(1), self.fc1.bias)
+        s = dense(s, self.fc1.weight.flatten(1), self.fc1.bias,
+                  self.fc1.compute_dtype)
         s = activation(s, self.quantization_friendly)
-        s = F.linear(s, self.fc2.weight.flatten(1), self.fc2.bias)
+        s = dense(s, self.fc2.weight.flatten(1), self.fc2.bias,
+                  self.fc2.compute_dtype)
         s = torch.sigmoid(upcast(s)).to(x.dtype)
         return x * s[:, :, None, None]
 
@@ -143,17 +228,17 @@ class InvertedResidualBlock(nn.Module):
         self.fold_gn = fold_gn
         self.use_residual = stride == 1 and in_channels == out_channels
         self.norm1 = GroupNorm(in_channels)
-        self.expand = nn.Conv2d(in_channels, hidden, 1, bias=False)
+        self.expand = Conv2d(in_channels, hidden, 1, bias=False)
         self.norm2 = GroupNorm(hidden)
-        self.time_mlp = nn.Sequential(nn.SiLU(),
-                                      nn.Linear(time_embed_dim, hidden * 2))
-        self.depthwise = nn.Conv2d(hidden, hidden, 3, stride=stride, padding=1,
-                                   groups=hidden, bias=False)
+        self.time_mlp = nn.Sequential(SiLU(),
+                                      Linear(time_embed_dim, hidden * 2))
+        self.depthwise = Conv2d(hidden, hidden, 3, stride=stride, padding=1,
+                                groups=hidden, bias=False)
         self.se = (SqueezeExcitation(hidden, se_ratio, quantization_friendly)
                    if use_se else None)
-        self.project = nn.Conv2d(hidden, out_channels, 1, bias=False)
-        self.skip = (nn.Conv2d(in_channels, out_channels, 1, stride=stride,
-                               bias=False)
+        self.project = Conv2d(hidden, out_channels, 1, bias=False)
+        self.skip = (Conv2d(in_channels, out_channels, 1, stride=stride,
+                            bias=False)
                      if in_channels != out_channels else None)
 
     def forward(self, x: torch.Tensor, time_emb: torch.Tensor,
@@ -209,9 +294,9 @@ class LinearAttentionBlock(nn.Module):
         self.num_heads = num_heads
         self.dim_head = dim_head
         self.norm = GroupNorm(channels)
-        self.to_qkv = nn.Conv2d(channels, inner * 3, 1, bias=False)
+        self.to_qkv = Conv2d(channels, inner * 3, 1, bias=False)
         self.attn = LinearAttention()
-        self.to_out = nn.Sequential(nn.Conv2d(inner, channels, 1, bias=False),
+        self.to_out = nn.Sequential(Conv2d(inner, channels, 1, bias=False),
                                     GroupNorm(channels))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
@@ -232,20 +317,43 @@ class Downsample(nn.Module):
 
     def __init__(self, channels: int):
         super().__init__()
-        self.down = nn.Conv2d(channels, channels, 3, stride=2, padding=1)
+        self.down = Conv2d(channels, channels, 3, stride=2, padding=1)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return self.down(x)
 
 
+# (channels, height, width) of an Upsample conv's float32 input → the smallest
+# batch at which cuDNN (9.2, PyTorch 2.11, H100) runs that 3×3 conv as an FFT:
+# at the small UNet's upsamplers.1 (128 channels at 128²) from batch 5 on,
+# holding ~9 GB of workspace for 8.9-13.0 ms where PyTorch's own convolution
+# (im2col and a GEMM) holds 75 MB for 0.9-1.5 ms. At every other Upsample
+# shape of small@256, and in bf16, cuDNN takes an implicit GEMM at batches 1-8
+# and is as fast or faster (``scripts/torch_port_conv_workspace.py --sweep``).
+CUDNN_FFT_FROM_BATCH = {(128, 128, 128): 5}
+
+
 class Upsample(nn.Module):
-    """Bilinear ×2 in float32 with half-pixel centres, then a 3×3 conv."""
+    """Bilinear ×2 in float32 with half-pixel centres, then a 3×3 conv.
+
+    On the card, a float32 conv that cuDNN would run as an FFT
+    (:data:`CUDNN_FFT_FROM_BATCH`) runs with cuDNN off, as PyTorch's own
+    convolution."""
 
     def __init__(self, channels: int):
         super().__init__()
-        self.conv = nn.Conv2d(channels, channels, 3, padding=1)
+        self.conv = Conv2d(channels, channels, 3, padding=1)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         up = F.interpolate(upcast(x), scale_factor=2, mode="bilinear",
                            align_corners=False, antialias=False).to(x.dtype)
+        if (self.conv.compute_dtype is None and up.is_cuda
+                and up.shape[0] >= CUDNN_FFT_FROM_BATCH.get(tuple(up.shape[1:]),
+                                                             math.inf)):
+            cudnn = torch.backends.cudnn.enabled
+            torch.backends.cudnn.enabled = False
+            try:
+                return self.conv(up)
+            finally:
+                torch.backends.cudnn.enabled = cudnn
         return self.conv(up)

@@ -6,11 +6,17 @@ conditioning, :func:`train_forward` and :func:`compute_loss` are the
 training forward pass and loss, and :func:`enhance` runs the LCM sampler
 over a timestep grid with the scheduler arithmetic in float32. Images at
 this API are NHWC, as in the JAX package; the model runs NCHW inside.
+
+The UNet config's ``dtype`` is the compute dtype of the whole model: in
+bfloat16 the sampler's carry, its noise and the condition are cast to it
+(:func:`enhance`, JAX ``diffusion.py:227-286``), and the loss is taken in
+float32.
 """
 
 from __future__ import annotations
 
-from typing import Dict, Optional, Sequence, Tuple
+from dataclasses import dataclass
+from typing import Dict, Optional, Sequence, Tuple, Union
 
 import torch
 import torch.nn.functional as F
@@ -20,8 +26,19 @@ from ..config import DiffusionConfig
 from ..device import pin_fp32, resolve_device
 from ..ops import upcast
 from . import scheduler as sched
+from .blocks import Conv2d, SiLU, set_compute_dtype
 from .scheduler import LCMSchedule, make_schedule
 from .unet import EfficientUNet
+
+
+@dataclass
+class EnhanceOutput:
+    """:func:`enhance`'s output with ``return_intermediate`` (JAX
+    ``EnhanceOutput``, ``diffusion.py:37-43``): the clipped result and the
+    carry after each step, unclipped, stacked [steps, B, H, W, 3]."""
+
+    enhanced: torch.Tensor
+    intermediate: Optional[torch.Tensor] = None
 
 
 class ConditionEncoder(nn.Sequential):
@@ -29,8 +46,8 @@ class ConditionEncoder(nn.Sequential):
     ``condition_encoder``: conv → SiLU → conv)."""
 
     def __init__(self):
-        super().__init__(nn.Conv2d(3, 32, 3, padding=1), nn.SiLU(),
-                         nn.Conv2d(32, 3, 3, padding=1))
+        super().__init__(Conv2d(3, 32, 3, padding=1), SiLU(),
+                         Conv2d(32, 3, 3, padding=1))
 
 
 class LowLightDiffusion(nn.Module):
@@ -43,8 +60,15 @@ class LowLightDiffusion(nn.Module):
             raise ValueError(f"Unknown condition mode: {config.condition_mode}")
         self.config = config
         self.unet = EfficientUNet(config.unet)
-        self.condition_encoder = (ConditionEncoder()
-                                  if config.condition_mode == "add" else None)
+        self.condition_encoder = None
+        if config.condition_mode == "add":
+            self.condition_encoder = ConditionEncoder()
+            set_compute_dtype(self.condition_encoder, self.unet.compute_dtype)
+
+    @property
+    def compute_dtype(self) -> torch.dtype:
+        """The dtype the UNet computes in and the sampler carries."""
+        return self.unet.compute_dtype or next(self.parameters()).dtype
 
     def forward(self, latents: torch.Tensor, low_light: torch.Tensor,
                 timesteps: torch.Tensor,
@@ -67,6 +91,22 @@ def create_model(config: DiffusionConfig, *, device="cuda"
     with dev:
         model = LowLightDiffusion(config).eval()
     return model, make_schedule(config.scheduler).to(dev)
+
+
+def with_dtype(model: LowLightDiffusion, dtype: str) -> LowLightDiffusion:
+    """``model``'s weights in a model built for the compute dtype ``dtype``
+    (``"float32"`` or ``"bfloat16"``), on the same device and in eval mode:
+    what a JAX user gets from the same params with ``unet.dtype`` set in
+    the model config. The parameters are copied (float32 either way)."""
+    import dataclasses
+
+    cfg = dataclasses.replace(model.config, unet=dataclasses.replace(
+        model.config.unet, dtype=dtype))
+    dev = next(model.parameters()).device
+    with dev:
+        other = LowLightDiffusion(cfg).eval()
+    other.load_state_dict(model.state_dict(), strict=True)
+    return other
 
 
 def _to_nchw(x: torch.Tensor) -> torch.Tensor:
@@ -186,9 +226,12 @@ def enhance(model: LowLightDiffusion, schedule: LCMSchedule,
             generator: Optional[torch.Generator] = None,
             deterministic: bool = False,
             device="cuda",
-            params: Optional[Dict[str, torch.Tensor]] = None) -> torch.Tensor:
+            params: Optional[Dict[str, torch.Tensor]] = None,
+            return_intermediate: bool = False
+            ) -> Union[torch.Tensor, EnhanceOutput]:
     """LCM sampling. ``low_light`` [B, H, W, 3] in [-1, 1] → [B, H, W, 3] in
-    [-1, 1].
+    [-1, 1], in the model's compute dtype (float32, or bfloat16 for a bf16
+    model, as the JAX ``enhance`` returns it).
 
     ``timesteps`` is the descending grid (a distilled student's own, e.g.
     ``[739]``); without it the stock ``lcm_timesteps`` grid of
@@ -198,6 +241,14 @@ def enhance(model: LowLightDiffusion, schedule: LCMSchedule,
     ``generator`` (:func:`sampler_noise`) and the drawn one is used.
     ``deterministic`` takes renoise-free DDIM-style steps. ``params`` (e.g.
     the EMA weights) replaces the module's own parameters.
+    ``return_intermediate`` returns an :class:`EnhanceOutput` with each
+    step's carry as well.
+
+    In bfloat16 the carry, both noises and the condition are cast to bf16
+    before use (the noise is still drawn in float32, so a seed gives both
+    dtypes the same noise); each step takes the UNet's bf16 prediction and
+    the carry to float32 for the scheduler arithmetic and casts the new
+    carry back (JAX ``diffusion.py:242-278``).
     """
     dev = resolve_device(device)
     if next(model.parameters()).device != dev:
@@ -217,21 +268,31 @@ def enhance(model: LowLightDiffusion, schedule: LCMSchedule,
         drawn = sampler_noise(generator, (batch, height, width, 3), len(grid), dev)
         init_noise = drawn[0] if init_noise is None else init_noise
         step_noise = drawn[1] if step_noise is None else step_noise
-    latents = _to_nchw(init_noise.to(dev, torch.float32))
-    step_noise = step_noise.to(dev, torch.float32).permute(0, 1, 4, 2, 3).contiguous()
-    low = _to_nchw(low_light.to(dev, torch.float32))
+    dtype = model.compute_dtype
+    latents = _to_nchw(init_noise.to(dev, torch.float32)).to(dtype)
+    step_noise = (step_noise.to(dev, torch.float32).permute(0, 1, 4, 2, 3)
+                  .contiguous().to(dtype))
+    low = _to_nchw(low_light.to(dev, torch.float32)).to(dtype)
 
+    carries = []
     for i, (t, prev_t) in enumerate(zip(grid, prev)):
         t_vec = torch.full((batch,), t, dtype=torch.int32, device=dev)
         args = (latents, low, t_vec)
         pred = (model(*args) if params is None
                 else torch.func.functional_call(model, params, args)).float()
         if deterministic:
-            latents, _ = sched.ddim_step(schedule, pred, t, prev_t, latents)
+            latents, _ = sched.ddim_step(schedule, pred, t, prev_t,
+                                         latents.float())
         else:
-            latents, _ = sched.step(schedule, pred, t, prev_t, latents,
-                                    noise=step_noise[i])
-    return latents.clamp(-1.0, 1.0).permute(0, 2, 3, 1)
+            latents, _ = sched.step(schedule, pred, t, prev_t, latents.float(),
+                                    noise=step_noise[i].float())
+        latents = latents.to(dtype)
+        if return_intermediate:
+            carries.append(latents.permute(0, 2, 3, 1))
+    enhanced = latents.clamp(-1.0, 1.0).permute(0, 2, 3, 1)
+    if return_intermediate:
+        return EnhanceOutput(enhanced, torch.stack(carries))
+    return enhanced
 
 
 def denormalize_image(image: torch.Tensor) -> torch.Tensor:

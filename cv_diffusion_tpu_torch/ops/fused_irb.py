@@ -86,7 +86,11 @@ def fused_irb_v2_plain(x: torch.Tensor, wexp: torch.Tensor, wdw: torch.Tensor,
                        use_se: bool = True) -> torch.Tensor:
     """The stride-1 IRB forward of ``fused_irb_v2``, in plain PyTorch: x
     [B, Cin, H, W] → [B, Cout, H, W] in x's dtype, computed in at least
-    float32. The residual is the identity unless ``wskip`` is given.
+    float32. The residual is the identity unless ``wskip`` is given. For a
+    bfloat16 x the three products (expand, project, skip) take their
+    operands rounded to bf16 and accumulate in float32, as the TPU kernel's
+    bf16 dots do (``pallas_irb.py:426-427``, ``dot_t``) and the CUDA
+    kernel's bf16 entry; everything else stays float32.
 
     The SE pool is the mean of h3 itself. The TPU kernel (and the CUDA one)
     get the same mean from h2's total, edge-row, edge-column and corner sums,
@@ -99,21 +103,31 @@ def fused_irb_v2_plain(x: torch.Tensor, wexp: torch.Tensor, wdw: torch.Tensor,
     xf = upcast(x)
     dt = xf.dtype
     chid = wexp.shape[0]
+    op = _bf16_operand if x.dtype == torch.bfloat16 else _same
 
     def per_channel(v):
         return v.to(dt)[:, :, None, None]
 
-    h1 = torch.einsum("bkhw,ck->bchw", xhat, wexp.reshape(chid, -1).to(dt))
+    h1 = torch.einsum("bkhw,ck->bchw", op(xhat), op(wexp.reshape(chid, -1).to(dt)))
     h2 = _act(h1 * per_channel(a2) + per_channel(b2), silu)
     return _irb_tail(h2, xf, wdw, wproj, se_w1, se_b1, se_w2, se_b2, wskip,
-                     silu, use_se).to(x.dtype)
+                     silu, use_se, op).to(x.dtype)
+
+
+def _same(t: torch.Tensor) -> torch.Tensor:
+    return t
+
+
+def _bf16_operand(t: torch.Tensor) -> torch.Tensor:
+    """t rounded to bfloat16 (to nearest even) and widened back."""
+    return t.to(torch.bfloat16).to(t.dtype)
 
 
 def _irb_tail(h2, xf, wdw, wproj, se_w1, se_b1, se_w2, se_b2, wskip, silu,
-              use_se):
+              use_se, op=_same):
     """depthwise 3×3 (zero padding), the SE gate from the mean of h3 itself,
     project, and the residual: what both versions do after h2, in h2's
-    dtype."""
+    dtype, with ``op`` applied to each operand of the two products."""
     dt = h2.dtype
     chid = h2.shape[1]
     h3 = F.conv2d(h2, wdw.reshape(chid, 1, 3, 3).to(dt), padding=1,
@@ -122,11 +136,11 @@ def _irb_tail(h2, xf, wdw, wproj, se_w1, se_b1, se_w2, se_b2, wskip, silu,
         s = _act(h3.mean(dim=(2, 3)) @ se_w1.to(dt).t() + se_b1.to(dt), silu)
         gate = torch.sigmoid(s @ se_w2.to(dt).t() + se_b2.to(dt))
         h3 = h3 * gate[:, :, None, None]
-    out = torch.einsum("bchw,oc->bohw", h3,
-                       wproj.reshape(wproj.shape[0], chid).to(dt))
+    out = torch.einsum("bchw,oc->bohw", op(h3),
+                       op(wproj.reshape(wproj.shape[0], chid).to(dt)))
     if wskip is not None:
-        return out + torch.einsum("bkhw,ok->bohw", xf,
-                                  wskip.reshape(wskip.shape[0], -1).to(dt))
+        return out + torch.einsum("bkhw,ok->bohw", op(xf),
+                                  op(wskip.reshape(wskip.shape[0], -1).to(dt)))
     return out + xf
 
 

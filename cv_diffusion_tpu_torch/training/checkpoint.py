@@ -64,13 +64,46 @@ def restore_checkpoint(path: str, state: TrainState) -> Dict[str, Any]:
             "config": json.loads(raw["config"])}
 
 
-def load_inference_params(path: str, use_ema: bool = True
-                          ) -> Dict[str, torch.Tensor]:
-    """The weights to serve from a full checkpoint, as a state dict (CPU
-    tensors): its EMA when ``use_ema`` and it has one, else its raw
-    parameters. (The JAX loader returns the raw parameters of a full
-    checkpoint even when asked for the EMA; this one does not.)"""
-    raw = load_raw(path)
-    if use_ema and "ema_params" in raw:
-        return dict(raw["ema_params"])
-    return dict(raw["params"])
+def load_inference_params(path: str, use_ema: bool = True,
+                          verbose: bool = True) -> Dict[str, torch.Tensor]:
+    """The weights to serve or to warm-start from (``TrainConfig.
+    init_params_from``), as a state dict of CPU tensors, from any of the
+    port's layouts (JAX ``load_inference_params``, ``checkpoint.py:234``):
+
+    * a full checkpoint (a file of :func:`save_checkpoint`): its EMA when
+      ``use_ema`` and it has one, else its raw parameters. (The JAX loader
+      returns the raw parameters of a full checkpoint even when asked for
+      the EMA; this one does not.)
+    * a weights file in the port's format (``.npz``,
+      ``weights.save_state_dict_npz``, e.g. ``artifacts_torch/<name>.npz``)
+      or a serving package's directory: its parameters, float32 (a package's
+      bf16 or int8 codec brought back as ``load_serving_package`` does);
+      ``use_ema`` is ignored with a warning, as in the JAX package (these
+      hold the already-selected weights).
+
+    The JAX package's orbax directories cannot be read here (there is no
+    orbax where the card is): convert them first with
+    ``scripts/torch_port_export_weights.py``."""
+    if os.path.isdir(path):
+        if not os.path.isfile(os.path.join(path, "params.npz")):
+            raise ValueError(
+                f"{path}: a directory without params.npz, such as an orbax "
+                "checkpoint of the JAX package, which the port cannot read; "
+                "convert it to the port's weights format with "
+                "scripts/torch_port_export_weights.py")
+        from ..export.serving import load_serving_package
+        state = load_serving_package(path, "cpu")[2]
+    elif path.endswith(".npz"):
+        from ..weights import load_state_dict_npz
+        state = load_state_dict_npz(path, "cpu")
+    else:
+        raw = load_raw(path)
+        key = "ema_params" if use_ema and "ema_params" in raw else "params"
+        if use_ema and key == "params" and verbose:
+            print("Warning: --use_ema requested but checkpoint has no "
+                  "ema_params; using raw params")
+        return dict(raw[key])
+    if use_ema and verbose:
+        print("Warning: --use_ema ignored (params-only artifact; packages "
+              "store the already-selected weights)")
+    return state

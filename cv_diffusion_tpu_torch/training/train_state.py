@@ -5,7 +5,12 @@ train step is forward, backward, global-norm clip, AdamW with the LR
 schedule, and EMA, as the JAX step; with ``grad_accum_steps > 1`` it runs
 the micro-batches one after another and makes one update from their mean.
 The state is updated in place. Linear attention runs forward and backward
-through the port's CUDA kernels (the CPU runs their plain versions).
+through the port's CUDA kernels (the CPU runs their plain versions). The
+model computes in its config's dtype (bfloat16 under ``use_amp``, which
+``trainer.train_model`` maps as the JAX trainer does) while the parameters,
+their gradients, AdamW's moments and the EMA stay float32: the loss is
+taken in float32 and the gradients reach the float32 parameters through
+the casts, as in JAX.
 """
 
 from __future__ import annotations
@@ -27,9 +32,6 @@ Schedule = Callable[[int], float]
 
 # TrainConfig fields the port does not have yet: (name, refused when, what).
 _UNPORTED = (
-    ("use_amp", lambda v: v,
-     "bf16 compute (ROADMAP queue 1 items 3 and 4); pass use_amp=False"),
-    ("remat", lambda v: v, "rematerialisation (ROADMAP queue 1 item 4)"),
     ("qat", lambda v: v, "quantization-aware training (ROADMAP queue 1 item 6)"),
     ("qat_act", lambda v: v,
      "activation-aware QAT (ROADMAP queue 1 item 6)"),
@@ -40,8 +42,6 @@ _UNPORTED = (
      "the device-side data cache (ROADMAP queue 1 item 4)"),
     ("native_loader", lambda v: v is True,
      "the native C++ loader (ROADMAP queue 1 item 4)"),
-    ("init_params_from", lambda v: v is not None,
-     "warm starts from a checkpoint (ROADMAP queue 1 item 4)"),
 )
 
 

@@ -2,8 +2,11 @@
 
 Counterpart of ``cv_diffusion_tpu/training/trainer.py:71-337`` with the same
 loop: epochs, per-epoch validation on the EMA weights, periodic, best and
-final checkpoints, resume at epoch + 1. The loss is read back to the host
-at log intervals and once per epoch, never after each step.
+final checkpoints, resume at epoch + 1, and the fine-tuning warm start
+(``init_params_from``: the parameters, or with ``init_params_ema`` the EMA,
+of an existing checkpoint, with a fresh optimizer, LR schedule, epoch and
+EMA). The loss is read back to the host at log intervals and once per
+epoch, never after each step.
 :meth:`Trainer.evaluate_quality` is the full-sampler PSNR/SSIM evaluation
 (``metrics.py``). Sample grids and W&B are not ported (ROADMAP queue 1
 item 4); checkpoints are written synchronously.
@@ -40,6 +43,12 @@ class Trainer:
         self.train_loader = train_loader
         self.val_loader = val_loader
         self.device = next(model.parameters()).device
+        if self.config.init_params_from:
+            # fine-tuning warm start (unlike resume): the weights only; the
+            # state below starts from them (step 0, fresh AdamW, EMA = them)
+            model.load_state_dict(ckpt.load_inference_params(
+                self.config.init_params_from,
+                use_ema=self.config.init_params_ema), strict=True)
         self.state = create_train_state(model, self.config,
                                         steps_per_epoch=len(train_loader))
         self.train_step = make_train_step(model, schedule, self.config)
@@ -153,14 +162,19 @@ def train_model(train_loader, val_loader=None,
                 device="cuda") -> Trainer:
     """Build the model that ``config`` names on ``device`` with random
     weights from ``config.seed`` (``weights.init_weights``), train it on the
-    loaders, and return the trainer."""
+    loaders, and return the trainer. As the JAX ``train_model``
+    (``trainer.py:353-362``): ``use_amp`` makes the model compute in
+    bfloat16, and ``remat`` rematerialises its blocks."""
     from ..weights import init_weights
 
     config = config or TrainConfig()
     check_trainable(config)
     model_cfg = diffusion_config(config.unet_variant, config.image_size,
                                  config.num_inference_steps,
-                                 prediction_type=config.prediction_type)
+                                 dtype="bfloat16" if config.use_amp else "float32",
+                                 prediction_type=config.prediction_type,
+                                 use_pallas=config.use_pallas,
+                                 remat=config.remat)
     model, schedule = create_model(model_cfg, device=device)
     model.load_state_dict(init_weights(model_cfg, seed=config.seed,
                                        device=device), strict=True)

@@ -3,6 +3,7 @@
 
     python scripts/torch_port_eval_reference.py [--artifact vreg1b_gt03_ema]
         [--n 15] [--size 256] [--seed 0] [--quantize bf16|int8]
+        [--dtype bfloat16 [--use_pallas_irb]]
 
 Runs the JAX package's ``enhance`` (``cv_diffusion_tpu/models/diffusion.py``)
 on the orbax weights of ``artifacts/<artifact>`` over the inputs and noise
@@ -26,6 +27,20 @@ in interpret mode on the CPU), and only
 ``artifacts_torch/<artifact>.eval_ref_<codec>.json`` is written (no uint8
 outputs). Needs the JAX stack and orbax; ``chip_smoke.py`` holds the card's
 numbers against these files.
+
+With ``--dtype bfloat16`` the model computes in bf16 (its
+``model_config.json`` with ``unet.dtype = "bfloat16"``: float32 weights cast
+at each use, as ``train_model`` builds a ``use_amp`` model), on the float32
+weights, and only ``artifacts_torch/<artifact>.eval_ref_bf16compute.json``
+is written; with ``--use_pallas_irb`` as well, every stride-1 IRB runs
+through the JAX package's ``fused_irb_v2`` (interpret mode on the CPU), into
+``….eval_ref_bf16compute_fused.json``. The bf16 sampler is compiled with
+XLA's ``xla_allow_excess_precision`` off: on by default, it lets XLA's CPU
+compiler drop a cast to bf16 whose value feeds a float32 computation (a
+convolution's input or output, a GroupNorm's output), so the reference
+would skip roundings the model's code writes; off, every cast rounds, as
+on an accelerator that takes bf16 operands. On the committed student the
+flag alone moves JAX's own per-image PSNR by up to 0.145 dB.
 """
 
 import argparse
@@ -43,7 +58,9 @@ U8_IMAGES = (0, 1)
 
 
 def reference(artifact: str, n: int, size: int, seed: int,
-              quantize: Optional[str] = None):
+              quantize: Optional[str] = None, dtype: str = "float32",
+              use_pallas_irb: bool = False):
+    import dataclasses
     import tempfile
 
     import jax
@@ -66,6 +83,8 @@ def reference(artifact: str, n: int, size: int, seed: int,
         cfg = from_dict(DiffusionConfig, json.load(f))
     with open(os.path.join(path, "student_timesteps.json")) as f:
         grid = [int(t) for t in json.load(f)["timesteps"]]
+    cfg = dataclasses.replace(cfg, unet=dataclasses.replace(
+        cfg.unet, dtype=dtype, use_pallas_irb=use_pallas_irb))
     model, schedule = create_model(cfg)
     variables = {"params": load_inference_params(path, verbose=False)}
     if quantize:
@@ -99,11 +118,14 @@ def reference(artifact: str, n: int, size: int, seed: int,
         m = jax.vmap(one_img)(pred, tgt)
         return m, jnp.clip(pred * 255.0, 0, 255).astype(jnp.uint8)
 
+    options = ({} if dtype == "float32"
+               else {"xla_allow_excess_precision": False})
     rows, u8 = [], []
     for s in range(0, n, BATCH_SIZE):
         sl = slice(s, s + BATCH_SIZE)
-        out = enh(variables, jnp.asarray(normalize(low[sl])),
-                  jnp.asarray(init[sl]), jnp.asarray(step[:, sl]))
+        args = (variables, jnp.asarray(normalize(low[sl])),
+                jnp.asarray(init[sl]), jnp.asarray(step[:, sl]))
+        out = enh.lower(*args).compile(options)(*args)
         m, pred_u8 = metrics_fn(out, jnp.asarray(normalize(high[sl])))
         m = [np.asarray(v) for v in m]
         for i in range(len(m[0])):
@@ -125,12 +147,17 @@ def reference(artifact: str, n: int, size: int, seed: int,
                "noise": NOISE_RECIPE, "batch_size": BATCH_SIZE,
                "reference": f"cv_diffusion_tpu enhance + training.metrics, "
                             f"jax {jax.__version__}, {jax.default_backend()}",
-               "u8_images": [] if quantize else list(U8_IMAGES),
+               "u8_images": [] if quantize or dtype != "float32" else list(U8_IMAGES),
                "summary": means, "images": images}
     if quantize:
         payload["quantization"] = quantize
         payload["package"] = ("cv_diffusion_tpu create_serving_package + "
                               "load_serving_package")
+    if dtype != "float32":
+        payload["dtype"] = dtype
+        payload["xla_allow_excess_precision"] = False
+    if use_pallas_irb:
+        payload["use_pallas_irb"] = True
     return payload, u8[list(U8_IMAGES)]
 
 
@@ -143,15 +170,26 @@ def main():
     p.add_argument("--quantize", choices=("bf16", "int8"), default=None,
                    help="serve the JAX package's own serving package of "
                         "this codec")
+    p.add_argument("--dtype", choices=("float32", "bfloat16"), default="float32",
+                   help="the UNet's compute dtype (float32 weights either way)")
+    p.add_argument("--use_pallas_irb", action="store_true",
+                   help="with --dtype bfloat16: every stride-1 IRB through "
+                        "fused_irb_v2")
     args = p.parse_args()
+    if args.quantize and args.dtype != "float32":
+        p.error("--quantize and --dtype bfloat16 are separate references")
+    if args.use_pallas_irb and args.dtype == "float32":
+        p.error("--use_pallas_irb is a reference of bf16 compute")
     payload, u8 = reference(args.artifact, args.n, args.size, args.seed,
-                            args.quantize)
+                            args.quantize, args.dtype, args.use_pallas_irb)
     out = os.path.join(REPO, "artifacts_torch", args.artifact)
-    suffix = f"_{args.quantize}" if args.quantize else ""
+    suffix = (f"_{args.quantize}" if args.quantize
+              else "_bf16compute" if args.dtype == "bfloat16" else "")
+    suffix += "_fused" if args.use_pallas_irb else ""
     with open(out + f".eval_ref{suffix}.json", "w") as f:
         json.dump(payload, f, indent=1)
         f.write("\n")
-    if not args.quantize:
+    if not suffix:
         np.savez_compressed(out + ".eval_ref_u8.npz", pred_u8=u8)
     print(json.dumps(payload["summary"]))
 

@@ -8,8 +8,9 @@ package, and under that block imports every module of the port and
 ``chip_smoke``, then serves one request through
 ``ServingPipeline.from_config`` on the CPU, writes, loads and serves a bf16
 and an int8 serving package of that model, serves the same request with
-``use_pallas_irb`` on, runs ``fused_irb_v1`` on one block, and takes one
-train step; then loads the committed student's ``.npz`` and serves a request
+``use_pallas_irb`` on, runs ``fused_irb_v1`` on one block, takes one
+train step, serves the request in bf16 compute and takes one ``use_amp``
+step; then loads the committed student's ``.npz`` and serves a request
 through ``ServingPipeline.from_artifact``, makes a small synthetic split and
 computes the five quality metrics.
 """
@@ -108,7 +109,7 @@ _CHILD = textwrap.dedent("""
 
     # one train step of the tiny UNet on synthetic data
     import torch
-    from cv_diffusion_tpu_torch.config import TrainConfig
+    from cv_diffusion_tpu_torch.config import TrainConfig, diffusion_config
     from cv_diffusion_tpu_torch.data.dataset import (DataLoader,
                                                      SyntheticLowLightDataset)
     from cv_diffusion_tpu_torch.training.train_state import (
@@ -122,6 +123,20 @@ _CHILD = textwrap.dedent("""
     state = create_train_state(model, tcfg)
     state, metrics = make_train_step(model, schedule, tcfg)(state, batch)
     assert state.step == 1 and bool(torch.isfinite(metrics["loss"]))
+
+    # bf16 compute: one request, and one use_amp step (train_model's model)
+    from cv_diffusion_tpu_torch.models.diffusion import with_dtype
+    bf16 = with_dtype(pipe.model, "bfloat16")
+    got = ServingPipeline(bf16, pipe.schedule, pipe.config, device="cpu")(img, seed=0)
+    assert got.shape == img.shape and got.dtype == np.uint8
+    amp = TrainConfig(use_amp=True, unet_variant="tiny", image_size=32)
+    amp_model, amp_sched = create_model(diffusion_config(
+        "tiny", 32, dtype="bfloat16"), device="cpu")
+    amp_model.train()
+    state = create_train_state(amp_model, amp)
+    state, metrics = make_train_step(amp_model, amp_sched, amp)(state, batch)
+    assert state.step == 1 and bool(torch.isfinite(metrics["loss"]))
+    assert all(p.dtype == torch.float32 for p in amp_model.parameters())
 
     # the committed student from its weights file, the split, the metrics
     student = ServingPipeline.from_artifact("vreg1b_gt03_ema", device="cpu")
@@ -192,8 +207,7 @@ def test_entry_points_default_to_cuda():
 
 @pytest.mark.parametrize("field,value", [
     ("split_skip", True),
-    ("act_quant", True), ("remat", True), ("use_linear_attention", False),
-    ("dtype", "bfloat16")])
+    ("act_quant", True), ("act_quant", "fake"), ("use_linear_attention", False)])
 def test_unported_paths_raise(field, value):
     from cv_diffusion_tpu_torch.config import diffusion_config
     from cv_diffusion_tpu_torch.models.diffusion import create_model
@@ -201,3 +215,14 @@ def test_unported_paths_raise(field, value):
     cfg = diffusion_config("tiny", 32, **{field: value})
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         create_model(cfg, device="cpu")
+
+
+@pytest.mark.parametrize("field,value", [("remat", True), ("dtype", "bfloat16")])
+def test_ported_paths_build(field, value):
+    """bf16 compute and remat, refused before they were ported, build."""
+    from cv_diffusion_tpu_torch.config import diffusion_config
+    from cv_diffusion_tpu_torch.models.diffusion import create_model
+
+    model, _ = create_model(diffusion_config("tiny", 32, **{field: value}),
+                            device="cpu")
+    assert getattr(model.config.unet, field) == value

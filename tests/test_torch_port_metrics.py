@@ -96,11 +96,15 @@ def test_make_split_matches_the_script():
     ``make_synthetic_dataset.py --seed 0`` (``write_split(..., 15, 256, 77,
     photo_fraction=0.0)``), generated here with the script's own functions
     and Pillow, bit for bit."""
-    sys.path.insert(0, os.path.join(REPO, "scripts"))
+    scripts = os.path.join(REPO, "scripts")
+    sys.path.insert(0, scripts)
     try:
         import make_synthetic_dataset as script
     finally:
-        sys.path.pop(0)
+        # by value: the script puts the repository's root in front of it,
+        # and a scripts/ left on the path shadows the standard library's
+        # profile module (scripts/profile.py) for every later import
+        sys.path.remove(scripts)
     low, high = make_split(15, 256, 77)
     rng = np.random.default_rng(77)
     highs = list(script._photo_crops(rng, 256, 0))

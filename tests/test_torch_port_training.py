@@ -439,9 +439,9 @@ def test_eval_step_is_masked_mse():
 
 
 @pytest.mark.parametrize("name,value", [
-    ("use_amp", True), ("remat", True), ("qat", True), ("qat_act", True),
+    ("qat", True), ("qat_act", True),
     ("mesh_shape", (2,)), ("use_wandb", True), ("data_on_device", True),
-    ("native_loader", True), ("init_params_from", "ckpt")])
+    ("native_loader", True)])
 def test_unported_training_features_raise(name, value):
     tc = dataclasses.replace(TrainConfig(use_amp=False), **{name: value})
     model, schedule = _tiny_model()
@@ -449,6 +449,21 @@ def test_unported_training_features_raise(name, value):
         tts.make_train_step(model, schedule, tc)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         Trainer(model, schedule, [None], config=tc)
+
+
+@pytest.mark.parametrize("name,value", [
+    ("use_amp", True), ("remat", True), ("init_params_from", "weights.npz")])
+def test_ported_training_features_are_accepted(name, value, tmp_path):
+    """Refused before they were ported: a train step and a Trainer take
+    them (``init_params_from`` names a weights file written here)."""
+    model, schedule = _tiny_model()
+    if name == "init_params_from":
+        value = str(tmp_path / value)
+        tweights.save_state_dict_npz(model.state_dict(), value, source="test")
+    tc = dataclasses.replace(TrainConfig(use_amp=False), checkpoint_dir=str(tmp_path),
+                             **{name: value})
+    tts.make_train_step(model, schedule, tc)
+    assert Trainer(model, schedule, [None], config=tc).state.step == 0
 
 
 def test_train_config_matches_jax():
