@@ -125,6 +125,24 @@ Phases, one JSON line each on stdout (warnings and build logs go to stderr):
 16. warm_start -- ``init_params_from`` the committed ``.npz`` (bit for bit
    before the first step, a fresh state), three ``use_amp`` steps, and
    ``init_params_ema`` from a checkpoint written in the run.
+17. data   -- training from image directories. A LOL-shaped set (485 + 15
+   pairs of 400×600 PNGs, rows cycling through the five filters) written
+   under ``cv_diffusion_tpu_torch/_build/lol_data`` from ``DATA_SEED``;
+   decode rates (``data/png.py`` one file a call and sixteen together; the
+   native decoder, or why it is unavailable); the train split's device
+   cache (its bytes, build and upload seconds, ms per assembled batch of
+   8); holds: a batch's pairs are its draws' host crops and flips exactly
+   and their rotation within 1 LSB of ``augment.rotate`` in the interior,
+   the eval split's centre crops equal ``LowLightDataset``'s, synthetic
+   values on the 1/255 grid; ``train_model`` on 96 pairs (12 steps of
+   small@256, batch 8, ``use_amp``) with the Python loader and prefetch, the
+   native loader where built, and ``data_on_device`` (ms a step, ms a step
+   waiting for the loader, attention launches, validation, the sample grid
+   decoded back against its arrays); the main thread's blocked ms of an
+   async and a sync checkpoint save (the async file restored equals the
+   state at save time though a step ran in place after it); and ``python
+   -m cv_diffusion_tpu_torch.train`` as a subprocess (exit 0, its
+   checkpoint and grid).
 
 Then the ``kernels`` line, the ``nvidia-smi`` line, and last
 ``{"ok": true, "device": {...}}``. Any failed check raises, and the script
@@ -234,6 +252,16 @@ REMAT_CASES = ((False, "full", "all"), (False, "full", "all"), (True, "full", "a
                (True, "full", "decoder"), (True, "conv", "all"), (True, "conv", "decoder"))
 REMAT_STEPS = 3
 WARM_START_STEPS = 3
+# the data phase's LOL-shaped set (LOL's our485 / eval15 splits: 400×600
+# pairs), written under _build/ from DATA_SEED; DATA_SCENES distinct 600²
+# scenes, each cut, flipped and degraded anew for several pairs
+LOL_SPLITS = (("our485", 485), ("eval15", 15))
+LOL_HW = (400, 600)
+DATA_SEED = 13
+DATA_SCENES = 40
+DATA_VARIANT, DATA_SIZE = "small", 256
+DATA_STEPS = 12                # train steps a loader: 96 pairs at batch 8
+CLI_PAIRS = 24                 # the CLI's run: 3 steps
 
 
 def emit(phase: str, **fields) -> None:
@@ -345,13 +373,14 @@ def profile(label: str, fn, requests_per_run: int, runs: int = 5) -> None:
                        "calls_per_request": c / n} for name, (t, c) in top])
 
 
-def device_kernels(fn, calls: int = 2, traces: int = 3) -> dict:
+def device_kernels(fn, calls: int = 2, traces: int = 8) -> dict:
     """The device kernels (and copies) one call of ``fn`` runs, by name,
     from torch.profiler over ``calls`` calls after one untraced. The
-    profiler now and then drops an event (a trace of 10 one-kernel calls has
-    read 9 on the card), never adds one: a trace that reads a fraction of a
-    kernel a call is taken again, up to ``traces`` times, and the one that
-    read the most counts."""
+    profiler now and then drops events (a trace of 10 one-kernel calls has
+    read 9 on the card, three traces in a row have, and one has read none),
+    never adds one: a trace that reads nothing or a fraction of a kernel a
+    call is taken again, after a pause, up to ``traces`` times, and the one
+    that read the most counts."""
     import torch
     from torch.profiler import ProfilerActivity
     from torch.profiler import profile as trace
@@ -371,9 +400,299 @@ def device_kernels(fn, calls: int = 2, traces: int = 3) -> dict:
                 counts[e.name] += 1
         if sum(counts.values()) > sum(best.values()):
             best = counts
-        if all(v % calls == 0 for v in counts.values()):
+        if counts and all(v % calls == 0 for v in counts.values()):
             break
+        time.sleep(0.2)
     return {n: v / calls for n, v in best.items()}
+
+
+def write_lol(root: str) -> dict:
+    """LOL's two splits, 400×600 PNG pairs under ``root/{split}/{low,high}``:
+    the high side a crop of one of ``DATA_SCENES`` 600² scenes of the
+    synthetic split's generator, flipped at random; the low side its
+    synthetic degradation; rows filtered None, Sub, Up, Average, Paeth in
+    turn. Returns the seconds of its parts."""
+    import numpy as np
+    from cv_diffusion_tpu_torch.data.augment import synthetic_low_light
+    from cv_diffusion_tpu_torch.data.png import write_png
+    from cv_diffusion_tpu_torch.data.synthetic import generate_scene
+
+    h, w = LOL_HW
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(os.cpu_count() or 1) as pool:
+        scenes = list(pool.map(lambda i: generate_scene(
+            np.random.default_rng(DATA_SEED * 1000 + i), w), range(DATA_SCENES)))
+        t1 = time.perf_counter()
+
+        def pair(job):
+            split, j = job
+            rng = np.random.default_rng((DATA_SEED, len(split), j))
+            high = scenes[int(rng.integers(DATA_SCENES))]
+            top = int(rng.integers(0, w - h + 1))
+            high = high[top:top + h, ::-1 if rng.random() < 0.5 else 1]
+            low = synthetic_low_light(rng, np.ascontiguousarray(high))
+            for side, img in (("low", low), ("high", high)):
+                write_png(os.path.join(root, split, side, f"{j:03d}.png"),
+                          np.ascontiguousarray(img), (0, 1, 2, 3, 4))
+
+        list(pool.map(pair, [(split, j) for split, n in LOL_SPLITS
+                             for j in range(n)]))
+    return {"scenes_s": t1 - t0, "pairs_s": time.perf_counter() - t1}
+
+
+def data_phase(dev, n_attn: int, lak, cuda_build) -> dict:
+    """Phase 17: the training input path from image directories on the
+    card. Returns the ``data`` line's fields."""
+    import numpy as np
+    import torch
+    from cv_diffusion_tpu_torch.config import TrainConfig
+    from cv_diffusion_tpu_torch.data import augment as taug
+    from cv_diffusion_tpu_torch.data import device_augment as tdaug
+    from cv_diffusion_tpu_torch.data import native as tnative
+    from cv_diffusion_tpu_torch.data import png
+    from cv_diffusion_tpu_torch.data.dataset import LowLightDataset
+    from cv_diffusion_tpu_torch.data.device_cache import DeviceCacheLoader
+    from cv_diffusion_tpu_torch.training import checkpoint as ckpt
+    from cv_diffusion_tpu_torch.training.trainer import train_model
+
+    t0 = time.perf_counter()
+    root = os.path.join(cuda_build.BUILD_DIR, "lol_data")
+    work = tempfile.mkdtemp(prefix="chip_smoke_data_")
+    shutil.rmtree(root, ignore_errors=True)
+    written = write_lol(root)
+
+    def files(split, side, n=None):
+        d = os.path.join(root, split, side)
+        return [os.path.join(d, f) for f in sorted(os.listdir(d))][:n]
+
+    train_low, train_high = files("our485", "low"), files("our485", "high")
+    eval_dir = os.path.join(root, "eval15")
+    subsets = {}
+    for name, pairs in (("train96", DATA_STEPS * 8), ("train24", CLI_PAIRS)):
+        subsets[name] = os.path.join(work, name)
+        for side, paths in (("low", train_low), ("high", train_high)):
+            os.makedirs(os.path.join(subsets[name], side))
+            for p in paths[:pairs]:
+                os.symlink(p, os.path.join(subsets[name], side, os.path.basename(p)))
+
+    # decode rates: one file a call, and sixteen unfiltered together
+    probe = train_low[:16]
+    a = time.perf_counter()
+    singles = [png.read_image(p) for p in probe]
+    single_rate = len(probe) / (time.perf_counter() - a)
+    a = time.perf_counter()
+    together = png.read_images(train_high[:32])
+    batched_rate = 32 / (time.perf_counter() - a)
+    require(all(img.shape == LOL_HW + (3,) and img.dtype == np.uint8
+                for img in singles + together), "data: decoded shapes")
+    native_reason = tnative.native_unavailable_reason()
+    if native_reason is None:
+        a = time.perf_counter()
+        nat = [tnative.decode_image(p) for p in probe]
+        native_rate = len(probe) / (time.perf_counter() - a)
+        require(all(np.array_equal(x, y) for x, y in zip(nat, singles)),
+                "data: the native decoder differs from png.py")
+        native = "available"
+    else:
+        native, native_rate = f"unavailable: {native_reason}", None
+
+    # the device cache of the train split: bytes, upload, a batch's assembly
+    torch.cuda.synchronize()
+    a = time.perf_counter()
+    size = DATA_SIZE
+    cache = DeviceCacheLoader(train_low, train_high, size, 8, shuffle=True,
+                              drop_last=True, seed=0, device=dev)
+    torch.cuda.synchronize()
+    cache_s = time.perf_counter() - a
+    cache_bytes = LOL_SPLITS[0][1] * 2 * LOL_HW[0] * LOL_HW[1] * 3   # 698,400,000
+    require(cache.nbytes() == cache_bytes, f"data: cache holds {cache.nbytes()} bytes")
+    cache_device = cache._low.device.type
+    require(cache_device == dev.type == cache._high.device.type
+            and cache._low.dtype == torch.uint8, "data: the cache is not uint8 on the card")
+    host_low, host_high = cache._low.cpu(), cache._high.cpu()
+    torch.cuda.synchronize()
+    a = time.perf_counter()
+    up = [host_low.to(dev), host_high.to(dev)]
+    torch.cuda.synchronize()
+    upload_s = time.perf_counter() - a
+    del up
+    idxs = cache._indices(np.arange(8))
+    for _ in range(3):
+        cache.assemble(idxs, 0)
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for i in range(50):
+        cache.assemble(idxs, i)
+    end.record()
+    torch.cuda.synchronize()
+    assemble_ms = start.elapsed_time(end) / 50
+
+    # holds: pairs share one transform, which is the host's crop and flips
+    # exactly and its rotation within 1 LSB in the interior
+    h, w = LOL_HW
+    seed = 77
+    low, high = cache.assemble(idxs, seed)
+    draws = tdaug.draw_paired(torch.Generator(device=dev).manual_seed(seed), 8, h, w, size)
+    dc = {k: v.cpu().numpy() for k, v in draws.items()}
+    forced = dict(draws, rotate=torch.ones(8, dtype=torch.bool, device=dev))
+    rot_err, rotated = 0.0, int(dc["rotate"].sum())
+    for frames_host, frames_dev, got in ((host_low, cache._low, low),
+                                         (host_high, cache._high, high)):
+        crops = cache.normalize(tdaug.crop_windows(frames_dev, idxs, forced, size))
+        all_rot = tdaug.rotate_selected(crops, forced)
+        for i in range(8):
+            t_, l_ = int(dc["tops"][i]), int(dc["lefts"][i])
+            win = frames_host[i, t_:t_ + size, l_:l_ + size].numpy()
+            win = win[::-1 if dc["vflip"][i] else 1, ::-1 if dc["hflip"][i] else 1]
+            want_rot = taug.rotate(np.ascontiguousarray(win), float(dc["angles"][i]))
+            dev_rot = (all_rot[i].cpu().numpy() + 1.0) * 127.5
+            err = float(np.abs(dev_rot - want_rot)[2:-2, 2:-2].max())
+            rot_err = max(rot_err, err)
+            require(err <= 1.0, f"data: rotated crop {i} {err} LSB from numpy rotate")
+            want = (taug.normalize(win) if not dc["rotate"][i]
+                    else all_rot[i].cpu().numpy())
+            require(np.array_equal(got[i].cpu().numpy(), want),
+                    f"data: pair {i} is not its transform's crop")
+    # the centre crop is the host eval transform exactly
+    ev = DeviceCacheLoader(files("eval15", "low"), files("eval15", "high"), size, 8,
+                           augment=False, device=dev)
+    host_ev = LowLightDataset(eval_dir, image_size=size, augment_data=False)
+    n_ev = 0
+    for batch in ev:
+        for j, name in enumerate(batch["filenames"]):
+            item = host_ev[n_ev]
+            require(name == item["filename"]
+                    and np.array_equal(batch["low_light"][j].cpu().numpy(), item["low_light"])
+                    and np.array_equal(batch["normal_light"][j].cpu().numpy(),
+                                       item["normal_light"]),
+                    f"data: centre crop {name} differs from the host eval transform")
+            n_ev += 1
+    # synthetic degradation on the card: values on the 1/255 grid
+    syn = DeviceCacheLoader(files("eval15", "high"), None, size, 8, device=dev, seed=1)
+    sb = next(iter(syn))
+    grid = (sb["low_light"] + 1.0) * 127.5
+    grid_err = float((grid - grid.round()).abs().max())
+    require(sb["low_light"].device.type == dev.type and grid_err <= 1e-3,
+            f"data: synthetic values {grid_err} off the 1/255 grid")
+    del cache, ev, syn, host_low, host_high, low, high, crops, all_rot
+    torch.cuda.empty_cache()
+
+    # train_model on the directory, once a loader
+    runs = {}
+    trainer = None
+    for loader in ("python", "native", "device_cache"):
+        if loader == "native" and native_reason is not None:
+            runs[loader] = {"unavailable": native_reason}
+            continue
+        cfg = TrainConfig(unet_variant=DATA_VARIANT, image_size=DATA_SIZE, batch_size=8,
+                          epochs=1, warmup_epochs=0, log_interval=1000, seed=0,
+                          native_loader=loader == "native",
+                          data_on_device=loader == "device_cache",
+                          checkpoint_dir=os.path.join(work, loader, "ckpt"),
+                          output_dir=os.path.join(work, loader, "samples"))
+        del trainer
+        torch.cuda.empty_cache()
+        lak.linear_attention_kernel.launches = 0
+        lak.linear_attention_backward_kernel.launches = 0
+        a = time.perf_counter()
+        with contextlib.redirect_stdout(sys.stderr):
+            trainer = train_model(subsets["train96"], eval_dir, cfg, device=dev)
+        total_s = time.perf_counter() - a
+        st = trainer.epoch_stats
+        launches = {"linear_attention": lak.linear_attention_kernel.launches,
+                    "linear_attention_backward":
+                        lak.linear_attention_backward_kernel.launches}
+        # a step each way; validation's two batches; the grid's four steps
+        want = {"linear_attention": (DATA_STEPS + 2 + cfg.num_inference_steps) * n_attn,
+                "linear_attention_backward": DATA_STEPS * n_attn}
+        require(st["steps"] == DATA_STEPS and trainer.state.step == DATA_STEPS
+                and launches == want, f"data {loader}: {st}, launches {launches}")
+        require(np.isfinite(trainer.best_val_loss), f"data {loader}: val loss")
+        require(sorted(os.listdir(cfg.checkpoint_dir)) == ["best_model.pt",
+                                                           "final_model.pt"],
+                f"data {loader}: checkpoints {os.listdir(cfg.checkpoint_dir)}")
+        grid_img = png.read_image(os.path.join(cfg.output_dir, "samples_epoch_0.png"))
+        first = next(iter(trainer.val_loader))
+        u8 = lambda x: np.clip((np.asarray(x) + 1) / 2 * 255, 0, 255).astype(np.uint8)  # noqa: E731
+        n = min(cfg.num_samples, len(first["low_light"]))
+        require(grid_img.shape == (3 * size, n * size, 3)
+                and np.array_equal(grid_img[:size],
+                                   np.concatenate(list(u8(first["low_light"][:n])), 1))
+                and np.array_equal(grid_img[2 * size:],
+                                   np.concatenate(list(u8(first["normal_light"][:n])), 1)),
+                f"data {loader}: the sample grid is not its arrays")
+        runs[loader] = {"ms_per_step": st["seconds"] * 1e3 / st["steps"],
+                        "loader_wait_ms_per_step": st["loader_wait_s"] * 1e3 / st["steps"],
+                        "epoch_s": st["seconds"], "train_model_s": total_s,
+                        "val_loss": trainer.best_val_loss, "launches": launches}
+
+    # checkpoints: the main thread's blocked time, async and sync; the async
+    # file restored equals the state at save time though a step ran after
+    batch = trainer._device_batch(next(iter(trainer.train_loader)))
+    params = {k: v.detach().cpu().clone() for k, v in trainer.model.state_dict().items()}
+    ema = {k: v.cpu().clone() for k, v in trainer.state.ema_params.items()}
+    opt = {i: {k: v.cpu().clone() for k, v in st_.items()}
+           for i, st_ in trainer.state.optimizer.state_dict()["state"].items()}
+    step_at_save = trainer.state.step
+    torch.cuda.synchronize()
+    a = time.perf_counter()
+    async_path = trainer.save_checkpoint("async_probe")
+    async_ms = (time.perf_counter() - a) * 1e3
+    trainer.state, _ = trainer.train_step(trainer.state, batch)      # in place
+    a = time.perf_counter()
+    trainer.wait_for_checkpoints()
+    drain_ms = (time.perf_counter() - a) * 1e3
+    raw = ckpt.load_raw(async_path)
+    require(raw["step"] == step_at_save
+            and all(torch.equal(raw["params"][k], v) for k, v in params.items())
+            and all(torch.equal(raw["ema_params"][k], v) for k, v in ema.items())
+            and all(torch.equal(raw["opt_state"]["state"][i][k], v)
+                    for i, s_ in opt.items() for k, v in s_.items()),
+            "data: the async checkpoint is not the state at save time")
+    moved = any(not torch.equal(p.detach().cpu(), params[k])
+                for k, p in trainer.model.named_parameters())
+    require(moved, "data: the step after the save changed nothing")
+    torch.cuda.synchronize()
+    a = time.perf_counter()
+    ckpt.save_checkpoint(os.path.join(work, "sync_probe.pt"), trainer.state, epoch=0,
+                         best_val_loss=0.0, config_json="{}")
+    sync_ms = (time.perf_counter() - a) * 1e3
+    ckpt_bytes = os.path.getsize(async_path)
+    del trainer, batch, raw
+    torch.cuda.empty_cache()
+
+    # the CLI, as a user runs it
+    cli_ck, cli_out = os.path.join(work, "cli_ckpt"), os.path.join(work, "cli_samples")
+    a = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "cv_diffusion_tpu_torch.train",
+         "--data_dir", subsets["train24"], "--val_dir", eval_dir, "--variant", DATA_VARIANT,
+         "--image_size", str(DATA_SIZE), "--epochs", "1", "--batch_size", "8",
+         "--checkpoint_dir", cli_ck, "--output_dir", cli_out, "--device", dev.type],
+        cwd=ROOT, capture_output=True, text=True, timeout=600)
+    cli_s = time.perf_counter() - a
+    require(proc.returncode == 0 and os.path.isfile(os.path.join(cli_ck, "final_model.pt"))
+            and os.path.isfile(os.path.join(cli_out, "samples_epoch_0.png")),
+            f"data: the CLI exited {proc.returncode}: {proc.stderr[-2000:]}")
+    shutil.rmtree(work, ignore_errors=True)
+    shutil.rmtree(root, ignore_errors=True)
+    fields = dict(
+        pairs={s_: n for s_, n in LOL_SPLITS}, hw=list(LOL_HW), scenes=DATA_SCENES,
+        write_s=written, decode_images_per_s={"png_py_one_a_call": single_rate,
+                                              "png_py_16_together": batched_rate,
+                                              "native": native_rate},
+        native=native, cache_bytes=cache_bytes, cache_device=cache_device,
+        cache_build_s=cache_s, upload_s=upload_s, assemble_ms_batch8=assemble_ms,
+        holds={"rotated_in_batch": rotated, "rotation_max_lsb_interior": rot_err,
+               "eval_center_crops_equal": n_ev, "synthetic_grid_max_err": grid_err},
+        train={"config": f"{DATA_VARIANT}@{DATA_SIZE} batch 8 use_amp", "steps": DATA_STEPS},
+        runs=runs, checkpoint={"async_blocked_ms": async_ms, "async_drain_ms": drain_ms,
+                               "sync_blocked_ms": sync_ms, "bytes": ckpt_bytes,
+                               "async_restore_bit_equal": True},
+        cli={"exit": proc.returncode, "seconds": cli_s, "pairs": CLI_PAIRS},
+        seconds=time.perf_counter() - t0)
+    emit("data", **fields)
+    return fields
 
 
 def main() -> int:
@@ -1615,11 +1934,12 @@ def main() -> int:
     t0 = time.perf_counter()
     del pipes, fused_pipe, blk, pipe, student
     torch.cuda.empty_cache()
+    train_dir = tempfile.mkdtemp(prefix="chip_smoke_")
     train_cfg = TrainConfig(unet_variant="small", image_size=size, batch_size=8,
                             use_amp=False, epochs=1, warmup_epochs=0,
                             prediction_type="v_prediction", log_interval=1000,
-                            seed=0, checkpoint_dir=os.path.join(
-                                tempfile.mkdtemp(prefix="chip_smoke_"), "ckpt"))
+                            seed=0, checkpoint_dir=os.path.join(train_dir, "ckpt"),
+                            output_dir=os.path.join(train_dir, "samples"))
     model_cfg = diffusion_config("small", size, prediction_type="v_prediction")
     train_weights = init_weights(model_cfg, seed=0, device=dev)
 
@@ -1693,6 +2013,7 @@ def main() -> int:
 
     # checkpoint save and restore on the card
     ckpt_path = trainer.save_checkpoint("smoke")
+    trainer.wait_for_checkpoints()
     fresh, _ = train_model_on_card()
     resumed = Trainer(fresh, schedule, timed, val,
                       dataclasses.replace(train_cfg, resume_from=ckpt_path))
@@ -1809,7 +2130,7 @@ def main() -> int:
     # t and ε (the two devices' generators draw different numbers)
     small_cfg = diffusion_config("small", 64, prediction_type="v_prediction")
     small_w = init_weights(small_cfg, seed=1, device="cpu")
-    small_batch = {k: v[:2, :64, :64] for k, v in warm[0].items()}
+    small_batch = {k: warm[0][k][:2, :64, :64] for k in ("low_light", "normal_light")}
     t_fix = torch.tensor([37, 801])
     eps_fix = torch.from_numpy(np.random.default_rng(2).standard_normal(
         (2, 64, 64, 3)).astype(np.float32))
@@ -2031,9 +2352,11 @@ def main() -> int:
         torch.cuda.empty_cache()
 
     # the fused IRB's bf16 entry at every IRB shape of one UNet call, batch 1
+    # and 8
     irb16_rows = {}
-    for (cin, chid, cout, height), (name, count) in sorted(per_call.items()):
-        x, kw = irb_inputs(blocks[name], 1, height, height, torch.bfloat16)
+    for (cin, chid, cout, height), (name, count), b in (
+            (key, val, b) for b in (1, 8) for key, val in sorted(per_call.items())):
+        x, kw = irb_inputs(blocks[name], b, height, height, torch.bfloat16)
         err, tol = irb_compare(x, kw), irb16_tol(x, kw)
         require(err <= tol, f"bf16 fused kernel vs plain {name}: {err} > {tol}")
         moved, flops = irb_work(x, kw)
@@ -2047,8 +2370,8 @@ def main() -> int:
             with torch.inference_mode():
                 fused_irb_v2_plain(x, **kw)
 
-        irb16_rows[name] = row = dict(
-            kernel="fused_irb_v2", block=name, shape=[1, cin, height, height], chid=chid,
+        irb16_rows[name, b] = row = dict(
+            kernel="fused_irb_v2", block=name, shape=[b, cin, height, height], chid=chid,
             cout=cout, dtype="bfloat16", per_unet_call=count, max_err=err,
             tol=tol, kernel_ms=cuda_ms(kernel, 20, 3),
             plain_ms=cuda_ms(plain, 20, 3), kernel_graph_ms=graph_ms(kernel, 20, 3),
@@ -2371,6 +2694,7 @@ def main() -> int:
     require(0 < moved <= WARM_START_STEPS * 2 * amp_cfg.learning_rate,
             f"warm start: parameters moved {moved} in {WARM_START_STEPS} steps")
     ws_ckpt = trainer.save_checkpoint("warm")
+    trainer.wait_for_checkpoints()
     ema_saved = {k: e.detach().clone() for k, e in trainer.state.ema_params.items()}
     fresh, _ = create_model(amp_student, device=dev)
     from_ema = Trainer(fresh, schedule, timed[:1], None,
@@ -2386,6 +2710,9 @@ def main() -> int:
     del trainer, from_ema, model, fresh, file_weights
     shutil.rmtree(ws_dir, ignore_errors=True)
     torch.cuda.empty_cache()
+
+    # 17. data: training from image directories --------------------------
+    data = data_phase(dev, n_attn, lak, cuda_build)
 
     # kernels line, nvidia-smi line, last line -----------------------------
     main_row = timings[((1, 1024, 4, 32), "float32")]
@@ -2494,9 +2821,11 @@ def main() -> int:
     # launches per phase (the wrappers' counts, set to 0 before each)
     main16 = timings[((1, 1024, 4, 32), "bfloat16")]
     bwd16 = bwd_rows[((8, 1024, 4, 32), "bfloat16")]
-    irb16 = {f: sum(r[f] * r["per_unet_call"] for r in irb16_rows.values())
-             for f in ("kernel_ms", "plain_ms", "kernel_graph_ms", "plain_graph_ms",
-                       "bound_ms", "tc_bound_ms", "flops")}
+    irb16, irb16_b8 = ({f: sum(r[f] * r["per_unet_call"]
+                               for (_, b), r in irb16_rows.items() if b == batch)
+                        for f in ("kernel_ms", "plain_ms", "kernel_graph_ms",
+                                  "plain_graph_ms", "bound_ms", "tc_bound_ms", "flops")}
+                       for batch in (1, 8))
     bf16_eval_launches = {k: sum(r["launches"][k] for r in bf16_eval_rows.values())
                           for k in ("linear_attention", "fused_irb_v2")}
     kernels += [{
@@ -2508,6 +2837,8 @@ def main() -> int:
         "launches_in_replays": bf16_replayed["linear_attention"],
         "launches_bf16_eval": bf16_eval_launches["linear_attention"],
         "launches_train_amp": amp_launches["linear_attention"],
+        "launches_data_train": sum(r["launches"]["linear_attention"]
+                                   for r in data["runs"].values() if "launches" in r),
         "max_abs_err": bf16_checks["mid_attn_max_err"],
         "ms": main16["kernel_ms"],
         "plain_ms": main16["plain_ms"],
@@ -2524,6 +2855,8 @@ def main() -> int:
         "source": "cv_diffusion_tpu_torch/csrc/linear_attention.cu",
         "replaces": "cv_diffusion_tpu/ops/pallas_attention.py:202",
         "launches": amp_launches["linear_attention_backward"],
+        "launches_data_train": sum(r["launches"]["linear_attention_backward"]
+                                   for r in data["runs"].values() if "launches" in r),
         "max_abs_err": amp_bwd_err,
         "ms": bwd16["kernel_ms"],
         "plain_ms": bwd16["plain_ms"],
@@ -2551,12 +2884,22 @@ def main() -> int:
         # its products at the bf16 rate, the depthwise at the float32 one
         "bound_ms": irb16["tc_bound_ms"],
         "bound_by": "operations" if all(r["tc_bound_by"] == "operations"
-                                        for r in irb16_rows.values()) else "bytes",
+                                        for (_, b), r in irb16_rows.items()
+                                        if b == 1) else "bytes",
         "f32_rate_bound_ms": irb16["bound_ms"],
         "library_ms": None,
         "shape": f"the {IRBS_PER_UNET_CALL} IRBs of one small-UNet call at "
                  f"{size}², batch 1 ({irb16['flops'] / 1e9:.2f} GFLOP)",
         "dtype": "bfloat16",
+        # the same 22 IRBs at batch 8
+        "ms_b8": irb16_b8["kernel_ms"],
+        "plain_ms_b8": irb16_b8["plain_ms"],
+        "graph_ms_b8": irb16_b8["kernel_graph_ms"],
+        "plain_graph_ms_b8": irb16_b8["plain_graph_ms"],
+        "bound_ms_b8": irb16_b8["tc_bound_ms"],
+        "bound_by_b8": "operations" if all(r["tc_bound_by"] == "operations"
+                                           for (_, b), r in irb16_rows.items()
+                                           if b == 8) else "bytes",
     }]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi_line, flush=True)

@@ -171,14 +171,15 @@ class TrainConfig:
     :class:`UNetConfig`. ``use_amp`` (the default) trains the model in
     bfloat16 compute on float32 parameters, ``remat`` rematerialises its
     blocks, and ``init_params_from`` / ``init_params_ema`` warm-start from a
-    checkpoint, as in the JAX trainer. Fields the port does not have yet
-    make the trainer raise ``NotImplementedError``
+    checkpoint, as in the JAX trainer. ``native_loader``,
+    ``prefetch_batches`` and ``data_on_device`` route
+    ``data.dataset.create_dataloaders`` as in JAX (``native_loader=True``
+    raises where the C++ loader cannot be built); checkpoints are written
+    on a worker thread unless ``async_checkpoints`` is off; sample grids go
+    to ``output_dir`` every ``sample_interval`` epochs. Fields the port does
+    not have yet make the trainer raise ``NotImplementedError``
     (``training.train_state.check_trainable``): ``qat``/``qat_act``, a
-    ``mesh_shape`` over more than one device, ``use_wandb``,
-    ``data_on_device`` and ``native_loader=True``. Checkpoints are written
-    synchronously whatever ``async_checkpoints`` says, and no sample grids
-    are written (``sample_interval``, ``num_samples`` and ``output_dir`` are
-    read and unused).
+    ``mesh_shape`` over more than one device, and ``use_wandb``.
     """
 
     unet_variant: str = "small"

@@ -1,10 +1,13 @@
-"""Build and load the port's hand-written CUDA kernels.
+"""Build and load the port's hand-written CUDA kernels and its native host
+library.
 
-Each source under ``csrc/`` is compiled by one ``nvcc`` call for sm_90a into
-a shared library with a plain C interface, in ``_build/`` (git-ignored),
-named by a hash of the source and the flags, so a later process reuses it.
-:func:`load` opens the library through ``ctypes`` at first use; nothing is
-built or loaded when a module is imported.
+Each CUDA source under ``csrc/`` is compiled by one ``nvcc`` call for
+sm_90a into a shared library with a plain C interface, in ``_build/``
+(git-ignored), named by a hash of the source and the flags, so a later
+process reuses it. The C++ data loader (``csrc/dataloader.cc``) is built the
+same way by one ``g++`` call (:func:`build_host`). :func:`load` opens a
+library through ``ctypes`` at first use; nothing is built or loaded when a
+module is imported.
 """
 
 from __future__ import annotations
@@ -21,6 +24,7 @@ BUILD_DIR = os.path.join(_PACKAGE_DIR, "_build")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
 CUDA_ROOTS = ("/usr/local/cuda",)   # searched after PATH and $CUDA_HOME
+CXX_FLAGS = ("-O3", "-std=c++17", "-fPIC", "-shared")
 
 
 class Built(NamedTuple):
@@ -47,13 +51,15 @@ def _nvcc(src: str) -> str:
         "toolkit")
 
 
-def build(src: str) -> Built:
-    """Compile ``src`` unless this source and these flags were built before;
-    returns where the library is."""
+def _compile(src: str, compiler: Callable[[str], str], flags, libs=(),
+             build_dir: str = None) -> Built:
+    """Compile ``src`` with ``flags`` (then ``libs``) unless this source and
+    these flags were built before; returns where the library is."""
+    build_dir = build_dir or BUILD_DIR
     with open(src, "rb") as f:
-        digest = hashlib.sha256(f.read() + " ".join(NVCC_FLAGS).encode())
+        digest = hashlib.sha256(f.read() + " ".join((*flags, *libs)).encode())
     stem = os.path.splitext(os.path.basename(src))[0]
-    path = os.path.join(BUILD_DIR, f"{stem}_{digest.hexdigest()[:16]}.so")
+    path = os.path.join(build_dir, f"{stem}_{digest.hexdigest()[:16]}.so")
     log_path = path[:-3] + ".log"
     if os.path.exists(path):
         log = ""
@@ -61,18 +67,38 @@ def build(src: str) -> Built:
             with open(log_path) as f:
                 log = f.read()
         return Built(path, log, False)
-    nvcc = _nvcc(src)
-    os.makedirs(BUILD_DIR, exist_ok=True)
+    exe = compiler(src)
+    os.makedirs(build_dir, exist_ok=True)
     tmp = f"{path}.{os.getpid()}.tmp"
-    cmd = [nvcc, *NVCC_FLAGS, "-o", tmp, src]
+    cmd = [exe, *flags, "-o", tmp, src, *libs]
     proc = subprocess.run(cmd, capture_output=True, text=True)
     log = proc.stdout + proc.stderr
     if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n{log}")
+        name = os.path.basename(exe)
+        raise RuntimeError(f"{name} failed ({proc.returncode}): {' '.join(cmd)}\n{log}")
     with open(log_path, "w") as f:
         f.write(log)
     os.replace(tmp, path)
     return Built(path, log, True)
+
+
+def build(src: str) -> Built:
+    """Compile the CUDA source ``src`` with ``nvcc`` (once)."""
+    return _compile(src, _nvcc, NVCC_FLAGS)
+
+
+def _cxx(src: str) -> str:
+    for name in (os.environ.get("CXX"), "g++", "c++"):
+        found = name and shutil.which(name)
+        if found:
+            return found
+    raise RuntimeError(f"no C++ compiler (g++) on PATH to build {src}")
+
+
+def build_host(src: str, libs=(), build_dir: str = None) -> Built:
+    """Compile the C++ source ``src`` into a host shared library with
+    ``g++`` (once), linking ``libs``."""
+    return _compile(src, _cxx, CXX_FLAGS, libs, build_dir)
 
 
 _LOADED: Dict[str, object] = {}

@@ -37,11 +37,9 @@ _UNPORTED = (
      "activation-aware QAT (ROADMAP queue 1 item 6)"),
     ("mesh_shape", lambda v: v is not None and math.prod(v) > 1,
      "training over more than one device (ROADMAP queue 1 item 8)"),
-    ("use_wandb", lambda v: v, "W&B logging (ROADMAP queue 1 item 4)"),
-    ("data_on_device", lambda v: v,
-     "the device-side data cache (ROADMAP queue 1 item 4)"),
-    ("native_loader", lambda v: v is True,
-     "the native C++ loader (ROADMAP queue 1 item 4)"),
+    ("use_wandb", lambda v: v,
+     "W&B logging (not queued: no wandb and no network; ROADMAP queue 1 "
+     "item 4)"),
 )
 
 

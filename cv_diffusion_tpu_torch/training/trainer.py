@@ -1,19 +1,21 @@
 """Training orchestration: the host loop around the train step.
 
-Counterpart of ``cv_diffusion_tpu/training/trainer.py:71-337`` with the same
-loop: epochs, per-epoch validation on the EMA weights, periodic, best and
-final checkpoints, resume at epoch + 1, and the fine-tuning warm start
+Counterpart of ``cv_diffusion_tpu/training/trainer.py:52-366`` with the
+same loop: epochs, per-epoch validation on the EMA weights, periodic, best
+and final checkpoints (written on a worker thread unless
+``async_checkpoints`` is off), sample grids every ``sample_interval``
+epochs, resume at epoch + 1, and the fine-tuning warm start
 (``init_params_from``: the parameters, or with ``init_params_ema`` the EMA,
 of an existing checkpoint, with a fresh optimizer, LR schedule, epoch and
 EMA). The loss is read back to the host at log intervals and once per
-epoch, never after each step.
-:meth:`Trainer.evaluate_quality` is the full-sampler PSNR/SSIM evaluation
-(``metrics.py``). Sample grids and W&B are not ported (ROADMAP queue 1
-item 4); checkpoints are written synchronously.
+epoch, never after each step. :meth:`Trainer.evaluate_quality` is the
+full-sampler PSNR/SSIM evaluation (``metrics.py``). :func:`train_model`
+trains from image directories, as the JAX one. W&B is not ported.
 """
 
 from __future__ import annotations
 
+import time
 from pathlib import Path
 from typing import Dict, Iterable, Optional, Tuple
 
@@ -28,6 +30,21 @@ from . import checkpoint as ckpt
 from .metrics import psnr, ssim
 from .train_state import (check_trainable, create_train_state, make_eval_step,
                           make_train_step)
+
+
+def save_comparison_grid(low, enhanced, target, path: str) -> None:
+    """[low | enhanced | target] rows, one image a column, as one PNG
+    (``data/png.py``). Inputs NHWC in [-1, 1], numpy arrays or tensors,
+    each mapped to uint8 in its own dtype as the JAX function does:
+    denormalised, ×255, clipped, truncated."""
+    from ..data.png import write_png
+
+    rows = []
+    for block in (low, enhanced, target):
+        img = denormalize_image(torch.as_tensor(block).detach().cpu())
+        u8 = (img * 255.0).clamp(0, 255).to(torch.uint8).numpy()
+        rows.append(np.concatenate(list(u8), axis=1))
+    write_png(path, np.concatenate(rows, axis=0))
 
 
 class Trainer:
@@ -55,7 +72,14 @@ class Trainer:
         self.eval_step = make_eval_step(model, schedule, self.config)
         self.epoch = 0
         self.best_val_loss = float("inf")
+        self._saver = (ckpt.AsyncCheckpointSaver()
+                       if self.config.async_checkpoints else None)
+        # where the last epoch's time went: steps, seconds, and the seconds
+        # spent waiting for the loader's next batch
+        self.epoch_stats: Dict[str, float] = {}
+        self.output_dir = Path(self.config.output_dir)
         self.checkpoint_dir = Path(self.config.checkpoint_dir)
+        self.output_dir.mkdir(parents=True, exist_ok=True)
         self.checkpoint_dir.mkdir(parents=True, exist_ok=True)
         if self.config.resume_from:
             self.load_checkpoint(self.config.resume_from)
@@ -76,21 +100,43 @@ class Trainer:
             if val_loss is not None and val_loss < self.best_val_loss:
                 self.best_val_loss = val_loss
                 self.save_checkpoint("best_model")
+            if (epoch + 1) % self.config.sample_interval == 0:
+                self.generate_samples(epoch)
         self.save_checkpoint("final_model")
+        self.wait_for_checkpoints()
+
+    def _device_batch(self, batch) -> Dict[str, torch.Tensor]:
+        """The batch's images as float32 tensors on the model's device
+        (host arrays are uploaded; a device cache's tensors stay)."""
+        return {k: torch.as_tensor(batch[k]).to(self.device, torch.float32,
+                                                non_blocking=True)
+                for k in ("low_light", "normal_light")}
 
     def train_epoch(self) -> float:
-        """One epoch; the mean train loss."""
+        """One epoch; the mean train loss. ``epoch_stats`` gets its steps,
+        seconds and the seconds waited on the loader."""
         total = torch.zeros((), device=self.device)
-        count = 0
-        for batch_idx, batch in enumerate(self.train_loader):
-            self.state, metrics = self.train_step(self.state, batch)
+        count, waited = 0, 0.0
+        start = time.perf_counter()
+        batches = iter(self.train_loader)
+        while True:
+            t = time.perf_counter()
+            batch = next(batches, None)
+            waited += time.perf_counter() - t
+            if batch is None:
+                break
+            self.state, metrics = self.train_step(self.state,
+                                                  self._device_batch(batch))
             total = total + metrics["loss"]
-            count += 1
-            if batch_idx % self.config.log_interval == 0:
+            if count % self.config.log_interval == 0:
                 print(f"epoch {self.epoch} step {self.state.step}: "
                       f"loss={float(metrics['loss']):.4f} "
                       f"lr={self.state.lr_schedule(self.state.step):.3e}", flush=True)
-        return float(total) / max(1, count)
+            count += 1
+        mean = float(total) / max(1, count)
+        self.epoch_stats = {"steps": count, "loader_wait_s": waited,
+                            "seconds": time.perf_counter() - start}
+        return mean
 
     def _eval_params(self) -> Dict[str, torch.Tensor]:
         """The EMA weights when kept, else the model's own."""
@@ -106,7 +152,8 @@ class Trainer:
         total, count = 0.0, 0
         for batch in self.val_loader:
             n = len(batch["low_light"])
-            total += float(self.eval_step(params, generator, batch, n)) * n
+            total += float(self.eval_step(params, generator,
+                                          self._device_batch(batch), n)) * n
             count += n
         return total / max(1, count)
 
@@ -144,31 +191,66 @@ class Trainer:
             ssims.append(float(ssim(pred, target)))
         return {"psnr": float(np.mean(psnrs)), "ssim": float(np.mean(ssims))}
 
-    def save_checkpoint(self, name: str) -> str:
-        path = str(self.checkpoint_dir / f"{name}.pt")
-        ckpt.save_checkpoint(path, self.state, epoch=self.epoch,
-                             best_val_loss=self.best_val_loss,
-                             config_json=to_json(self.config))
+    @torch.no_grad()
+    def generate_samples(self, epoch: int) -> str:
+        """A [low | enhanced | target] grid of the first ``num_samples``
+        images of the first val (else train) batch under the EMA weights,
+        noise from a generator seeded ``epoch``, written to
+        ``output_dir/samples_epoch_{epoch}.png``."""
+        loader = self.val_loader or self.train_loader
+        batch = self._device_batch(next(iter(loader)))
+        n = self.config.num_samples
+        low = batch["low_light"][:n]
+        self.model.eval()
+        out = enhance(self.model, self.schedule, low,
+                      generator=torch.Generator(device=self.device).manual_seed(epoch),
+                      device=self.device, params=self._eval_params())
+        path = str(self.output_dir / f"samples_epoch_{epoch}.png")
+        save_comparison_grid(low, out, batch["normal_light"][:n], path)
         return path
 
+    def save_checkpoint(self, name: str) -> str:
+        """Save the state as ``checkpoint_dir/{name}.pt``, on the worker
+        thread when checkpoints are asynchronous; returns the path."""
+        path = str(self.checkpoint_dir / f"{name}.pt")
+        save = self._saver.save if self._saver is not None else ckpt.save_checkpoint
+        save(path, self.state, epoch=self.epoch,
+             best_val_loss=self.best_val_loss, config_json=to_json(self.config))
+        return path
+
+    def wait_for_checkpoints(self) -> None:
+        """Wait for the asynchronous saves in flight (none when synchronous)."""
+        if self._saver is not None:
+            self._saver.wait()
+
     def load_checkpoint(self, path: str) -> None:
+        self.wait_for_checkpoints()
         restored = ckpt.restore_checkpoint(path, self.state)
         self.epoch = restored["epoch"] + 1
         self.best_val_loss = restored["best_val_loss"]
 
 
-def train_model(train_loader, val_loader=None,
-                config: Optional[TrainConfig] = None, *,
-                device="cuda") -> Trainer:
-    """Build the model that ``config`` names on ``device`` with random
-    weights from ``config.seed`` (``weights.init_weights``), train it on the
-    loaders, and return the trainer. As the JAX ``train_model``
-    (``trainer.py:353-362``): ``use_amp`` makes the model compute in
-    bfloat16, and ``remat`` rematerialises its blocks."""
+def train_model(train_data_dir: str, val_data_dir: Optional[str] = None,
+                config: Optional[TrainConfig] = None,
+                use_synthetic: bool = False, *, device="cuda") -> Trainer:
+    """Train the model that ``config`` names, from random weights seeded
+    ``config.seed`` (``weights.init_weights``), on ``device``, from image
+    directories (JAX ``train_model``, ``trainer.py:339-366``): the loaders
+    come from ``data.dataset.create_dataloaders`` (``native_loader``,
+    ``prefetch_batches`` and ``data_on_device`` route them), ``use_amp``
+    makes the model compute in bfloat16 and ``remat`` rematerialises its
+    blocks. Returns the trainer after ``train()``."""
+    from ..data.dataset import create_dataloaders
     from ..weights import init_weights
 
     config = config or TrainConfig()
     check_trainable(config)
+    train_loader, val_loader = create_dataloaders(
+        train_root=train_data_dir, val_root=val_data_dir,
+        batch_size=config.batch_size, image_size=config.image_size,
+        use_synthetic=use_synthetic, seed=config.seed,
+        native=config.native_loader, prefetch=config.prefetch_batches,
+        device_cache=config.data_on_device, device=device)
     model_cfg = diffusion_config(config.unet_variant, config.image_size,
                                  config.num_inference_steps,
                                  dtype="bfloat16" if config.use_amp else "float32",

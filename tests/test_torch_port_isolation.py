@@ -12,7 +12,10 @@ and an int8 serving package of that model, serves the same request with
 train step, serves the request in bf16 compute and takes one ``use_amp``
 step; then loads the committed student's ``.npz`` and serves a request
 through ``ServingPipeline.from_artifact``, makes a small synthetic split and
-computes the five quality metrics.
+computes the five quality metrics; then decodes a PNG directory into a
+device cache on the CPU, writes a sample grid, saves a checkpoint
+asynchronously and runs ``python -m cv_diffusion_tpu_torch.train``'s
+``main`` on the CPU for one epoch of the tiny model on that directory.
 """
 
 import os
@@ -151,6 +154,44 @@ _CHILD = textwrap.dedent("""
     vals = [M.psnr(p, t), M.ssim(p, t), M.mae(p, t), M.gmsd(p, t),
             M.ms_ssim(big, (big * 0.9).clamp(0, 1))]
     assert all(bool(torch.isfinite(v)) for v in vals), vals
+    # the training input path: a PNG directory decoded into a device cache
+    # on the CPU, a sample grid, an asynchronous checkpoint save
+    import pathlib, tempfile
+    from cv_diffusion_tpu_torch.data import png
+    from cv_diffusion_tpu_torch.data.dataset import create_dataloaders
+    from cv_diffusion_tpu_torch.training.checkpoint import (AsyncCheckpointSaver,
+                                                            load_raw)
+    from cv_diffusion_tpu_torch.training.trainer import save_comparison_grid
+    tmp = pathlib.Path(tempfile.mkdtemp())
+    rng = np.random.default_rng(2)
+    for i in range(4):
+        for sub in ("low", "high"):
+            png.write_png(tmp / "lol" / sub / f"{{i}}.png",
+                          rng.integers(0, 256, (36, 40, 3), dtype=np.uint8),
+                          (0, 1, 2, 3, 4))
+    train, val = create_dataloaders(str(tmp / "lol"), str(tmp / "lol"),
+                                    batch_size=2, image_size=32, native=False,
+                                    device_cache=True, device="cpu")
+    b, v = next(iter(train)), next(iter(val))
+    assert b["low_light"].shape == (2, 32, 32, 3)
+    assert train.nbytes() == 2 * 4 * 36 * 40 * 3
+    save_comparison_grid(v["low_light"], v["low_light"], v["normal_light"],
+                         str(tmp / "grid.png"))
+    assert png.read_image(tmp / "grid.png").shape == (96, 64, 3)
+    saver = AsyncCheckpointSaver()
+    saver.save(str(tmp / "ck.pt"), state, epoch=0, best_val_loss=1.0,
+               config_json="{{}}")
+    saver.wait()
+    assert load_raw(str(tmp / "ck.pt"))["step"] == 1
+    # the training CLI on those directories
+    from cv_diffusion_tpu_torch import train as cli
+    cli.main(["--data_dir", str(tmp / "lol"), "--val_dir", str(tmp / "lol"),
+              "--variant", "tiny", "--image_size", "32", "--epochs", "1",
+              "--batch_size", "2", "--device", "cpu",
+              "--output_dir", str(tmp / "out"), "--checkpoint_dir", str(tmp / "ck")])
+    assert (tmp / "ck" / "final_model.pt").is_file()
+    assert (tmp / "out" / "samples_epoch_0.png").is_file()
+
     loaded = sorted(m for m in sys.modules if m.split(".")[0] in BLOCKED)
     assert not loaded, loaded
     print("ISOLATED-OK", len(names))

@@ -218,6 +218,7 @@ def test_warm_start_from_a_checkpoint_takes_its_params_or_its_ema(tmp_path):
     for batch in _loaders():
         source.state, _ = source.train_step(source.state, batch)
     path = source.save_checkpoint("warm")
+    source.wait_for_checkpoints()
     raw = tckpt.load_raw(path)
     assert raw["step"] == 2
     assert not all(torch.equal(raw["params"][k], raw["ema_params"][k])
@@ -261,10 +262,14 @@ def test_train_model_maps_use_amp_and_remat(monkeypatch):
         built.append(model.config.unet)
         raise Stop
 
+    from cv_diffusion_tpu_torch.data import dataset as tdataset
+
     monkeypatch.setattr(ttrainer, "Trainer", fake_trainer)
+    monkeypatch.setattr(tdataset, "create_dataloaders",
+                        lambda **kwargs: (None, None))
     for amp, remat in ((True, True), (False, False)):
         with pytest.raises(Stop):
-            ttrainer.train_model(None, config=dataclasses.replace(
+            ttrainer.train_model("unused", config=dataclasses.replace(
                 TrainConfig(unet_variant="tiny", image_size=SIZE), use_amp=amp,
                 remat=remat), device="cpu")
     assert [(u.dtype, u.remat) for u in built] == [("bfloat16", True),

@@ -440,8 +440,7 @@ def test_eval_step_is_masked_mse():
 
 @pytest.mark.parametrize("name,value", [
     ("qat", True), ("qat_act", True),
-    ("mesh_shape", (2,)), ("use_wandb", True), ("data_on_device", True),
-    ("native_loader", True)])
+    ("mesh_shape", (2,)), ("use_wandb", True)])
 def test_unported_training_features_raise(name, value):
     tc = dataclasses.replace(TrainConfig(use_amp=False), **{name: value})
     model, schedule = _tiny_model()
@@ -452,7 +451,8 @@ def test_unported_training_features_raise(name, value):
 
 
 @pytest.mark.parametrize("name,value", [
-    ("use_amp", True), ("remat", True), ("init_params_from", "weights.npz")])
+    ("use_amp", True), ("remat", True), ("init_params_from", "weights.npz"),
+    ("data_on_device", True), ("native_loader", True)])
 def test_ported_training_features_are_accepted(name, value, tmp_path):
     """Refused before they were ported: a train step and a Trainer take
     them (``init_params_from`` names a weights file written here)."""
@@ -485,10 +485,12 @@ def test_trainer_epoch_validation_checkpoints_and_resume(tmp_path, capsys):
     """One epoch of two steps plus validation on tiny@32; the final
     checkpoint restores the whole state and resumes at epoch + 1, and
     ``load_inference_params`` gives its EMA."""
+    ckpt_dir = tmp_path / "ckpt"
     tc = TrainConfig(unet_variant="tiny", image_size=SIZE, epochs=1,
                      batch_size=2, use_amp=False, warmup_epochs=0,
-                     checkpoint_dir=str(tmp_path), log_interval=1,
-                     save_interval=1, prediction_type="v_prediction")
+                     checkpoint_dir=str(ckpt_dir), log_interval=1,
+                     save_interval=1, prediction_type="v_prediction",
+                     output_dir=str(tmp_path / "samples"))
     train, val = _loaders()
     model, schedule = _tiny_model()
     trainer = Trainer(model, schedule, train, val, tc)
@@ -498,13 +500,14 @@ def test_trainer_epoch_validation_checkpoints_and_resume(tmp_path, capsys):
     assert trainer.state.step == 2
     assert (lak.linear_attention_kernel.launches,
             lak.linear_attention_backward_kernel.launches) == before
-    assert sorted(os.listdir(tmp_path)) == ["best_model.pt",
+    assert sorted(os.listdir(ckpt_dir)) == ["best_model.pt",
                                             "checkpoint_epoch_0.pt",
                                             "final_model.pt"]
+    assert os.listdir(tmp_path / "samples") == ["samples_epoch_0.png"]
     assert np.isfinite(trainer.best_val_loss)
     assert "Epoch 0: train_loss=" in capsys.readouterr().out
 
-    final = str(tmp_path / "final_model.pt")
+    final = str(ckpt_dir / "final_model.pt")
     fresh, _ = _tiny_model(seed=5)
     resumed = Trainer(fresh, schedule, train, val,
                       dataclasses.replace(tc, resume_from=final, epochs=2))
