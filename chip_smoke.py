@@ -143,6 +143,28 @@ Phases, one JSON line each on stdout (warnings and build logs go to stderr):
    state at save time though a step ran in place after it); and ``python
    -m cv_diffusion_tpu_torch.train`` as a subprocess (exit 0, its
    checkpoint and grid).
+18. distill -- distillation (``models/distillation.py``,
+   ``DistillationTrainer``, ``python -m cv_diffusion_tpu_torch.distill``)
+   with the committed student's weights standing in for its teacher (the
+   teacher's are not in the tree; same architecture). Against the JAX
+   package: four settings of ``….distill_ref.json`` (regression [739] from
+   an 8-step teacher with ``gt_weight`` 0.3, [739, 259] with the stop-grad
+   prefix, canonical consistency with ``pair_stride`` 1, sampler-matched),
+   on its inputs and numpy draws (held by SHA-256), loss and gradient norms
+   within ``DISTILL_TOL``, and the same in bf16 compute, a control, outside
+   at least one of them; one recipe step at batch 8 through the kernels
+   against the same step with the attention plain, and at 64² on the card
+   against the CPU; ``DistillationTrainer`` on the recipe (regression [739],
+   8-step teacher, ``gt_weight`` 0.3) at small@256, batch 8, float32 and
+   bf16, and canonical consistency, 2 steps from memory + 10 timed through
+   ``create_dataloaders``' device cache each: ms a step, ms a step waiting
+   on the loader, peak memory and the attention kernels' forward
+   and backward launches a step (9 and 1 in regression, 3 and 1 in
+   consistency; the bf16 run's attention inputs all bf16); and the CLI on a
+   small LOL-style directory (exit 0, ``best_student`` and
+   ``student_final`` with ``params.npz``, ``model_config.json`` and
+   ``student_timesteps.json``), its student then serving one request
+   through ``ServingPipeline.from_config``.
 
 Then the ``kernels`` line, the ``nvidia-smi`` line, and last
 ``{"ok": true, "device": {...}}``. Any failed check raises, and the script
@@ -262,6 +284,30 @@ DATA_SCENES = 40
 DATA_VARIANT, DATA_SIZE = "small", 256
 DATA_STEPS = 12                # train steps a loader: 96 pairs at batch 8
 CLI_PAIRS = 24                 # the CLI's run: 3 steps
+
+# the distill phase (18). Against the JAX package: the four settings of
+# artifacts_torch/<STUDENT>.distill_ref.json (scripts/torch_port_distill_
+# reference.py: JAX's own losses on the CPU in float32, the student as
+# teacher, student and EMA, batch 2 at 256², numpy draws made again here),
+# each loss relative, the gradient's global norm relative and each named
+# gradient tensor's norm relative. Both sides compute in float32, in other
+# orders, through up to 8 UNet calls and a backward. An NVIDIA H100 80GB
+# HBM3 at 700 W read at most 3.7e-6 (loss), 9.5e-6 (global norm) and
+# 4.9e-5 (a named tensor's norm); the same settings with the student in
+# bf16 compute, the control that must fail a bound, read at least 1.4e-3,
+# 2.9e-3 and 6.0e-3. Each bound lies between the two, 10-30x from each
+# (the control failed all three in every setting)
+DISTILL_TOL = {"loss": 1e-4, "grad_global_norm": 2e-4, "grad_norm": 5e-4}
+# the recipe of the committed 1-step student (BENCHMARKS.md, round 5), run
+# at batch 8 on the stand-in teacher (the student's own weights: the
+# teacher's are not in the tree); the consistency run: canonical pairs,
+# pair_stride 1
+DISTILL_RECIPE = dict(student_timesteps=(739,), teacher_steps=8, gt_weight=0.3)
+DISTILL_CONSISTENCY = dict(canonical=True, pair_stride=1)
+DISTILL_LR = 2e-5
+DISTILL_WARM, DISTILL_TIMED = 2, 10     # steps of each timed run
+DISTILL_PAIRS = 8 * DISTILL_TIMED       # make_split pairs: one epoch of the timed steps
+DISTILL_CLI_PAIRS = (4, 2)              # the CLI's train and val pairs, 288²
 
 
 def emit(phase: str, **fields) -> None:
@@ -404,6 +450,29 @@ def device_kernels(fn, calls: int = 2, traces: int = 8) -> dict:
             break
         time.sleep(0.2)
     return {n: v / calls for n, v in best.items()}
+
+
+def step_diffs(a, b):
+    """Loss, gradient-norm and worst-tensor differences of two steps,
+    the parameters' largest difference, and the share of parameter
+    entries that differ by more than STEP_PARAM_TOL."""
+    loss_rel = abs(a[0] - b[0]) / abs(b[0])
+    diff_sq = sum(float((a[1][k] - b[1][k]).double().square().sum()) for k in b[1])
+    norm_sq = sum(float(b[1][k].double().square().sum()) for k in b[1])
+    worst = max((float((a[1][k] - b[1][k]).abs().max())
+                 / (float(b[1][k].abs().max()) + 1e-12), k) for k in b[1])
+    moved = sum(int(((a[2][k] - b[2][k]).abs() > STEP_PARAM_TOL).sum()) for k in b[2])
+    total = sum(t.numel() for t in b[2].values())
+    return dict(loss_rel=loss_rel, grad_norm_rel=(diff_sq / norm_sq) ** 0.5,
+                grad_tensor_rel=worst[0], worst_tensor=worst[1],
+                param_max_abs=max(float((a[2][k] - b[2][k]).abs().max())
+                                  for k in b[2]),
+                param_differ_share=moved / total)
+
+def within(d):
+    return (d["loss_rel"] <= STEP_LOSS_TOL and d["grad_norm_rel"] <= STEP_GRAD_NORM_TOL
+            and d["grad_tensor_rel"] <= STEP_GRAD_TOL
+            and d["param_differ_share"] <= STEP_PARAM_SHARE)
 
 
 def write_lol(root: str) -> dict:
@@ -692,6 +761,315 @@ def data_phase(dev, n_attn: int, lak, cuda_build) -> dict:
         cli={"exit": proc.returncode, "seconds": cli_s, "pairs": CLI_PAIRS},
         seconds=time.perf_counter() - t0)
     emit("data", **fields)
+    return fields
+
+
+def reference_draws(seed: int, index: int, spec) -> list:
+    """The numpy draws of a distill_ref.json setting, in its order."""
+    import numpy as np
+    rng = np.random.default_rng([seed, index])
+    return [rng.standard_normal(tuple(d[1]), dtype=np.float32) if d[0] == "normal"
+            else rng.integers(d[2], d[3], tuple(d[1])).astype(np.int32) for d in spec]
+
+
+def distill_phase(dev, n_attn: int, lak, cuda_build) -> dict:
+    """Phase 18: distillation on the card. Returns the ``distill`` line's
+    fields (the launches of each timed run among them)."""
+    import numpy as np
+    import torch
+    from cv_diffusion_tpu_torch.config import (TrainConfig, diffusion_config,
+                                               load_model_config, load_timesteps)
+    from cv_diffusion_tpu_torch.data import png
+    from cv_diffusion_tpu_torch.data.augment import normalize
+    from cv_diffusion_tpu_torch.data.dataset import create_dataloaders
+    from cv_diffusion_tpu_torch.data.synthetic import make_split
+    from cv_diffusion_tpu_torch.evaluate import eval_split, sha256
+    from cv_diffusion_tpu_torch.export.serving import ServingPipeline
+    from cv_diffusion_tpu_torch.models import distillation as tdist
+    from cv_diffusion_tpu_torch.models.blocks import LinearAttention
+    from cv_diffusion_tpu_torch.models.diffusion import create_model, with_dtype
+    from cv_diffusion_tpu_torch.models.scheduler import lcm_timesteps
+    from cv_diffusion_tpu_torch.ops.attention import linear_attention_plain
+    from cv_diffusion_tpu_torch.training import checkpoint as ckpt
+    from cv_diffusion_tpu_torch.training.trainer import DistillationTrainer
+    from cv_diffusion_tpu_torch.weights import init_weights, load_state_dict_npz
+
+    t0 = time.perf_counter()
+    art = os.path.join(ROOT, "artifacts", STUDENT)
+    cfg = load_model_config(os.path.join(art, "model_config.json"))
+    weights = load_state_dict_npz(os.path.join(ROOT, "artifacts_torch", f"{STUDENT}.npz"), dev)
+    with open(os.path.join(ROOT, "artifacts_torch", f"{STUDENT}.distill_ref.json")) as f:
+        ref = json.load(f)
+
+    def counts():
+        return {"linear_attention": lak.linear_attention_kernel.launches,
+                "linear_attention_backward": lak.linear_attention_backward_kernel.launches}
+
+    def zero_counts():
+        lak.linear_attention_kernel.launches = 0
+        lak.linear_attention_backward_kernel.launches = 0
+
+    def student_model(model_cfg=cfg, w=weights, device=dev):
+        model, schedule = create_model(model_cfg, device=device)
+        model.load_state_dict(w, strict=True)
+        return model, schedule
+
+    # (a) against the JAX package: its four settings, its inputs and draws
+    b = ref["batch"]
+    low_u8, high_u8 = (a[:b] for a in eval_split(15, ref["size"], 0))
+    require([sha256(a) for a in low_u8] == ref["inputs"]["low_sha256"]
+            and [sha256(a) for a in high_u8] == ref["inputs"]["high_sha256"],
+            "distill: the reference's inputs differ")
+    low, high = (torch.from_numpy(normalize(a)).to(dev) for a in (low_u8, high_u8))
+    model, schedule = student_model()
+    frozen = {k: v.detach().clone() for k, v in model.named_parameters()}
+    control = with_dtype(model, "bfloat16")
+    against_jax = {}
+    for i, s in enumerate(ref["settings"]):
+        draws = reference_draws(ref["seed"], i, s["draws"])
+        require([sha256(d) for d in draws] == s["draws_sha256"],
+                f"distill {s['name']}: numpy's draws differ from the reference's")
+        d = [torch.from_numpy(x).to(dev) for x in draws]
+
+        def reading(m):
+            """Setting s on draws d with the student module m: its loss,
+            gradient norms and their errors relative to JAX's."""
+            kw = dict(s["args"])
+            m.zero_grad(set_to_none=True)
+            if s["kind"] == "regression":
+                k = kw.pop("teacher_steps")
+                kw["student_timesteps"] = tuple(kw["student_timesteps"])
+                loss = tdist.sampler_regression_loss(
+                    m, schedule, frozen, None, low, high, teacher_steps=k,
+                    teacher_noise=(d[0], torch.stack(d[1:k + 1])),
+                    student_noise=(d[k + 1], torch.stack(d[k + 2:])), **kw)
+            else:
+                if kw.get("sampler_matched"):
+                    grid = lcm_timesteps(4, 1000, 50)
+                    pairs = tdist.sample_sampler_pairs(b, grid, idx=d[1].long())
+                else:
+                    pairs = tdist.sample_canonical_pairs(b, 1000, 50, 4,
+                                                         stride=kw["pair_stride"],
+                                                         idx=d[1].long())
+                loss = tdist.consistency_distillation_loss(
+                    m, schedule, frozen, None, frozen, low, high, noise=d[0],
+                    timesteps=pairs, renoise=d[2] if len(d) > 2 else None, **kw)
+            loss.backward()
+            torch.cuda.synchronize()
+            grads = {n: p.grad.double() for n, p in m.named_parameters() if p.grad is not None}
+            gnorm = float(torch.sqrt(sum(g.square().sum() for g in grads.values())))
+            named = {n: float(grads[n].norm()) for n in s["grad_norms"]}
+            errs = {"loss": abs(loss.item() - s["loss"]) / abs(s["loss"]),
+                    "grad_global_norm": abs(gnorm - s["grad_global_norm"]) / s["grad_global_norm"],
+                    "grad_norm": max(abs(named[n] - v) / v for n, v in s["grad_norms"].items())}
+            return loss.item(), gnorm, errs
+
+        zero_counts()
+        loss, gnorm, errs = reading(model)
+        launches = counts()
+        # the control: the same setting in bf16 compute must fail a bound
+        _, _, control_errs = reading(control)
+        against_jax[s["name"]] = dict(loss=loss, jax_loss=s["loss"],
+                                      grad_global_norm=gnorm,
+                                      jax_grad_global_norm=s["grad_global_norm"],
+                                      rel_err=errs, bf16_control_rel_err=control_errs,
+                                      launches=launches)
+        require(all(errs[k] <= DISTILL_TOL[k] for k in errs),
+                f"distill {s['name']} against JAX: {errs} (bounds {DISTILL_TOL})")
+        require(any(control_errs[k] > DISTILL_TOL[k] for k in control_errs),
+                f"distill {s['name']}: the bf16 control {control_errs} passes the bounds "
+                f"{DISTILL_TOL}")
+    del model, control, frozen, low, high
+    torch.cuda.empty_cache()
+
+    # batches of 8 (set-up): synthetic pairs made in bulk; the warm-up's
+    # from memory, the timed runs' through create_dataloaders' device cache
+    # of the same pairs written as PNG files
+    lo, hi = make_split(DISTILL_PAIRS, DATA_SIZE, DATA_SEED)
+    warm = [{"low_light": normalize(lo[j:j + 8]), "normal_light": normalize(hi[j:j + 8])}
+            for j in range(0, 8 * DISTILL_WARM, 8)]
+    timed_root = os.path.join(cuda_build.BUILD_DIR, "distill_timed")
+    shutil.rmtree(timed_root, ignore_errors=True)
+    for j in range(DISTILL_PAIRS):
+        for side, img in (("low", lo[j]), ("high", hi[j])):
+            png.write_png(os.path.join(timed_root, side, f"{j:03d}.png"), img)
+    timed_loader, _ = create_dataloaders(timed_root, None, batch_size=8,
+                                         image_size=DATA_SIZE, native=False,
+                                         device_cache=True, device=dev, seed=0)
+    require(len(timed_loader) == DISTILL_TIMED,
+            f"distill: {len(timed_loader)} timed batches")
+    work = tempfile.mkdtemp(prefix="chip_smoke_distill_")
+
+    def train_cfg(name):
+        return TrainConfig(unet_variant="small", image_size=DATA_SIZE, batch_size=8,
+                           epochs=1, warmup_epochs=0, learning_rate=DISTILL_LR,
+                           log_interval=1000, seed=0,
+                           checkpoint_dir=os.path.join(work, name, "ckpt"),
+                           output_dir=os.path.join(work, name, "samples"))
+
+    # (b) one regression step through the kernels against the same step with
+    # the attention on its plain path (teacher and student), from one state
+    def one_step(plain_attention: bool, model_cfg=cfg, w=weights, batch=warm[0],
+                 device=dev, draws=None):
+        model, schedule = student_model(model_cfg, w, device)
+        state = tdist.create_distillation_state(model, dict(w), train_cfg("step"))
+        step = tdist.make_regression_distillation_step(model, schedule, **DISTILL_RECIPE)
+        original = lak.linear_attention_trainable
+        if plain_attention:
+            lak.linear_attention_trainable = linear_attention_plain
+        try:
+            zero_counts()
+            state, m = step(state, batch, draws)
+        finally:
+            lak.linear_attention_trainable = original
+        return (float(m["loss"]), {n: p.grad.detach().clone() for n, p in model.named_parameters()},
+                {n: p.detach().clone() for n, p in model.named_parameters()}), counts()
+
+    with_kernels, kernel_launches = one_step(False)
+    with_plain, plain_launches = one_step(True)
+    steps_per = DISTILL_RECIPE["teacher_steps"] + 1
+    require(kernel_launches == {"linear_attention": steps_per * n_attn,
+                                "linear_attention_backward": n_attn},
+            f"distill: the kernel step launched {kernel_launches}")
+    require(plain_launches == {"linear_attention": 0, "linear_attention_backward": 0},
+            f"distill: the plain-attention step launched {plain_launches}")
+    kernel_vs_plain = step_diffs(with_kernels, with_plain)
+    del with_kernels, with_plain
+    torch.cuda.empty_cache()
+
+    # (c) one regression step on the card against the CPU: small at 64²,
+    # batch 2, random weights, explicit numpy draws
+    small_cfg = diffusion_config("small", 64, prediction_type="v_prediction")
+    small_w = init_weights(small_cfg, seed=1, device="cpu")
+    rng = np.random.default_rng(DATA_SEED)
+    shape = (2, 64, 64, 3)
+    k = DISTILL_RECIPE["teacher_steps"]
+    explicit = [rng.standard_normal(shape, dtype=np.float32) for _ in range(k + 3)]
+    small_batch = {key: v[:2, :64, :64] for key, v in warm[0].items()}
+
+    def explicit_step(device):
+        d = [torch.from_numpy(x).to(device) for x in explicit]
+        draws = dict(teacher_noise=(d[0], torch.stack(d[1:k + 1])),
+                     student_noise=(d[k + 1], torch.stack(d[k + 2:])))
+        w = {n: v.to(device) for n, v in small_w.items()}
+        out, _ = one_step(False, small_cfg, w, small_batch, device, draws)
+        return tuple(out[0:1]) + tuple({n: v.cpu() for n, v in t.items()} for t in out[1:])
+
+    card_vs_cpu = step_diffs(explicit_step(dev), explicit_step(torch.device("cpu")))
+    emit("distill_check", against_jax=against_jax, tol=DISTILL_TOL,
+         kernel_vs_plain_step=kernel_vs_plain, card_vs_cpu_step_small64=card_vs_cpu,
+         step_tol=dict(loss_rel=STEP_LOSS_TOL, grad_norm_rel=STEP_GRAD_NORM_TOL,
+                       grad_tensor_rel=STEP_GRAD_TOL, param_differ_by=STEP_PARAM_TOL,
+                       param_differ_share=STEP_PARAM_SHARE),
+         seconds=time.perf_counter() - t0)
+    require(within(kernel_vs_plain), f"distill: kernel vs plain-attention step: {kernel_vs_plain}")
+    require(within(card_vs_cpu), f"distill: card vs CPU step: {card_vs_cpu}")
+
+    # (d) DistillationTrainer: the recipe in float32 and bf16, and canonical
+    # consistency, each 2 warm-up steps from memory and 10 timed steps from
+    # the device cache at batch 8
+    runs = {}
+    for name, dtype, kw in (("regression_f32", "float32", dict(regression=True, **DISTILL_RECIPE)),
+                            ("regression_bf16", "bfloat16", dict(regression=True, **DISTILL_RECIPE)),
+                            ("consistency_f32", "float32", DISTILL_CONSISTENCY)):
+        torch.cuda.empty_cache()
+        model, schedule = student_model()
+        if dtype == "bfloat16":
+            model = with_dtype(model, dtype)
+        seen = set()
+        hooks = [m.register_forward_pre_hook(lambda mod, a: seen.add(a[0].dtype))
+                 for m in model.modules() if isinstance(m, LinearAttention)]
+        trainer = DistillationTrainer(model, schedule, dict(weights), warm,
+                                      None, train_cfg(name), **kw)
+        zero_counts()
+        trainer.train_epoch()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        trainer.train_loader = timed_loader
+        with contextlib.redirect_stdout(sys.stderr):
+            loss = trainer.train_epoch()
+        torch.cuda.synchronize()
+        st = trainer.epoch_stats
+        launches = counts()
+        for h in hooks:
+            h.remove()
+        steps = DISTILL_WARM + DISTILL_TIMED
+        per_step = (DISTILL_RECIPE["teacher_steps"] + 1) if kw.get("regression") else 3
+        require(trainer.state.step == steps and np.isfinite(loss),
+                f"distill {name}: {trainer.state.step} steps, loss {loss}")
+        require(launches == {"linear_attention": steps * per_step * n_attn,
+                             "linear_attention_backward": steps * n_attn},
+                f"distill {name}: launches {launches} in {steps} steps")
+        want_dtype = torch.bfloat16 if dtype == "bfloat16" else torch.float32
+        require(seen == {want_dtype}, f"distill {name}: attention inputs in {seen}")
+        runs[name] = dict(dtype=dtype, steps=steps, timed_steps=st["steps"],
+                          ms_per_step=st["seconds"] * 1e3 / st["steps"],
+                          loader_wait_ms_per_step=st["loader_wait_s"] * 1e3 / st["steps"],
+                          images_per_s=8 * st["steps"] / st["seconds"],
+                          peak_mem_bytes=torch.cuda.max_memory_allocated(),
+                          loss=loss, launches=launches,
+                          launches_per_step={k_: v / steps for k_, v in launches.items()})
+        del trainer, model
+    del timed_loader
+    shutil.rmtree(timed_root, ignore_errors=True)
+    torch.cuda.empty_cache()
+
+    # (e) the CLI on a small LOL-style directory, then its student served
+    root = os.path.join(cuda_build.BUILD_DIR, "distill_lol")
+    shutil.rmtree(root, ignore_errors=True)
+    n_train, n_val = DISTILL_CLI_PAIRS
+    lo, hi = make_split(n_train + n_val, 288, DATA_SEED + 1)
+    for j in range(n_train + n_val):
+        split = "train" if j < n_train else "val"
+        for side, img in (("low", lo[j]), ("high", hi[j])):
+            png.write_png(os.path.join(root, split, side, f"{j:03d}.png"), img)
+    cli_ck, cli_out = os.path.join(work, "cli_ckpt"), os.path.join(work, "cli_samples")
+    a = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "cv_diffusion_tpu_torch.distill",
+         "--teacher", os.path.join("artifacts", STUDENT),
+         "--data_dir", os.path.join(root, "train"), "--val_dir", os.path.join(root, "val"),
+         "--regression",
+         "--student_timesteps", ",".join(map(str, DISTILL_RECIPE["student_timesteps"])),
+         "--teacher_steps", str(DISTILL_RECIPE["teacher_steps"]),
+         "--gt_weight", str(DISTILL_RECIPE["gt_weight"]), "--epochs", "1", "--batch_size", "2",
+         "--lr", str(DISTILL_LR), "--checkpoint_dir", cli_ck, "--output_dir", cli_out,
+         "--device", dev.type],
+        cwd=ROOT, capture_output=True, text=True, timeout=600)
+    cli_s = time.perf_counter() - a
+    require(proc.returncode == 0, f"distill: the CLI exited {proc.returncode}: "
+                                  f"{proc.stderr[-2000:]}")
+    files = {n: sorted(os.listdir(os.path.join(cli_ck, n)))
+             for n in ("best_student", "student_final")}
+    require(all(f == ["model_config.json", "params.npz", "student_timesteps.json"]
+                for f in files.values()), f"distill: the CLI wrote {files}")
+    final = os.path.join(cli_ck, "student_final")
+    require(load_timesteps(os.path.join(final, "student_timesteps.json"))
+            == DISTILL_RECIPE["student_timesteps"]
+            and ckpt.load_prediction_type(final) == "v_prediction"
+            and ckpt.detect_variant(final) == "small",
+            "distill: the CLI's student does not record its grid, target and variant")
+    pipe = ServingPipeline.from_config(os.path.join(final, "model_config.json"),
+                                       os.path.join(final, "student_timesteps.json"),
+                                       ckpt.load_inference_params(final, use_ema=False),
+                                       device=dev)
+    request = np.ascontiguousarray(lo[n_train])
+    served = pipe(request, seed=0)
+    require(served.shape == request.shape and served.dtype == np.uint8,
+            f"distill: the student served {served.shape} {served.dtype}")
+    del pipe
+    shutil.rmtree(root, ignore_errors=True)
+    shutil.rmtree(work, ignore_errors=True)
+    torch.cuda.empty_cache()
+    fields = dict(config=f"small@{DATA_SIZE} v-prediction, teacher: the {STUDENT} weights",
+                  recipe={k_: list(v) if isinstance(v, tuple) else v
+                          for k_, v in DISTILL_RECIPE.items()},
+                  consistency=DISTILL_CONSISTENCY, batch=8, lr=DISTILL_LR,
+                  timed_loader="create_dataloaders(device_cache=True)", runs=runs,
+                  cli={"exit": proc.returncode, "seconds": cli_s, "pairs": list(DISTILL_CLI_PAIRS),
+                       "files": files["student_final"], "served": list(served.shape)},
+                  seconds=time.perf_counter() - t0)
+    emit("distill", **fields)
     return fields
 
 
@@ -2085,28 +2463,6 @@ def main() -> int:
         return (float(m["loss"]), {n: p.grad.detach().clone() for n, p in model.named_parameters()},
                 {n: p.detach().clone() for n, p in model.named_parameters()})
 
-    def step_diffs(a, b):
-        """Loss, gradient-norm and worst-tensor differences of two steps,
-        the parameters' largest difference, and the share of parameter
-        entries that differ by more than STEP_PARAM_TOL."""
-        loss_rel = abs(a[0] - b[0]) / abs(b[0])
-        diff_sq = sum(float((a[1][k] - b[1][k]).double().square().sum()) for k in b[1])
-        norm_sq = sum(float(b[1][k].double().square().sum()) for k in b[1])
-        worst = max((float((a[1][k] - b[1][k]).abs().max())
-                     / (float(b[1][k].abs().max()) + 1e-12), k) for k in b[1])
-        moved = sum(int(((a[2][k] - b[2][k]).abs() > STEP_PARAM_TOL).sum()) for k in b[2])
-        total = sum(t.numel() for t in b[2].values())
-        return dict(loss_rel=loss_rel, grad_norm_rel=(diff_sq / norm_sq) ** 0.5,
-                    grad_tensor_rel=worst[0], worst_tensor=worst[1],
-                    param_max_abs=max(float((a[2][k] - b[2][k]).abs().max())
-                                      for k in b[2]),
-                    param_differ_share=moved / total)
-
-    def within(d):
-        return (d["loss_rel"] <= STEP_LOSS_TOL and d["grad_norm_rel"] <= STEP_GRAD_NORM_TOL
-                and d["grad_tensor_rel"] <= STEP_GRAD_TOL
-                and d["param_differ_share"] <= STEP_PARAM_SHARE)
-
     before = lak.linear_attention_backward_kernel.launches
     with_kernels = one_step(False)
     kernel_step_inputs = dict(step_inputs)
@@ -2714,6 +3070,13 @@ def main() -> int:
     # 17. data: training from image directories --------------------------
     data = data_phase(dev, n_attn, lak, cuda_build)
 
+    # 18. distill: the distillation losses, steps, trainer and CLI ----------
+    distill = distill_phase(dev, n_attn, lak, cuda_build)
+    distill_f32 = {k: sum(distill["runs"][r]["launches"][k]
+                          for r in ("regression_f32", "consistency_f32"))
+                   for k in ("linear_attention", "linear_attention_backward")}
+    distill_bf16 = distill["runs"]["regression_bf16"]["launches"]
+
     # kernels line, nvidia-smi line, last line -----------------------------
     main_row = timings[((1, 1024, 4, 32), "float32")]
     bwd_main = bwd_rows[((8, 1024, 4, 32), "float32")]    # the train batch
@@ -2743,6 +3106,7 @@ def main() -> int:
         "launches_package_in_replays": pkg_replayed["linear_attention"],
         "launches_train": train_launches["linear_attention"],
         "launches_eval": sum(r["launches"]["linear_attention"] for r in eval_rows.values()),
+        "launches_distill": distill_f32["linear_attention"],
         "max_abs_err": mid_err,
         "ms": main_row["kernel_ms"],
         "plain_ms": main_row["plain_ms"],
@@ -2804,6 +3168,7 @@ def main() -> int:
         "source": "cv_diffusion_tpu_torch/csrc/linear_attention.cu",
         "replaces": "cv_diffusion_tpu/ops/pallas_attention.py:202",
         "launches": train_launches["linear_attention_backward"],
+        "launches_distill": distill_f32["linear_attention_backward"],
         "max_abs_err": max(r["max_err"] for r in bwd_rows.values()
                            if r["dtype"] == "float32"),
         "ms": bwd_main["kernel_ms"],
@@ -2839,6 +3204,7 @@ def main() -> int:
         "launches_train_amp": amp_launches["linear_attention"],
         "launches_data_train": sum(r["launches"]["linear_attention"]
                                    for r in data["runs"].values() if "launches" in r),
+        "launches_distill": distill_bf16["linear_attention"],
         "max_abs_err": bf16_checks["mid_attn_max_err"],
         "ms": main16["kernel_ms"],
         "plain_ms": main16["plain_ms"],
@@ -2857,6 +3223,7 @@ def main() -> int:
         "launches": amp_launches["linear_attention_backward"],
         "launches_data_train": sum(r["launches"]["linear_attention_backward"]
                                    for r in data["runs"].values() if "launches" in r),
+        "launches_distill": distill_bf16["linear_attention_backward"],
         "max_abs_err": amp_bwd_err,
         "ms": bwd16["kernel_ms"],
         "plain_ms": bwd16["plain_ms"],

@@ -210,9 +210,11 @@ class InvertedResidualBlock(nn.Module):
     Two inference rewrites of the JAX block, both off in training mode and
     neither changing the parameters: ``use_pallas_irb`` runs a stride-1 block
     as one call of the fused-IRB kernel's wrapper (the CUDA kernel for CUDA
-    tensors, its plain version on the CPU); ``fold_gn`` keeps the separate
-    convs but applies GN2 ⊕ FiLM as the affine folded from the Gram of x̂,
-    so the expand output needs no statistics pass."""
+    tensors, its plain version on the CPU), and raises where a gradient
+    would have to pass through it (the kernel has no backward; a regression
+    student's sampler runs in eval mode with grad enabled); ``fold_gn``
+    keeps the separate convs but applies GN2 ⊕ FiLM as the affine folded
+    from the Gram of x̂, so the expand output needs no statistics pass."""
 
     def __init__(self, in_channels: int, out_channels: int,
                  time_embed_dim: int, expansion_ratio: int = 4,
@@ -245,6 +247,15 @@ class InvertedResidualBlock(nn.Module):
                 generator: Optional[torch.Generator] = None) -> torch.Tensor:
         film_scale, film_shift = self.time_mlp(time_emb).chunk(2, dim=-1)
         if self.use_pallas_irb and self.stride == 1 and not self.training:
+            if torch.is_grad_enabled() and (
+                    x.requires_grad or time_emb.requires_grad
+                    or any(p.requires_grad for p in self.parameters())):
+                raise RuntimeError(
+                    "use_pallas_irb: the fused IRB kernel has no backward, so "
+                    "a gradient cannot pass through an IRB in eval mode with "
+                    "grad enabled (as the JAX package's Pallas kernel cannot "
+                    "be differentiated either); build the differentiated "
+                    "model without use_pallas_irb, or run it under no_grad")
             return fused_irb_kernel.fused_irb_v2(
                 x, film_scale=film_scale, film_shift=film_shift,
                 **irb_args(self))

@@ -261,31 +261,55 @@ def enhance(model: LowLightDiffusion, schedule: LCMSchedule,
                                    schedule.config.original_inference_steps)
     else:
         grid = [int(t) for t in timesteps]
-    prev = sched.prev_timesteps(grid)
 
     batch, height, width = low_light.shape[:3]
     if init_noise is None or step_noise is None:
         drawn = sampler_noise(generator, (batch, height, width, 3), len(grid), dev)
         init_noise = drawn[0] if init_noise is None else init_noise
         step_noise = drawn[1] if step_noise is None else step_noise
+    return run_sampler(model, schedule, low_light.to(dev), init_noise.to(dev),
+                       step_noise.to(dev), grid, deterministic=deterministic,
+                       params=params, return_intermediate=return_intermediate)
+
+
+def run_sampler(model: LowLightDiffusion, schedule: LCMSchedule,
+                low_light: torch.Tensor, init_noise: torch.Tensor,
+                step_noise: torch.Tensor, grid: Sequence[int], *,
+                deterministic: bool = False,
+                params: Optional[Dict[str, torch.Tensor]] = None,
+                return_intermediate: bool = False
+                ) -> Union[torch.Tensor, EnhanceOutput]:
+    """The LCM sampler over the descending ``grid`` with explicit noise
+    (``init_noise`` [B, H, W, 3], ``step_noise`` [steps, B, H, W, 3]), on
+    the tensors' device, differentiable: :func:`enhance` calls it under
+    inference mode, and a distilled student's sampler
+    (``distillation.sampler_regression_loss``) with grad enabled, so that
+    the gradient reaches the weights through every step. The model is
+    called in whatever mode it is in.
+
+    The scheduler arithmetic runs in at least float32 (a float64 model's
+    in float64), the carry and the condition in the compute dtype.
+    """
     dtype = model.compute_dtype
-    latents = _to_nchw(init_noise.to(dev, torch.float32)).to(dtype)
-    step_noise = (step_noise.to(dev, torch.float32).permute(0, 1, 4, 2, 3)
-                  .contiguous().to(dtype))
-    low = _to_nchw(low_light.to(dev, torch.float32)).to(dtype)
+    prev = sched.prev_timesteps(grid)
+    batch = low_light.shape[0]
+    dev = low_light.device
+    latents = _to_nchw(upcast(init_noise)).to(dtype)
+    step_noise = upcast(step_noise).permute(0, 1, 4, 2, 3).contiguous().to(dtype)
+    low = _to_nchw(upcast(low_light)).to(dtype)
 
     carries = []
     for i, (t, prev_t) in enumerate(zip(grid, prev)):
         t_vec = torch.full((batch,), t, dtype=torch.int32, device=dev)
         args = (latents, low, t_vec)
-        pred = (model(*args) if params is None
-                else torch.func.functional_call(model, params, args)).float()
+        pred = upcast(model(*args) if params is None
+                      else torch.func.functional_call(model, params, args))
         if deterministic:
             latents, _ = sched.ddim_step(schedule, pred, t, prev_t,
-                                         latents.float())
+                                         upcast(latents))
         else:
-            latents, _ = sched.step(schedule, pred, t, prev_t, latents.float(),
-                                    noise=step_noise[i].float())
+            latents, _ = sched.step(schedule, pred, t, prev_t, upcast(latents),
+                                    noise=upcast(step_noise[i]))
         latents = latents.to(dtype)
         if return_intermediate:
             carries.append(latents.permute(0, 2, 3, 1))

@@ -201,3 +201,23 @@ def ddim_step(schedule: LCMSchedule, model_output: torch.Tensor,
     prev_sample = (torch.sqrt(alpha_prod_prev) * x0
                    + torch.sqrt(1.0 - alpha_prod_prev) * eps)
     return prev_sample, x0
+
+
+def consistency_timestep_pairs(batch_size: int, num_inference_steps: int,
+                               num_train_timesteps: int = 1000,
+                               num_ddim_timesteps: int = 50, *,
+                               generator: Optional[torch.Generator] = None,
+                               idx: Optional[torch.Tensor] = None,
+                               device=None) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(t, t_next) = (idx·c+c−1, (idx+k)·c+c−1) on the DDIM grid, c = T/N
+    and k = N/num_inference_steps, with idx ~ U[0, N−k−1) drawn from
+    ``generator`` unless ``idx`` [B] is given (JAX
+    ``consistency_timestep_pairs``, ``models/scheduler.py:276``). The upper
+    bound leaves out the last grid point t_next = 999, where ᾱ = 0 under
+    zero-terminal SNR and x̂₀ is a division by zero."""
+    c = num_train_timesteps // num_ddim_timesteps
+    k = num_ddim_timesteps // num_inference_steps
+    if idx is None:
+        idx = torch.randint(0, num_ddim_timesteps - k - 1, (batch_size,),
+                            generator=generator, device=device)
+    return idx * c + c - 1, (idx + k) * c + c - 1

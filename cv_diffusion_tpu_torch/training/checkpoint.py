@@ -8,6 +8,9 @@ config as JSON. Files are written atomically and read with
 ``weights_only=True`` (tensors, numbers and strings only).
 :class:`AsyncCheckpointSaver` snapshots the state on its device and writes
 it on a worker thread; :func:`save_params` writes the weights alone.
+:func:`load_prediction_type` and :func:`detect_variant` read what an
+artifact records of itself, and :func:`resolve_weights` finds a committed
+artifact's weights in the port's format.
 """
 
 from __future__ import annotations
@@ -71,10 +74,13 @@ def save_checkpoint(path: str, state: TrainState, *, epoch: int,
 
 
 def save_params(path: str, params: Dict[str, torch.Tensor],
-                config_json: Optional[str] = None) -> None:
+                config_json: Optional[str] = None,
+                sidecar: Optional[Dict[str, str]] = None) -> None:
     """Weights-only export into the directory ``path``: ``params.npz`` in
     the port's weights format (``weights.save_state_dict_npz``) and, when
-    given, ``model_config.json``."""
+    given, ``model_config.json``; ``sidecar`` maps further file names to
+    text written beside them (a distilled student's
+    ``student_timesteps.json``)."""
     from ..weights import save_state_dict_npz
 
     os.makedirs(path, exist_ok=True)
@@ -83,6 +89,9 @@ def save_params(path: str, params: Dict[str, torch.Tensor],
     if config_json is not None:
         with open(os.path.join(path, "model_config.json"), "w") as f:
             f.write(config_json)
+    for fname, text in (sidecar or {}).items():
+        with open(os.path.join(path, fname), "w") as f:
+            f.write(text)
 
 
 class AsyncCheckpointSaver:
@@ -143,16 +152,9 @@ class AsyncCheckpointSaver:
     def save_params(self, path: str, params: Dict[str, torch.Tensor],
                     config_json: Optional[str] = None,
                     sidecar: Optional[Dict[str, str]] = None) -> None:
-        """:func:`save_params` on the worker; ``sidecar`` maps further file
-        names to text written beside the weights (e.g. a student's timestep
-        grid)."""
-        def job(host):
-            save_params(path, host, config_json)
-            for fname, text in (sidecar or {}).items():
-                with open(os.path.join(path, fname), "w") as f:
-                    f.write(text)
-
-        self._submit(dict(params), job)
+        """:func:`save_params` on the worker."""
+        self._submit(dict(params),
+                     lambda host: save_params(path, host, config_json, sidecar))
 
     def _reap(self, block_to: int) -> None:
         """Raise the error of a finished job; block until at most
@@ -254,3 +256,67 @@ def load_inference_params(path: str, use_ema: bool = True,
         print("Warning: --use_ema ignored (params-only artifact; packages "
               "store the already-selected weights)")
     return state
+
+
+def resolve_weights(path: str) -> str:
+    """The weights file of a committed artifact's directory
+    ``…/artifacts/<name>`` (the JAX package's orbax layout): its copy in the
+    port's format beside it, ``…/artifacts_torch/<name>.npz``, where there
+    is one; any other path as it is. The distill CLI reads ``--teacher`` and
+    ``--init_student`` through it."""
+    full = os.path.abspath(path)
+    parent = os.path.dirname(full)
+    if (not os.path.isdir(full) or os.path.isfile(os.path.join(full, "params.npz"))
+            or os.path.basename(parent) != "artifacts"):
+        return path
+    npz = os.path.join(os.path.dirname(parent), "artifacts_torch",
+                       f"{os.path.basename(full)}.npz")
+    return npz if os.path.isfile(npz) else path
+
+
+def _recorded_configs(path: str):
+    """(model config, train config) dicts that the artifact at ``path``
+    records, either None: a directory's ``model_config.json`` (a serving
+    package's ``model`` section, or the ``DiffusionConfig`` that
+    :func:`save_params` writes), a full checkpoint's ``TrainConfig``."""
+    path = os.path.abspath(path)
+    if os.path.isdir(path):
+        cfg = os.path.join(path, "model_config.json")
+        if not os.path.isfile(cfg):
+            return None, None
+        with open(cfg) as f:
+            data = json.load(f)
+        return data.get("model", data), None
+    if os.path.isfile(path) and not path.endswith(".npz"):
+        return None, json.loads(load_raw(path)["config"])
+    return None, None
+
+
+def load_prediction_type(path: str) -> Optional[str]:
+    """The prediction target the artifact at ``path`` was trained for
+    (``epsilon`` or ``v_prediction``), from what it records (a directory's
+    ``model_config.json``, a full checkpoint's training config), or None
+    (JAX ``load_prediction_type``, ``checkpoint.py:274``). The CLIs read it
+    rather than trust their default: a v-prediction model sampled as
+    epsilon gives garbage."""
+    model_cfg, train_cfg = _recorded_configs(path)
+    if model_cfg is not None:
+        return (model_cfg.get("scheduler") or {}).get("prediction_type")
+    if train_cfg is not None:
+        return train_cfg.get("prediction_type")
+    return None
+
+
+def detect_variant(path: str) -> Optional[str]:
+    """The UNet variant (``tiny`` … ``large``) the artifact at ``path``
+    records, or None (JAX ``detect_variant``, ``checkpoint.py:300``): the
+    preset whose widths its model config's ``unet`` section has
+    (``config.variant_of``), or a full checkpoint's ``unet_variant``."""
+    from ..config import variant_of
+
+    model_cfg, train_cfg = _recorded_configs(path)
+    if model_cfg is not None:
+        return variant_of(model_cfg.get("unet") or {})
+    if train_cfg is not None:
+        return train_cfg.get("unet_variant")
+    return None

@@ -176,22 +176,37 @@ def create_train_state(model: LowLightDiffusion, config: TrainConfig,
 
 
 @torch.no_grad()
-def apply_update(state: TrainState, config: TrainConfig
-                 ) -> torch.Tensor:
-    """Clip the gradients held in ``.grad``, take one AdamW step at
-    lr(state.step), update the EMA with the pre-increment step, and count
-    the update. Returns the global norm before the clip."""
-    params = list(state.model.parameters())
+def optimizer_update(model: torch.nn.Module, optimizer: torch.optim.AdamW,
+                     lr_schedule: Schedule, step: int,
+                     max_grad_norm: float) -> torch.Tensor:
+    """The update ``optax.chain(clip_by_global_norm, adamw(schedule))``
+    makes from the gradients held in ``.grad``: clip them to
+    ``max_grad_norm``, then one AdamW step at lr(step). Returns the global
+    norm before the clip. The trainer's and the distillation's updates
+    both take it (each then updates its own EMA)."""
+    params = list(model.parameters())
     for p in params:        # optax decays every parameter, used or not
         if p.grad is None:
             p.grad = torch.zeros_like(p)
     grads = [p.grad for p in params]
     norm = global_norm(grads)
-    clip_by_global_norm(grads, config.gradient_clip, norm)
-    lr = state.lr_schedule(state.step)
-    for group in state.optimizer.param_groups:
+    clip_by_global_norm(grads, max_grad_norm, norm)
+    lr = lr_schedule(step)
+    for group in optimizer.param_groups:
         group["lr"] = lr
-    state.optimizer.step()
+    optimizer.step()
+    return norm
+
+
+@torch.no_grad()
+def apply_update(state: TrainState, config: TrainConfig
+                 ) -> torch.Tensor:
+    """Clip the gradients held in ``.grad``, take one AdamW step at
+    lr(state.step) (:func:`optimizer_update`), update the EMA with the
+    pre-increment step, and count the update. Returns the global norm
+    before the clip."""
+    norm = optimizer_update(state.model, state.optimizer, state.lr_schedule,
+                            state.step, config.gradient_clip)
     if state.ema_params is not None:
         update_ema(state.ema_params, state.params, config.ema_decay,
                    step=state.step if config.ema_warmup else None)

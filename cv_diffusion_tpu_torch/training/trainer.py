@@ -11,13 +11,17 @@ EMA). The loss is read back to the host at log intervals and once per
 epoch, never after each step. :meth:`Trainer.evaluate_quality` is the
 full-sampler PSNR/SSIM evaluation (``metrics.py``). :func:`train_model`
 trains from image directories, as the JAX one. W&B is not ported.
+:class:`DistillationTrainer` is the host loop of distillation (JAX
+``trainer.py:369-598``): a student trained from a frozen teacher, with the
+best-by-PSNR EMA student kept.
 """
 
 from __future__ import annotations
 
+import json
 import time
 from pathlib import Path
-from typing import Dict, Iterable, Optional, Tuple
+from typing import Dict, Iterable, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -47,12 +51,13 @@ def save_comparison_grid(low, enhanced, target, path: str) -> None:
     write_png(path, np.concatenate(rows, axis=0))
 
 
-class Trainer:
-    """Host-side training loop of a model on its device."""
+class _HostLoop:
+    """What both trainers share: the model on its device, the loaders, the
+    checkpoint saver and output directories, and the epoch loop around
+    ``self.train_step`` (set by the subclass)."""
 
     def __init__(self, model: LowLightDiffusion, schedule: LCMSchedule,
-                 train_loader, val_loader=None,
-                 config: Optional[TrainConfig] = None):
+                 train_loader, val_loader, config: Optional[TrainConfig]):
         self.config = config or TrainConfig()
         check_trainable(self.config)
         self.model = model
@@ -60,6 +65,64 @@ class Trainer:
         self.train_loader = train_loader
         self.val_loader = val_loader
         self.device = next(model.parameters()).device
+        self.epoch = 0
+        self._saver = (ckpt.AsyncCheckpointSaver()
+                       if self.config.async_checkpoints else None)
+        # where the last epoch's time went: steps, seconds, and the seconds
+        # spent waiting for the loader's next batch
+        self.epoch_stats: Dict[str, float] = {}
+        self.output_dir = Path(self.config.output_dir)
+        self.checkpoint_dir = Path(self.config.checkpoint_dir)
+        self.output_dir.mkdir(parents=True, exist_ok=True)
+        self.checkpoint_dir.mkdir(parents=True, exist_ok=True)
+
+    def _device_batch(self, batch) -> Dict[str, torch.Tensor]:
+        """The batch's images as float32 tensors on the model's device
+        (host arrays are uploaded; a device cache's tensors stay)."""
+        return {k: torch.as_tensor(batch[k]).to(self.device, torch.float32,
+                                                non_blocking=True)
+                for k in ("low_light", "normal_light")}
+
+    def train_epoch(self) -> float:
+        """One epoch of ``self.train_step``; the mean loss, read back to the
+        host at log intervals and once at the end. ``epoch_stats`` gets its
+        steps, seconds and the seconds waited on the loader."""
+        total = torch.zeros((), device=self.device)
+        count, waited = 0, 0.0
+        start = time.perf_counter()
+        batches = iter(self.train_loader)
+        while True:
+            t = time.perf_counter()
+            batch = next(batches, None)
+            waited += time.perf_counter() - t
+            if batch is None:
+                break
+            self.state, metrics = self.train_step(self.state,
+                                                  self._device_batch(batch))
+            total = total + metrics["loss"]
+            if count % self.config.log_interval == 0:
+                print(f"epoch {self.epoch} step {self.state.step}: "
+                      f"loss={float(metrics['loss']):.4f} "
+                      f"lr={self.state.lr_schedule(self.state.step):.3e}", flush=True)
+            count += 1
+        mean = float(total) / max(1, count)
+        self.epoch_stats = {"steps": count, "loader_wait_s": waited,
+                            "seconds": time.perf_counter() - start}
+        return mean
+
+    def wait_for_checkpoints(self) -> None:
+        """Wait for the asynchronous saves in flight (none when synchronous)."""
+        if self._saver is not None:
+            self._saver.wait()
+
+
+class Trainer(_HostLoop):
+    """Host-side training loop of a model on its device."""
+
+    def __init__(self, model: LowLightDiffusion, schedule: LCMSchedule,
+                 train_loader, val_loader=None,
+                 config: Optional[TrainConfig] = None):
+        super().__init__(model, schedule, train_loader, val_loader, config)
         if self.config.init_params_from:
             # fine-tuning warm start (unlike resume): the weights only; the
             # state below starts from them (step 0, fresh AdamW, EMA = them)
@@ -70,17 +133,7 @@ class Trainer:
                                         steps_per_epoch=len(train_loader))
         self.train_step = make_train_step(model, schedule, self.config)
         self.eval_step = make_eval_step(model, schedule, self.config)
-        self.epoch = 0
         self.best_val_loss = float("inf")
-        self._saver = (ckpt.AsyncCheckpointSaver()
-                       if self.config.async_checkpoints else None)
-        # where the last epoch's time went: steps, seconds, and the seconds
-        # spent waiting for the loader's next batch
-        self.epoch_stats: Dict[str, float] = {}
-        self.output_dir = Path(self.config.output_dir)
-        self.checkpoint_dir = Path(self.config.checkpoint_dir)
-        self.output_dir.mkdir(parents=True, exist_ok=True)
-        self.checkpoint_dir.mkdir(parents=True, exist_ok=True)
         if self.config.resume_from:
             self.load_checkpoint(self.config.resume_from)
 
@@ -104,39 +157,6 @@ class Trainer:
                 self.generate_samples(epoch)
         self.save_checkpoint("final_model")
         self.wait_for_checkpoints()
-
-    def _device_batch(self, batch) -> Dict[str, torch.Tensor]:
-        """The batch's images as float32 tensors on the model's device
-        (host arrays are uploaded; a device cache's tensors stay)."""
-        return {k: torch.as_tensor(batch[k]).to(self.device, torch.float32,
-                                                non_blocking=True)
-                for k in ("low_light", "normal_light")}
-
-    def train_epoch(self) -> float:
-        """One epoch; the mean train loss. ``epoch_stats`` gets its steps,
-        seconds and the seconds waited on the loader."""
-        total = torch.zeros((), device=self.device)
-        count, waited = 0, 0.0
-        start = time.perf_counter()
-        batches = iter(self.train_loader)
-        while True:
-            t = time.perf_counter()
-            batch = next(batches, None)
-            waited += time.perf_counter() - t
-            if batch is None:
-                break
-            self.state, metrics = self.train_step(self.state,
-                                                  self._device_batch(batch))
-            total = total + metrics["loss"]
-            if count % self.config.log_interval == 0:
-                print(f"epoch {self.epoch} step {self.state.step}: "
-                      f"loss={float(metrics['loss']):.4f} "
-                      f"lr={self.state.lr_schedule(self.state.step):.3e}", flush=True)
-            count += 1
-        mean = float(total) / max(1, count)
-        self.epoch_stats = {"steps": count, "loader_wait_s": waited,
-                            "seconds": time.perf_counter() - start}
-        return mean
 
     def _eval_params(self) -> Dict[str, torch.Tensor]:
         """The EMA weights when kept, else the model's own."""
@@ -218,11 +238,6 @@ class Trainer:
              best_val_loss=self.best_val_loss, config_json=to_json(self.config))
         return path
 
-    def wait_for_checkpoints(self) -> None:
-        """Wait for the asynchronous saves in flight (none when synchronous)."""
-        if self._saver is not None:
-            self._saver.wait()
-
     def load_checkpoint(self, path: str) -> None:
         self.wait_for_checkpoints()
         restored = ckpt.restore_checkpoint(path, self.state)
@@ -263,3 +278,166 @@ def train_model(train_data_dir: str, val_data_dir: Optional[str] = None,
     trainer = Trainer(model, schedule, train_loader, val_loader, config)
     trainer.train()
     return trainer
+
+
+class DistillationTrainer(_HostLoop):
+    """Host loop of consistency or sampler-regression distillation (JAX
+    ``DistillationTrainer``, ``trainer.py:369``): a frozen teacher, the
+    student (``model``, trained in place) and its EMA (decay
+    ``ema_decay``, no warm-up), the step of
+    ``models.distillation.make_distillation_step`` or, with
+    ``regression``, ``make_regression_distillation_step``; per epoch the
+    EMA student's full-sampler PSNR on the validation set (the best kept
+    as ``best_student``), periodic students and sample grids, and
+    ``student_final`` at the end.
+
+    The student starts as ``student_params`` (a warm start), else fresh
+    from ``weights.init_weights`` (seeded ``config.seed``) when
+    ``teacher_model`` (a teacher of another architecture, regression only)
+    is given, else as a copy of ``teacher_params``. A regression student is
+    validated, sampled and saved with its own grid ``student_timesteps``
+    (default ``(739,)``), written beside its weights as
+    ``student_timesteps.json``. There is one card: ``mesh`` other than None
+    or False raises.
+    """
+
+    def __init__(self, model: LowLightDiffusion, schedule: LCMSchedule,
+                 teacher_params: Dict[str, torch.Tensor], train_loader,
+                 val_loader=None, config: Optional[TrainConfig] = None,
+                 num_ddim_timesteps: int = 50, ema_decay: float = 0.95,
+                 mesh=None, canonical: bool = False,
+                 pair_stride: Optional[int] = None,
+                 sampler_matched: bool = False,
+                 student_params: Optional[Dict[str, torch.Tensor]] = None,
+                 regression: bool = False,
+                 student_timesteps: Optional[Sequence[int]] = None,
+                 teacher_steps: Optional[int] = None,
+                 deterministic_teacher: bool = False,
+                 gt_weight: float = 0.0,
+                 full_grad: bool = False,
+                 teacher_model: Optional[LowLightDiffusion] = None):
+        from ..models.distillation import (create_distillation_state,
+                                           make_distillation_step,
+                                           make_regression_distillation_step)
+
+        if teacher_model is not None and not regression:
+            # adjacent-pair consistency starts the student from the
+            # teacher's weights and targets them: one architecture only
+            raise ValueError("teacher_model (capacity-asymmetric "
+                             "distillation) requires regression mode")
+        if mesh is not None and mesh is not False:
+            raise NotImplementedError(
+                "DistillationTrainer(mesh=...): training over more than one "
+                "device is not ported (ROADMAP queue 1 item 8)")
+        super().__init__(model, schedule, train_loader, val_loader, config)
+        if student_params is None and teacher_model is not None:
+            from ..weights import init_weights
+            model.load_state_dict(init_weights(model.config, seed=self.config.seed,
+                                               device=self.device), strict=True)
+        self.state = create_distillation_state(
+            model, teacher_params, self.config,
+            steps_per_epoch=len(train_loader), student_params=student_params,
+            teacher_model=teacher_model)
+        self.student_timesteps = (tuple(int(t) for t in student_timesteps)
+                                  if student_timesteps is not None else None)
+        if regression:
+            if self.student_timesteps is None:
+                self.student_timesteps = (739,)
+            self.train_step = make_regression_distillation_step(
+                model, schedule, ema_decay=ema_decay,
+                teacher_steps=teacher_steps or self.config.num_inference_steps,
+                student_timesteps=self.student_timesteps,
+                deterministic_teacher=deterministic_teacher,
+                gt_weight=gt_weight, full_grad=full_grad,
+                teacher_model=teacher_model)
+        else:
+            self.train_step = make_distillation_step(
+                model, schedule, ema_decay=ema_decay,
+                num_ddim_timesteps=num_ddim_timesteps,
+                num_inference_steps=self.config.num_inference_steps,
+                canonical=canonical, pair_stride=pair_stride,
+                sampler_matched=sampler_matched)
+        self.best_val_psnr = float("-inf")
+
+    def train(self) -> None:
+        """All epochs from ``self.epoch`` on, then ``student_final``; the
+        asynchronous saves are drained before it returns, so a failed write
+        raises here and a caller can read what was saved."""
+        print(f"Distilling on {self.device} ({self.config.epochs} epochs)")
+        for epoch in range(self.epoch, self.config.epochs):
+            self.epoch = epoch
+            loss = self.train_epoch()
+            count = self.epoch_stats["steps"]
+            print(f"Distill epoch {epoch}: loss={loss:.4f} "
+                  f"lr={self.state.lr_schedule(count * (epoch + 1)):.2e}",
+                  flush=True)
+            if self.val_loader is not None:
+                val_psnr = self.validate_psnr()
+                print(f"Distill epoch {epoch}: val_psnr={val_psnr:.2f} dB",
+                      flush=True)
+                # students degrade with over-training: keep the best one
+                if val_psnr > self.best_val_psnr:
+                    self.best_val_psnr = val_psnr
+                    self.save_student("best_student")
+            if (epoch + 1) % self.config.save_interval == 0:
+                self.save_student(f"student_epoch_{epoch}")
+            if (epoch + 1) % self.config.sample_interval == 0:
+                self.generate_samples(epoch)
+        self.save_student("student_final")
+        self.wait_for_checkpoints()
+
+    def _enhance(self, low: torch.Tensor, generator: torch.Generator) -> torch.Tensor:
+        """The EMA student's sampler on its own grid (a regression
+        student's, else the stock grid of ``num_inference_steps``)."""
+        return enhance(self.model, self.schedule, low,
+                       timesteps=self.student_timesteps,
+                       num_inference_steps=self.config.num_inference_steps,
+                       generator=generator, device=self.device,
+                       params=self.state.ema_params)
+
+    @torch.no_grad()
+    def validate_psnr(self) -> float:
+        """Mean full-sampler PSNR of the EMA student over the validation
+        set, per image, on [0, 1] outputs clipped (noise from a generator
+        seeded ``config.seed``)."""
+        generator = torch.Generator(device=self.device).manual_seed(self.config.seed)
+        scores = []
+        for batch in self.val_loader:
+            batch = self._device_batch(batch)
+            out = self._enhance(batch["low_light"], generator)
+            pred = denormalize_image(out.float()).clamp(0.0, 1.0)
+            target = denormalize_image(batch["normal_light"])
+            scores.extend(float(psnr(pred[i:i + 1], target[i:i + 1]))
+                          for i in range(pred.shape[0]))
+        return float(np.mean(scores)) if scores else float("-inf")
+
+    @torch.no_grad()
+    def generate_samples(self, epoch: int) -> str:
+        """A [low | enhanced | target] grid of the first ``num_samples``
+        images of the first val (else train) batch under the EMA student,
+        noise from a generator seeded ``epoch``, written to
+        ``output_dir/distill_samples_epoch_{epoch}.png``."""
+        loader = self.val_loader or self.train_loader
+        batch = self._device_batch(next(iter(loader)))
+        n = self.config.num_samples
+        low = batch["low_light"][:n]
+        out = self._enhance(low, torch.Generator(device=self.device).manual_seed(epoch))
+        path = str(self.output_dir / f"distill_samples_epoch_{epoch}.png")
+        save_comparison_grid(low, out, batch["normal_light"][:n], path)
+        return path
+
+    def save_student(self, name: str) -> str:
+        """The EMA student's weights and model config into
+        ``checkpoint_dir/name`` (``checkpoint.save_params``), with a
+        regression student's grid as ``student_timesteps.json``; on the
+        worker thread when checkpoints are asynchronous."""
+        path = str(self.checkpoint_dir / name)
+        sidecar = None
+        if self.student_timesteps is not None:
+            sidecar = {"student_timesteps.json": json.dumps(
+                {"timesteps": list(self.student_timesteps)})}
+        save = self._saver.save_params if self._saver is not None else ckpt.save_params
+        save(path, self.state.ema_params, config_json=to_json(self.model.config),
+             sidecar=sidecar)
+        print(f"Saved distilled student: {name}", flush=True)
+        return path

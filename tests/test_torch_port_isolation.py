@@ -15,7 +15,9 @@ through ``ServingPipeline.from_artifact``, makes a small synthetic split and
 computes the five quality metrics; then decodes a PNG directory into a
 device cache on the CPU, writes a sample grid, saves a checkpoint
 asynchronously and runs ``python -m cv_diffusion_tpu_torch.train``'s
-``main`` on the CPU for one epoch of the tiny model on that directory.
+``main`` on the CPU for one epoch of the tiny model on that directory, and
+``python -m cv_diffusion_tpu_torch.distill``'s ``main`` (regression, from a
+``save_params`` teacher) on the same directory.
 """
 
 import os
@@ -191,6 +193,20 @@ _CHILD = textwrap.dedent("""
               "--output_dir", str(tmp / "out"), "--checkpoint_dir", str(tmp / "ck")])
     assert (tmp / "ck" / "final_model.pt").is_file()
     assert (tmp / "out" / "samples_epoch_0.png").is_file()
+    # the distillation CLI on those directories, from a save_params teacher
+    from cv_diffusion_tpu_torch import distill
+    from cv_diffusion_tpu_torch.config import to_json
+    from cv_diffusion_tpu_torch.training.checkpoint import save_params
+    teacher_cfg = diffusion_config("tiny", 32, prediction_type="v_prediction")
+    save_params(str(tmp / "teacher"), init_weights(teacher_cfg, seed=0, device="cpu"),
+                to_json(teacher_cfg))
+    distill.main(["--teacher", str(tmp / "teacher"), "--data_dir", str(tmp / "lol"),
+                  "--val_dir", str(tmp / "lol"), "--variant", "tiny", "--image_size", "32",
+                  "--epochs", "1", "--batch_size", "2", "--regression",
+                  "--teacher_steps", "2", "--gt_weight", "0.3", "--device", "cpu",
+                  "--output_dir", str(tmp / "dout"), "--checkpoint_dir", str(tmp / "dck")])
+    assert (tmp / "dck" / "student_final" / "student_timesteps.json").is_file()
+    assert "cv_diffusion_tpu_torch.models.distillation" in sys.modules
 
     loaded = sorted(m for m in sys.modules if m.split(".")[0] in BLOCKED)
     assert not loaded, loaded

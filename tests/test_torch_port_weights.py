@@ -9,6 +9,7 @@ lands on the wrong tensor shows.
 
 import contextlib
 import dataclasses
+import functools
 
 import jax
 import jax.numpy as jnp
@@ -43,19 +44,25 @@ def one_torch_thread():
     torch.set_num_threads(threads)
 
 
+@functools.lru_cache(maxsize=None)
+def _param_shapes(variant, size, overrides):
+    """(jax config, the params' shapes), traced once per configuration."""
+    jcfg = jax_diffusion_config(variant, size, prediction_type="v_prediction",
+                                **dict(overrides))
+    model, _ = jax_create_model(jcfg)
+    z = jnp.zeros((1, size, size, 3))
+    return jcfg, jax.eval_shape(
+        lambda: model.init({"params": jax.random.key(0)}, z, z,
+                           jnp.zeros((1,), jnp.int32)))["params"]
+
+
 def random_jax_params(variant, size, seed=0, perturb_norms=True, **overrides):
     """(jax config, port config, params): random numpy params in the shapes
     of the JAX ``LowLightDiffusion`` (shapes from tracing, no init run).
     Kernels are LeCun normal; 1-D leaves (biases, GroupNorm scales) are
     perturbed by N(0, 0.1²) around flax's init values, or left at those
     values (0 and 1) without ``perturb_norms``."""
-    jcfg = jax_diffusion_config(variant, size, prediction_type="v_prediction",
-                                **overrides)
-    model, _ = jax_create_model(jcfg)
-    z = jnp.zeros((1, size, size, 3))
-    shapes = jax.eval_shape(
-        lambda: model.init({"params": jax.random.key(0)}, z, z,
-                           jnp.zeros((1,), jnp.int32)))["params"]
+    jcfg, shapes = _param_shapes(variant, size, tuple(sorted(overrides.items())))
     rng = np.random.default_rng(seed)
 
     def fill(path, leaf):
