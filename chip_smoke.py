@@ -165,6 +165,36 @@ Phases, one JSON line each on stdout (warnings and build logs go to stderr):
    ``student_final`` with ``params.npz``, ``model_config.json`` and
    ``student_timesteps.json``), its student then serving one request
    through ``ServingPipeline.from_config``.
+19. int8   -- the int8 convolution kernels (``csrc/qconv.cu``, built with the
+   others in phase 2, its ptxas report in its ``build`` line): each entry
+   (quantize, dense, depthwise) against its plain version bit for bit at
+   every ``QConv`` shape class of the small UNet at 256², batch 1 and 8,
+   float32 and bf16 compute, on random inputs (some past their amax); and
+   the adversarial accumulations (K = 2,048 1×1 and 2,304 3×3, every input
+   at its amax: an odd sum past 2²⁴), where a float32 ``F.conv2d`` of the
+   same int8 values must differ (the control).
+20. int8_act -- the student calibrated on the card (4 batches of 8
+   synthetic pairs, numpy draws held by SHA-256) against JAX's scales
+   (``….int8act_ref.json``, ``INT8_SCALE_TOL``); every entry on the inputs
+   of the 83 QConvs of one eager int8 UNet call (batch 1, a request's; batch
+   8, a batch's), bit for bit, and timed there (host and graph ms summed over
+   the call, the plain version's ms, the bound, ``torch._int_mm``'s on the
+   im2col'd operands for the dense entry, checked exact); the ``int8_act``
+   package written and loaded (bf16 weights, the scales); the 15 pairs
+   against JAX's int8_act package (``INT8_EVAL_TOL``), the fp32 model the
+   control that must fail; served beside the fp32 student in the same call
+   (480×720 latency, batch-8 pipelined images/s, peak, graph vs eager 0
+   LSB, launches a replay: 83 quantize, 61 dense, 22 depthwise, 1
+   attention); ``use_pallas_irb`` launching no fused IRB; ``python -m
+   cv_diffusion_tpu_torch.export --quantize int8_act --calib_dir`` on
+   ``write_lol``'s first 8 pairs, its package serving a request.
+21. qat    -- a ``qat`` and a ``qat_act`` loss and gradient at batch 2 on the
+   student against JAX's (``….qat_ref.json``, ``QAT_TOL``), the plain float
+   step the control that must fail; ``train_model`` with ``qat_act``
+   (small@256, batch 8, ``use_amp``, ``QAT_STEPS`` steps from
+   ``create_dataloaders(device_cache=True)``: ms a step, ms waiting on the
+   loader, peak, attention launches); the train CLI with ``--qat_act`` (2
+   steps, exit 0).
 
 Then the ``kernels`` line, the ``nvidia-smi`` line, and last
 ``{"ok": true, "device": {...}}``. Any failed check raises, and the script
@@ -475,8 +505,9 @@ def within(d):
             and d["param_differ_share"] <= STEP_PARAM_SHARE)
 
 
-def write_lol(root: str) -> dict:
-    """LOL's two splits, 400×600 PNG pairs under ``root/{split}/{low,high}``:
+def write_lol(root: str, splits=LOL_SPLITS) -> dict:
+    """LOL's two splits (or the first pairs of ``splits``), 400×600 PNG
+    pairs under ``root/{split}/{low,high}``:
     the high side a crop of one of ``DATA_SCENES`` 600² scenes of the
     synthetic split's generator, flipped at random; the low side its
     synthetic degradation; rows filtered None, Sub, Up, Average, Paeth in
@@ -504,7 +535,7 @@ def write_lol(root: str) -> dict:
                 write_png(os.path.join(root, split, side, f"{j:03d}.png"),
                           np.ascontiguousarray(img), (0, 1, 2, 3, 4))
 
-        list(pool.map(pair, [(split, j) for split, n in LOL_SPLITS
+        list(pool.map(pair, [(split, j) for split, n in splits
                              for j in range(n)]))
     return {"scenes_s": t1 - t0, "pairs_s": time.perf_counter() - t1}
 
@@ -1073,6 +1104,597 @@ def distill_phase(dev, n_attn: int, lak, cuda_build) -> dict:
     return fields
 
 
+# the int8 phases (19-21): the int8 convolution kernels, int8_act serving, QAT
+INT8_OPS_PER_S = 1.979e15     # H100 SXM dense int8 on the tensor cores
+QCONVS_PER_UNET_CALL = 83     # small UNet: 22 depthwise, 61 dense
+DEPTHWISE_PER_UNET_CALL = 22
+# (Cin, kernel) of the adversarial accumulations: every input at its amax,
+# one output channel's weights at 127 but its last at 126, so an interior
+# sum 127·(127·(K − 1) + 126) is odd and past 2**24
+INT8_ADVERSARIAL = ((2048, 1), (256, 3))
+# each calibrated amax of the student against JAX's (relative): 45 of the
+# 83 equal (the 44 bound, init_conv), the deepest up to 5.4e-3 off (on an
+# H100): float32 rounding of the float work between int8 convolutions puts
+# some values on the other side of a quantization boundary, and the
+# maxima of the layers after move (the CPU tests pin it in float64)
+INT8_SCALE_TOL = 1e-2
+# the int8_act package's per-image metrics against JAX's int8_act package:
+# set from readings on an H100: the port's int8_act at most 0.063
+# dB, 2.2e-3, 3.7e-4, 1.5e-3, 4.7e-3 from JAX's, the fp32 model (the
+# control) 5.57 dB, 0.40, 0.023, 0.11, 0.051: each bound ~2-3x above the
+# first and 5-30x below the second
+INT8_EVAL_TOL = {"psnr": 0.2, "ssim": 1e-2, "mae": 2e-3, "ms_ssim": 1e-2, "gmsd": 1e-2}
+# QAT at batch 2 against JAX's losses and gradient norms (relative), per
+# setting (read on an H100): qat 1.2e-5, 1.8e-5, 2.0e-5; qat_act 1.7e-3,
+# 6.3e-3, 1.7e-2, its fake-quantized activations putting some values on
+# the other side of a rounding boundary of their grid; the plain float
+# step, the control, 0.14-0.49 off in both
+QAT_TOL = {"qat": {"loss": 1e-4, "grad_global_norm": 2e-4, "grad_norm": 5e-4},
+           "qat_act": {"loss": 5e-3, "grad_global_norm": 2e-2, "grad_norm": 5e-2}}
+QAT_STEPS = 12                # train_model with qat_act: 96 pairs at batch 8
+QAT_CLI_PAIRS = 16            # the CLI's 2 steps
+
+
+def build_dir() -> str:
+    from cv_diffusion_tpu_torch.ops import cuda_build
+    return cuda_build.BUILD_DIR
+
+
+def qconv_work(kind, x, out, wq, cin=None, k=1):
+    """(bytes, int8 operations or float32 operations, rate) of one entry's
+    call: each input read once, each output written once."""
+    if kind == "quantize":
+        return (x.numel() * x.element_size() + out.numel(), 4 * x.numel(), F32_FLOPS_PER_S)
+    n, o, oh, ow = out.shape
+    moved = x.numel() + wq.numel() + out.numel() * out.element_size()
+    if kind == "depthwise":
+        return moved, 2 * n * oh * ow * o * 9, INT8_OPS_PER_S
+    return moved, 2 * n * oh * ow * o * cin * k * k, INT8_OPS_PER_S
+
+
+def qconv_bound(moved, ops, rate):
+    t_bytes, t_ops = moved / HBM_BYTES_PER_S, ops / rate
+    return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
+
+
+def int_mm_call(xq, wq, stride, padding, cin, k):
+    """The library yardstick of a dense entry: ``torch._int_mm`` on the
+    input im2col'd with ``F.unfold`` (int8 → float for the unfold, back to
+    int8: exact), padded to its shape rule (rows > 16, K and N multiples of
+    8; B column-major). Returns (the call, its int32 result [M, O])."""
+    import torch
+    import torch.nn.functional as F
+    n, h, w, cp = xq.shape
+    o = wq.shape[0]
+    cols = F.unfold(xq[..., :cin].permute(0, 3, 1, 2).float(), k, padding=padding,
+                    stride=stride)                              # [N, cin·k·k, L]
+    a = cols.permute(0, 2, 1).reshape(-1, cin * k * k)
+    kk = -(-a.shape[1] // 8) * 8
+    m = max(a.shape[0], 17)
+    a_pad = torch.zeros((m, kk), dtype=torch.int8, device=xq.device)
+    a_pad[:a.shape[0], :a.shape[1]] = a.to(torch.int8)
+    # wq [O, k, k, Cp] → [cin·k·k, O] in unfold's order (channel, then tap)
+    b = wq[..., :cin].permute(0, 3, 1, 2).reshape(o, -1)
+    nn_ = -(-o // 8) * 8
+    b_pad = torch.zeros((nn_, kk), dtype=torch.int8, device=xq.device)
+    b_pad[:o, :b.shape[1]] = b
+    bt = b_pad.t()                                              # column-major [K, N]
+    return (lambda: torch._int_mm(a_pad, bt)), a.shape[0]
+
+
+def int8_kernel_phase(dev, qk, cuda_ms, graph_ms, cfg, weights) -> dict:
+    """Phase 19: each int8 entry against its plain version, bit for bit, at
+    every QConv shape class of the small UNet at 256² (B = 1 and 8, float32
+    and bf16 compute) on random inputs, and on the adversarial
+    accumulations, where float32 must differ. Returns the ``int8`` line."""
+    import torch
+    import torch.nn.functional as F
+    from cv_diffusion_tpu_torch.export.quantization import act_quant_model, qconv_modules
+    from cv_diffusion_tpu_torch.ops import qconv as tq
+
+    t0 = time.perf_counter()
+    model, _ = act_quant_model(cfg, dev)
+    model.load_state_dict(weights, strict=True)
+    classes, calls = {}, []   # (depthwise, cin, cout, k, stride, H, W, bias) → a module
+
+    def shape_class(mod, args):
+        calls.append(mod)
+        classes.setdefault((mod.depthwise, mod.in_channels, mod.out_channels,
+                            mod.kernel_size[0], mod.stride[0], args[0].shape[2],
+                            args[0].shape[3], mod.bias is not None), mod)
+
+    hooks = [m.register_forward_pre_hook(shape_class) for m in qconv_modules(model).values()]
+    size = cfg.unet.image_size
+    with torch.inference_mode():
+        model.unet(torch.zeros(1, cfg.unet.in_channels, size, size, device=dev),
+                   torch.tensor([739], dtype=torch.int32, device=dev))
+    for h in hooks:
+        h.remove()
+    require(len(calls) == QCONVS_PER_UNET_CALL,
+            f"int8: {len(calls)} QConvs a UNet call, not {QCONVS_PER_UNET_CALL}")
+    gen = torch.Generator(device=dev).manual_seed(19)
+    checked = {"quantize": 0, "dense": 0, "depthwise": 0}
+    for (dw, cin, cout, k, stride, h, w, bias), mod in classes.items():
+        wq, s_w = tq.quantize_weight(mod.weight)
+        for b in (1, 8):
+            for dt in (torch.float32, torch.bfloat16):
+                x = (torch.randn((b, cin, h, w), generator=gen, device=dev) * 2).to(dt)
+                amax = x.float().abs().amax() * 0.75          # some inputs clip
+                xq = qk.quantize(x, amax)
+                require(torch.equal(xq, tq.quantize_plain(x, amax)),
+                        f"int8 quantize {b, cin, h, w} {dt}: kernel != plain")
+                bvec = None if mod.bias is None else mod.bias.detach().to(dt)
+                if dw:
+                    wl = tq.depthwise_weight_layout(wq)
+                    got = qk.int8_depthwise(xq, wl, cout, amax, s_w, bvec, stride, dt)
+                    want = tq.int8_depthwise_plain(xq, wl, cout, amax, s_w, bvec, stride, dt)
+                else:
+                    wl = tq.dense_weight_layout(wq)
+                    got = qk.int8_conv(xq, wl, amax, s_w, bvec, stride, k // 2, dt)
+                    want = tq.int8_conv_plain(xq, wl, amax, s_w, bvec, stride, k // 2, dt)
+                torch.cuda.synchronize()
+                require(torch.equal(got, want),
+                        f"int8 {'depthwise' if dw else 'dense'} {b, cin, cout, k, stride, h, w} "
+                        f"{dt}: max |kernel − plain| {float((got.float() - want.float()).abs().max())}")
+                checked["quantize"] += 1
+                checked["depthwise" if dw else "dense"] += 1
+    del model
+    adversarial = []
+    for cin, k in INT8_ADVERSARIAL:
+        x = torch.full((1, cin, 8, 8), 3.0, device=dev)
+        amax = torch.tensor(3.0, device=dev)
+        w = torch.randn((8, cin, k, k), generator=gen, device=dev) * 0.05
+        w[0] = 1.0
+        w[0, -1, -1, -1] = 126.0 / 127.0
+        wq, s_w = tq.quantize_weight(w)
+        require(int(wq[0, -1, -1, -1]) == 126 and int((wq[0] == 127).sum()) == cin * k * k - 1,
+                f"int8 adversarial {cin}x{k}: weights {wq[0].flatten()[-3:].tolist()}")
+        xq = qk.quantize(x, amax)
+        wl = tq.dense_weight_layout(wq)
+        exact = 127 * (127 * (cin * k * k - 1) + 126)
+        for dt in (torch.float32, torch.bfloat16):
+            got = qk.int8_conv(xq, wl, amax, s_w, None, 1, k // 2, dt)
+            want = tq.int8_conv_plain(xq, wl, amax, s_w, None, 1, k // 2, dt)
+            require(torch.equal(got, want), f"int8 adversarial {cin}x{k} {dt}: kernel != plain")
+        acc = tq.int8_acc_plain(xq, wl, 1, k // 2)
+        f32 = F.conv2d(xq.permute(0, 3, 1, 2).float(), wq.float(), padding=k // 2)
+        torch.cuda.synchronize()
+        require(float(acc[0, 0, 4, 4]) == exact and exact % 2 == 1 and exact > 2 ** 24,
+                f"int8 adversarial {cin}x{k}: exact sum {float(acc[0, 0, 4, 4])} != {exact}")
+        control = float(f32[0, 0, 4, 4])
+        require(control != exact, f"int8 adversarial {cin}x{k}: float32 conv gave the exact "
+                                  f"{exact}: the control does not fail")
+        adversarial.append(dict(cin=cin, kernel=k, k=cin * k * k, exact_sum=exact,
+                                float32_conv=control, kernel_equals_plain=True))
+    fields = dict(classes=len(classes), checked=checked, batches=[1, 8],
+                  dtypes=["float32", "bfloat16"], bit_for_bit=True, adversarial=adversarial,
+                  seconds=time.perf_counter() - t0)
+    emit("int8", **fields)
+    return fields
+
+
+def int8_timings(dev, qk, cuda_ms, graph_ms, captured) -> dict:
+    """Each entry's time summed over one UNet call's QConvs (``captured``:
+    (module, input) of each, in call order), beside its plain version's,
+    its bound and, for the dense entry, ``torch._int_mm``'s; every kernel
+    output checked against the plain version on these inputs first."""
+    import torch
+    from cv_diffusion_tpu_torch.ops import qconv as tq
+
+    sums = {e: defaultdict(float) for e in ("quantize", "dense", "depthwise")}
+    for mod, x in captured:
+        x = x.contiguous()       # as QConv hands it to the kernel
+        amax = mod.amax_eff(x)
+        dt = mod.out_dtype()
+        wq, s_w = tq.quantize_weight(mod.weight)
+        bvec = None if mod.bias is None else mod.bias.detach().to(dt)
+        xq = qk.quantize(x, amax)
+        require(torch.equal(xq, tq.quantize_plain(x, amax)), "request quantize != plain")
+        entries = [("quantize", lambda: qk.quantize(x, amax), lambda: tq.quantize_plain(x, amax),
+                    qconv_work("quantize", x, xq, None))]
+        if mod.depthwise:
+            wl = tq.depthwise_weight_layout(wq)
+            c = mod.out_channels
+            got = qk.int8_depthwise(xq, wl, c, amax, s_w, bvec, mod.stride[0], dt)
+            want = tq.int8_depthwise_plain(xq, wl, c, amax, s_w, bvec, mod.stride[0], dt)
+            entries.append(("depthwise",
+                            lambda: qk.int8_depthwise(xq, wl, c, amax, s_w, bvec, mod.stride[0], dt),
+                            lambda: tq.int8_depthwise_plain(xq, wl, c, amax, s_w, bvec,
+                                                            mod.stride[0], dt),
+                            qconv_work("depthwise", xq, got, wl)))
+        else:
+            wl = tq.dense_weight_layout(wq)
+            k, s, p = mod.kernel_size[0], mod.stride[0], mod.padding[0]
+            got = qk.int8_conv(xq, wl, amax, s_w, bvec, s, p, dt)
+            want = tq.int8_conv_plain(xq, wl, amax, s_w, bvec, s, p, dt)
+            entries.append(("dense", lambda: qk.int8_conv(xq, wl, amax, s_w, bvec, s, p, dt),
+                            lambda: tq.int8_conv_plain(xq, wl, amax, s_w, bvec, s, p, dt),
+                            qconv_work("dense", xq, got, wl, mod.in_channels, k)))
+            lib, rows = int_mm_call(xq, wl, s, p, mod.in_channels, k)
+            acc = lib()[:rows, :mod.out_channels]
+            exact = tq.int8_acc_plain(xq, wl, s, p)
+            require(torch.equal(acc, exact.permute(0, 2, 3, 1).reshape(rows, -1)),
+                    "torch._int_mm on the im2col'd operands is not the exact sum")
+            sums["dense"]["library_ms"] += cuda_ms(lib, iters=50, warmup=5)
+        require(torch.equal(got, want), "request conv: kernel != plain")
+        for name, kernel, plain, (moved, ops, rate) in entries:
+            bnd, _ = qconv_bound(moved, ops, rate)
+            row = sums[name]
+            row["ms"] += cuda_ms(kernel, iters=50, warmup=5)
+            row["graph_ms"] += graph_ms(kernel, iters=50, warmup=5)
+            row["plain_ms"] += cuda_ms(plain, iters=2, warmup=1)
+            row["bound_ms"] += bnd
+            row["bytes"] += moved
+            row["ops"] += ops
+            row["calls"] += 1
+    for name, row in sums.items():
+        t_bytes = row["bytes"] / HBM_BYTES_PER_S
+        t_ops = row["ops"] / (F32_FLOPS_PER_S if name == "quantize" else INT8_OPS_PER_S)
+        row["bound_by"] = "bytes" if t_bytes >= t_ops else "operations"
+    return {k: dict(v) for k, v in sums.items()}
+
+
+def int8_act_phase(dev, qk, cuda_ms, graph_ms, cfg, weights, images, batch_images,
+                   reset_launches, all_launches) -> dict:
+    """Phase 20: PTQ calibration of the student on the card against JAX's
+    scales, the inputs of a request's 83 QConvs through every entry against
+    the plain versions (and the entries timed over a UNet call at B = 1 and
+    8), the int8_act package written, loaded and evaluated against JAX's
+    int8_act package (the fp32 package the control), served beside fp32
+    (graph 0 LSB from eager; no fused IRB under act_quant), and the export
+    CLI. Returns the fields of the kernels line's int8 entries."""
+    import numpy as np
+    import torch
+    from cv_diffusion_tpu_torch import evaluate as ev
+    from cv_diffusion_tpu_torch.data.augment import normalize
+    from cv_diffusion_tpu_torch.data.synthetic import make_split
+    from cv_diffusion_tpu_torch.evaluate import sha256
+    from cv_diffusion_tpu_torch.export.quantization import (
+        act_quant_model, act_scales, calibrate_act_scales, qconv_modules)
+    from cv_diffusion_tpu_torch.export.serving import (ServingPipeline,
+                                                       create_serving_package,
+                                                       load_serving_package)
+    from cv_diffusion_tpu_torch.models.diffusion import enhance
+    from cv_diffusion_tpu_torch.ops.qconv import QConv
+
+    t0 = time.perf_counter()
+    with open(os.path.join(ROOT, "artifacts_torch", f"{STUDENT}.int8act_ref.json")) as f:
+        ref = json.load(f)
+    cal = ref["calibration"]
+    n_pairs = cal["batches"] * 8
+    n_split, size_split, seed_split = map(int, re.search(
+        r"make_split\((\d+), (\d+), (\d+)\)", cal["split"]).groups())
+    require(n_split == n_pairs and size_split == ref["size"], f"int8_act: {cal['split']}")
+    low_u8, high_u8 = make_split(n_pairs, ref["size"], seed_split)
+    require(sha256(low_u8) == cal["split_low_sha256"] and sha256(high_u8) == cal["split_high_sha256"],
+            "int8_act: the calibration split differs from the reference's")
+    batches, draws = [], []
+    for i in range(cal["batches"]):
+        d = reference_draws(cal["draw_seed"], i, cal["draws"])
+        require([sha256(a) for a in d] == cal["draws_sha256"][i],
+                f"int8_act: calibration batch {i}'s numpy draws differ from the reference's")
+        sl = slice(8 * i, 8 * i + 8)
+        batches.append({"low_light": normalize(low_u8[sl]), "normal_light": normalize(high_u8[sl])})
+        draws.append((d[0], d[1]))
+    qmodel, schedule = act_quant_model(cfg, dev)
+    qmodel.load_state_dict(weights, strict=True)
+    a = time.perf_counter()
+    scales = calibrate_act_scales(qmodel, schedule, batches, draws=draws)
+    torch.cuda.synchronize()
+    calib_s = time.perf_counter() - a
+    want = {r["module"]: r["amax"] for r in ref["act_scales"]}
+    require(set(scales) == set(want) and len(want) == QCONVS_PER_UNET_CALL,
+            f"int8_act: {len(scales)} scales against the reference's {len(want)}")
+    rel = {n: abs(float(scales[n]) / want[n] - 1) for n in want}
+    bound = [n for n, m in qconv_modules(qmodel).items() if m.act_bound is not None]
+    require(all(float(scales[n]) == 6.0 for n in bound) and len(bound) == 44,
+            f"int8_act: {len(bound)} statically bound QConvs")
+    worst = max(rel, key=rel.get)
+    emit("int8_act_calibration", batches=cal["batches"], batch=8, scales=len(scales),
+         calibrated=len(scales) - len(bound), static_bound=len(bound),
+         max_rel_err=rel[worst], worst=worst, equal_to_jax=sum(v == 0 for v in rel.values()),
+         median_rel_err=float(np.median(list(rel.values()))),
+         over_1e3=sum(v > 1e-3 for v in rel.values()),
+         tol=INT8_SCALE_TOL, seconds=calib_s)
+    require(rel[worst] <= INT8_SCALE_TOL,
+            f"int8_act: {worst}'s amax {float(scales[worst])} is {rel[worst]} from JAX's {want[worst]}")
+
+    # the package: bf16 weights and the scales, loaded back
+    pkg = os.path.join(build_dir(), "packages", "int8_act")
+    shutil.rmtree(pkg, ignore_errors=True)
+    fp32 = ServingPipeline.from_artifact(STUDENT, dev, batch_size=8)
+    a = time.perf_counter()
+    files = create_serving_package(pkg, fp32.model, fp32.schedule, quantize="int8_act",
+                                   act_scales=scales, timesteps=fp32.grid)
+    write_s = time.perf_counter() - a
+    a = time.perf_counter()
+    pmodel, pschedule, state, meta = load_serving_package(pkg, dev)
+    load_s = time.perf_counter() - a
+    require(meta["quantization"] == "int8_act" and pmodel.config.unet.act_quant is True
+            and all(torch.equal(state[k], v.to(torch.bfloat16).float())
+                    for k, v in fp32.model.state_dict().items())
+            and all(torch.equal(v, scales[k]) for k, v in act_scales(pmodel).items()),
+            "int8_act: the loaded package is not the bf16 weights and the scales")
+
+    # a request's own QConv inputs (B = 1) and a batch's (B = 8), eager
+    captured = []
+    hooks = [m.register_forward_pre_hook(lambda mod, args: captured.append((mod, args[0])))
+             for m in pmodel.modules() if isinstance(m, QConv)]
+    grid = fp32.grid
+    timings = {}
+    for b, imgs in ((1, images[:1]), (8, batch_images)):
+        captured.clear()
+        canvas = torch.cat([fp32.pre(im)[0] for im in imgs])
+        out = enhance(pmodel, pschedule, canvas.float() / 127.5 - 1.0, timesteps=grid,
+                      generator=torch.Generator(device=dev).manual_seed(b), device=dev)
+        require(len(captured) == QCONVS_PER_UNET_CALL * len(grid) and bool(torch.isfinite(out).all()),
+                f"int8_act: {len(captured)} QConv inputs caught at batch {b}")
+        timings[b] = int8_timings(dev, qk, cuda_ms, graph_ms, captured)
+    for h in hooks:
+        h.remove()
+    captured.clear()
+    emit("int8_request", qconvs=QCONVS_PER_UNET_CALL, bit_for_bit=True,
+         per_unet_call={b: t for b, t in timings.items()})
+
+    # quality: the 15 pairs against JAX's int8_act package; the fp32 model,
+    # the control, must fail the same bounds
+    eval_low, eval_high = ev.eval_split(15, ref["size"], 0)
+    eval_init, eval_step = ev.eval_noise(15, ref["size"], 0, len(grid))
+    hashes = ev.input_hashes(eval_low, eval_high, eval_init)
+    require([h["low"] for h in hashes] == [im["low_sha256"] for im in ref["eval"]["images"]]
+            and [h["noise"] for h in hashes] == [im["noise_sha256"] for im in ref["eval"]["images"]],
+            "int8_act eval: the inputs differ from the reference's")
+    target = ev.target_unit(eval_high, dev)
+    quality = {}
+    for label, model, sch in (("int8_act", pmodel, pschedule), ("fp32_control", fp32.model, fp32.schedule)):
+        reset_launches()
+        pred = ev.enhance_split(model, sch, eval_low, eval_init, eval_step, grid, device=dev)
+        per = ev.per_image_metrics(pred, target)
+        counts = all_launches()
+        deltas = {k: [abs(v - im[k]) for v, im in zip(per[k], ref["eval"]["images"])]
+                  for k in INT8_EVAL_TOL}
+        quality[label] = dict(mean={k: float(np.mean(per[k])) for k in INT8_EVAL_TOL},
+                              max_abs_delta={k: max(v) for k, v in deltas.items()},
+                              worst_image={k: int(np.argmax(v)) for k, v in deltas.items()},
+                              launches=counts, per_image=per)
+    emit("int8_act_eval", images=15, tol=INT8_EVAL_TOL, jax_psnr_mean=ref["eval"]["psnr_mean"],
+         **{k: {f: v[f] for f in ("mean", "max_abs_delta", "worst_image", "launches")}
+            for k, v in quality.items()})
+    sound = quality["int8_act"]["max_abs_delta"]
+    control = quality["fp32_control"]["max_abs_delta"]
+    require(all(sound[k] <= t for k, t in INT8_EVAL_TOL.items()),
+            f"int8_act eval against JAX's int8_act package: {sound} (bounds {INT8_EVAL_TOL})")
+    require(any(control[k] > t for k, t in INT8_EVAL_TOL.items()),
+            f"int8_act eval: the fp32 control {control} passes the bounds {INT8_EVAL_TOL}")
+    calls = -(-15 // ev.BATCH_SIZE) * len(grid)
+    require(quality["int8_act"]["launches"] == {
+        "linear_attention": calls, "fused_irb_v2": 0, "fused_irb_v1": 0,
+        "qconv_quantize": QCONVS_PER_UNET_CALL * calls,
+        "qconv_dense": (QCONVS_PER_UNET_CALL - DEPTHWISE_PER_UNET_CALL) * calls,
+        "qconv_depthwise": DEPTHWISE_PER_UNET_CALL * calls},
+        f"int8_act eval launches {quality['int8_act']['launches']}")
+
+    # serving: the int8_act package beside fp32 in the same call
+    served = {}
+    for label, make in (("int8_act", lambda: ServingPipeline.from_package(pkg, device=dev, batch_size=8)),
+                        ("fp32", lambda: fp32)):
+        pipe = make()
+        reset_launches()
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        for i, img in enumerate(images):           # captures batch 1
+            pipe(img, seed=i)
+        pipe.batch(batch_images, seed=1)            # captures batch 8
+        lat = []
+        for i in range(10):
+            torch.cuda.synchronize()
+            a = time.perf_counter()
+            out = pipe(images[2], seed=i)
+            lat.append((time.perf_counter() - a) * 1e3)
+        require(out.shape == images[2].shape and out.dtype == np.uint8, f"{label}: output")
+        a = time.perf_counter()
+        outs = pipe.batch(batch_images * REPS, seed=400)
+        pipelined = time.perf_counter() - a
+        require(len(outs) == 8 * REPS, f"{label}: batch outputs")
+        lsb = {}
+        for b in (1, 8):
+            canvas = torch.cat([pipe.pre(im)[0] for im in (images[:1] if b == 1 else batch_images)])
+            graph_out = pipe._run(canvas, pipe._generator(7))
+            eager_out = pipe.run_eager(canvas, pipe._generator(7))
+            lsb[b] = int((graph_out.int() - eager_out.int()).abs().max())
+        require(label != "int8_act" or all(v == 0 for v in lsb.values()),
+                f"{label}: graph vs eager {lsb} LSB")
+        torch.cuda.synchronize()
+        served[label] = dict(latency_ms_mean=float(np.mean(lat)), latency_ms_p50=float(np.median(lat)),
+                             image=list(images[2].shape), images_per_s=REPS * 8 / pipelined,
+                             batch=8, peak_mem_bytes=torch.cuda.max_memory_allocated(),
+                             graph_vs_eager_lsb=lsb, launches=all_launches(),
+                             launches_a_replay={b: g.launches for b, g in sorted(pipe.graphs.items())},
+                             replays={b: g.replays for b, g in sorted(pipe.graphs.items())})
+        if label == "int8_act":
+            want_replay = {"linear_attention": 1, "fused_irb_v2": 0, "fused_irb_v1": 0,
+                           "qconv_quantize": QCONVS_PER_UNET_CALL,
+                           "qconv_dense": QCONVS_PER_UNET_CALL - DEPTHWISE_PER_UNET_CALL,
+                           "qconv_depthwise": DEPTHWISE_PER_UNET_CALL}
+            require(all(g.launches == want_replay for g in pipe.graphs.values()),
+                    f"int8_act: launches a replay {served[label]['launches_a_replay']}")
+        del pipe
+    # use_pallas_irb is ignored under act_quant: no fused IRB launches
+    fused = ServingPipeline.from_package(pkg, device=dev, use_pallas_irb=True)
+    reset_launches()
+    fused(images[0], seed=0)
+    fused_counts = all_launches()
+    require(fused_counts["fused_irb_v2"] == 0 and fused_counts["qconv_dense"] > 0,
+            f"int8_act with use_pallas_irb: launches {fused_counts}")
+    del fused
+    served["int8_act_use_pallas_irb"] = dict(launches=fused_counts)
+    emit("int8_act_serve", package_bytes={k: os.path.getsize(v) for k, v in files.items()
+                                          if os.path.isfile(v)},
+         write_s=write_s, load_s=load_s, **served)
+
+    # the export CLI on write_lol's directory (its first 8 pairs)
+    root = os.path.join(build_dir(), "export_lol")
+    shutil.rmtree(root, ignore_errors=True)
+    write_lol(root, splits=(("our485", 8),))
+    out_pkg = os.path.join(build_dir(), "packages", "cli_int8_act")
+    shutil.rmtree(out_pkg, ignore_errors=True)
+    a = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "cv_diffusion_tpu_torch.export",
+         "--checkpoint", os.path.join("artifacts", STUDENT), "--output", out_pkg,
+         "--quantize", "int8_act", "--calib_dir", os.path.join(root, "our485"),
+         "--calib_batches", "1", "--device", dev.type],
+        cwd=ROOT, capture_output=True, text=True, timeout=600)
+    cli_s = time.perf_counter() - a
+    require(proc.returncode == 0, f"int8_act: the export CLI exited {proc.returncode}: "
+                                  f"{proc.stderr[-2000:]}")
+    cli_pipe = ServingPipeline.from_package(out_pkg, device=dev)
+    got = cli_pipe(images[0], seed=0)
+    require(got.shape == images[0].shape and cli_pipe.model.config.unet.act_quant is True
+            and cli_pipe.grid == grid, "int8_act: the CLI's package does not serve")
+    del cli_pipe
+    shutil.rmtree(root, ignore_errors=True)
+    shutil.rmtree(out_pkg, ignore_errors=True)
+    emit("int8_act_cli", exit=proc.returncode, seconds=cli_s, calib_pairs=8,
+         served=list(got.shape))
+    del pmodel, qmodel, fp32
+    torch.cuda.empty_cache()
+    emit("int8_act_done", seconds=time.perf_counter() - t0)
+    return dict(timings=timings, served=served, eval_launches=quality["int8_act"]["launches"])
+
+
+def qat_phase(dev, lak, cfg, weights, n_attn) -> dict:
+    """Phase 21: a ``qat`` and a ``qat_act`` loss and gradient at batch 2 on
+    the student against JAX's (the plain float step the control); then
+    ``train_model`` with ``qat_act`` (small@256, batch 8, QAT_STEPS steps
+    from the device cache) and the train CLI with ``--qat_act``."""
+    import numpy as np
+    import torch
+    from cv_diffusion_tpu_torch.config import TrainConfig
+    from cv_diffusion_tpu_torch.data import png
+    from cv_diffusion_tpu_torch.data.augment import normalize
+    from cv_diffusion_tpu_torch.data.synthetic import make_split
+    from cv_diffusion_tpu_torch.evaluate import eval_split, sha256
+    from cv_diffusion_tpu_torch.export.qat import fake_quant_params
+    from cv_diffusion_tpu_torch.models.diffusion import (create_model, diffusion_loss,
+                                                        train_forward)
+    from cv_diffusion_tpu_torch.training.trainer import train_model
+
+    t0 = time.perf_counter()
+    with open(os.path.join(ROOT, "artifacts_torch", f"{STUDENT}.qat_ref.json")) as f:
+        ref = json.load(f)
+    b = ref["batch"]
+    low_u8, high_u8 = (x[:b] for x in eval_split(15, ref["size"], 0))
+    require([sha256(x) for x in low_u8] == ref["inputs"]["low_sha256"]
+            and [sha256(x) for x in high_u8] == ref["inputs"]["high_sha256"],
+            "qat: the reference's inputs differ")
+    low, high = (torch.from_numpy(normalize(x)).to(dev) for x in (low_u8, high_u8))
+
+    def reading(setting, act_quant, fake_weights):
+        t, eps = reference_draws(ref["seed"], 0, setting["draws"])
+        require([sha256(t), sha256(eps)] == setting["draws_sha256"],
+                f"qat {setting['name']}: numpy's draws differ from the reference's")
+        model, schedule = create_model(dataclasses.replace(cfg, unet=dataclasses.replace(
+            cfg.unet, act_quant=act_quant)), device=dev)
+        model.load_state_dict(weights, strict=True)
+        params = dict(model.named_parameters())
+        out = train_forward(model, schedule, low, high, timesteps=torch.from_numpy(t).to(dev),
+                            noise=torch.from_numpy(eps).to(dev), train=True,
+                            params=fake_quant_params(params, model.config) if fake_weights else None)
+        loss = diffusion_loss(out["noise_pred"], out["target"], "mse")
+        loss.backward()
+        grads = {n: p.grad.double() for n, p in model.named_parameters() if p.grad is not None}
+        gnorm = float(torch.sqrt(sum(g.square().sum() for g in grads.values())))
+        named = {n: float(grads[n].norm()) for n in setting["grad_norms"]}
+        return loss.item(), gnorm, {
+            "loss": abs(loss.item() - setting["loss"]) / abs(setting["loss"]),
+            "grad_global_norm": abs(gnorm - setting["grad_global_norm"]) / setting["grad_global_norm"],
+            "grad_norm": max(abs(named[n] - v) / v for n, v in setting["grad_norms"].items())}
+
+    against = {}
+    for setting in ref["settings"]:
+        if setting["name"] == "float":
+            continue
+        loss, gnorm, errs = reading(setting, setting["act_quant"], True)
+        _, _, control = reading(setting, False, False)      # the plain float step
+        against[setting["name"]] = dict(loss=loss, jax_loss=setting["loss"], grad_global_norm=gnorm,
+                                        jax_grad_global_norm=setting["grad_global_norm"],
+                                        rel_err=errs, float_step_control_rel_err=control)
+    emit("qat_check", against_jax=against, tol=QAT_TOL, batch=b)
+    for name, r in against.items():
+        tol = QAT_TOL[name]
+        require(all(r["rel_err"][k] <= tol[k] for k in tol),
+                f"qat {name} against JAX: {r['rel_err']} (bounds {tol})")
+        require(any(r["float_step_control_rel_err"][k] > tol[k] for k in tol),
+                f"qat {name}: the float-step control {r['float_step_control_rel_err']} "
+                f"passes {tol}")
+    torch.cuda.empty_cache()
+
+    # train_model with qat_act from PNG directories through the device cache
+    work = tempfile.mkdtemp(prefix="chip_smoke_qat_")
+    root = os.path.join(build_dir(), "qat_data")
+    shutil.rmtree(root, ignore_errors=True)
+    lo, hi = make_split(8 * QAT_STEPS, DATA_SIZE, DATA_SEED + 2)
+    for j in range(8 * QAT_STEPS):
+        for side, img in (("low", lo[j]), ("high", hi[j])):
+            png.write_png(os.path.join(root, "train", side, f"{j:03d}.png"), img)
+            if j < QAT_CLI_PAIRS:
+                png.write_png(os.path.join(root, "cli", side, f"{j:03d}.png"), img)
+    tc = TrainConfig(unet_variant="small", image_size=DATA_SIZE, batch_size=8, epochs=1,
+                     qat_act=True, data_on_device=True, log_interval=1000, seed=0,
+                     prediction_type="v_prediction",
+                     checkpoint_dir=os.path.join(work, "ckpt"),
+                     output_dir=os.path.join(work, "samples"))
+    lak.linear_attention_kernel.launches = 0
+    lak.linear_attention_backward_kernel.launches = 0
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    with contextlib.redirect_stdout(sys.stderr):
+        trainer = train_model(os.path.join(root, "train"), None, tc, device=dev)
+    torch.cuda.synchronize()
+    st = trainer.epoch_stats
+    fwd, bwd = (lak.linear_attention_kernel.launches,
+                lak.linear_attention_backward_kernel.launches)
+    require(trainer.state.step == QAT_STEPS and trainer.model.config.unet.act_quant == "fake",
+            f"qat: train_model took {trainer.state.step} steps")
+    # the steps' forwards and backwards, and one 4-step sample grid at the end
+    require(bwd == QAT_STEPS * n_attn and fwd == (QAT_STEPS + 4) * n_attn,
+            f"qat: attention launches {fwd} forward, {bwd} backward")
+    run = dict(steps=st["steps"], ms_per_step=st["seconds"] * 1e3 / st["steps"],
+               loader_wait_ms_per_step=st["loader_wait_s"] * 1e3 / st["steps"],
+               images_per_s=8 * st["steps"] / st["seconds"],
+               peak_mem_bytes=torch.cuda.max_memory_allocated(),
+               attention_launches_per_step={"forward": (fwd - 4 * n_attn) / st["steps"],
+                                            "backward": bwd / st["steps"]},
+               attention_launches={"forward": fwd, "backward": bwd}, use_amp=tc.use_amp)
+    del trainer
+    torch.cuda.empty_cache()
+
+    # the train CLI with --qat_act, 2 steps
+    a = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "cv_diffusion_tpu_torch.train",
+         "--data_dir", os.path.join(root, "cli"), "--val_dir", "none", "--variant", "small",
+         "--image_size", str(DATA_SIZE), "--epochs", "1", "--batch_size", "8", "--qat_act",
+         "--prediction", "v_prediction",
+         "--checkpoint_dir", os.path.join(work, "cli_ckpt"),
+         "--output_dir", os.path.join(work, "cli_out"), "--device", dev.type],
+        cwd=ROOT, capture_output=True, text=True, timeout=600)
+    cli_s = time.perf_counter() - a
+    require(proc.returncode == 0 and os.path.isfile(os.path.join(work, "cli_ckpt", "final_model.pt")),
+            f"qat: the train CLI exited {proc.returncode}: {proc.stderr[-2000:]}")
+    shutil.rmtree(root, ignore_errors=True)
+    shutil.rmtree(work, ignore_errors=True)
+    fields = dict(train_model=run, config=f"small@{DATA_SIZE} batch 8 qat_act use_amp, "
+                                         "create_dataloaders(device_cache=True)",
+                  cli={"exit": proc.returncode, "seconds": cli_s,
+                       "steps": QAT_CLI_PAIRS // 8},
+                  seconds=time.perf_counter() - t0)
+    emit("qat", **fields)
+    return fields
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--profile", action="store_true",
@@ -1104,14 +1726,15 @@ def main() -> int:
     from cv_diffusion_tpu_torch.export.quantization import (
         dequantize_int8, quantization_error, quantization_report, quantize_model)
     from cv_diffusion_tpu_torch.export.serving import (
-        GRAPH_WARMUP, ServingPipeline, create_serving_package, kernel_launches,
-        load_serving_package)
+        GRAPH_WARMUP, ServingPipeline, create_serving_package, load_serving_package)
+    from cv_diffusion_tpu_torch.export.serving import kernel_launches as all_launches
     from cv_diffusion_tpu_torch.models.blocks import (InvertedResidualBlock,
                                                       LinearAttention)
     from cv_diffusion_tpu_torch.models.diffusion import create_model, enhance, with_dtype
     from cv_diffusion_tpu_torch.models import blocks as tblocks
     from cv_diffusion_tpu_torch.ops import fused_irb_kernel as fik
     from cv_diffusion_tpu_torch.ops import linear_attention_kernel as lak
+    from cv_diffusion_tpu_torch.ops import qconv_kernel as qk
     from cv_diffusion_tpu_torch.ops.attention import (
         linear_attention_backward_plain, linear_attention_plain)
     from cv_diffusion_tpu_torch.ops import cuda_build
@@ -1124,6 +1747,15 @@ def main() -> int:
     dev = torch.device("cuda")
     kind = torch.cuda.get_device_name(0)
     pin_fp32()   # the plain versions' convolutions in full f32, as served
+    qconv_kernels = ("qconv_quantize", "qconv_dense", "qconv_depthwise")
+
+    def kernel_launches():
+        """The float paths' kernels' launch counts; on a float path the int8
+        kernels must not have launched."""
+        counts = all_launches()
+        require(not any(counts[k] for k in qconv_kernels),
+                f"int8 kernels launched on a float path: {counts}")
+        return {k: v for k, v in counts.items() if k not in qconv_kernels}
 
     # 1. device -----------------------------------------------------------
     t0 = time.perf_counter()
@@ -1141,13 +1773,13 @@ def main() -> int:
         return module.build(), time.perf_counter() - start
 
     t0 = time.perf_counter()
-    wrappers = (("linear_attention", lak), ("fused_irb (v2, v1)", fik))
+    wrappers = (("linear_attention", lak), ("fused_irb (v2, v1)", fik), ("qconv (int8)", qk))
     with ThreadPoolExecutor(len(wrappers)) as pool:
         builds = list(pool.map(timed_build, (m for _, m in wrappers)))
     for (name, module), (built, seconds) in zip(wrappers, builds):
         print(built.log, file=sys.stderr)
         fields = {}
-        if module is lak:      # registers and spills of each instance
+        if module in (lak, qk):      # registers and spills of each instance
             fields["kernels"] = ptxas_report(built.log)
         if module is fik:      # registers and spills of each fused-IRB kernel
             report = ptxas_report(built.log)
@@ -1678,6 +2310,7 @@ def main() -> int:
         lak.linear_attention_kernel.launches = 0
         fik.fused_irb_v2.launches = 0
         fik.fused_irb_v1.launches = 0
+        qk.quantize.launches = qk.int8_conv.launches = qk.int8_depthwise.launches = 0
 
     def graph_accounting(pipe, label, want, eager_calls):
         """Hold the launches of a configuration's run to its graphs: each
@@ -1687,8 +2320,8 @@ def main() -> int:
         launches, launches inside replays, replays by batch size)."""
         counts = kernel_launches()
         for b, g in pipe.graphs.items():
-            require(g.launches == want, f"{label}: the batch-{b} graph launches "
-                                        f"{g.launches} a replay, not {want}")
+            require(g.launches == dict(want, **dict.fromkeys(qconv_kernels, 0)),
+                    f"{label}: the batch-{b} graph launches {g.launches} a replay, not {want}")
         direct = {k: ((GRAPH_WARMUP + 1) * len(pipe.graphs) + eager_calls) * v
                   for k, v in want.items()}
         require(counts == direct, f"{label}: wrapper launches {counts} != {direct}")
@@ -3077,6 +3710,14 @@ def main() -> int:
                    for k in ("linear_attention", "linear_attention_backward")}
     distill_bf16 = distill["runs"]["regression_bf16"]["launches"]
 
+    # 19-21. int8: the kernels, int8_act serving, QAT ------------------------
+    student_w = load_state_dict_npz(os.path.join(ROOT, "artifacts_torch", f"{STUDENT}.npz"), dev)
+    int8 = int8_kernel_phase(dev, qk, cuda_ms, graph_ms, cfg, student_w)
+    int8_act = int8_act_phase(dev, qk, cuda_ms, graph_ms, cfg, student_w, images,
+                              batch_images, reset_launches, all_launches)
+    qat_phase(dev, lak, cfg, student_w, n_attn)
+    del student_w
+
     # kernels line, nvidia-smi line, last line -----------------------------
     main_row = timings[((1, 1024, 4, 32), "float32")]
     bwd_main = bwd_rows[((8, 1024, 4, 32), "float32")]    # the train batch
@@ -3268,6 +3909,43 @@ def main() -> int:
                                            for (_, b), r in irb16_rows.items()
                                            if b == 8) else "bytes",
     }]
+    # the int8 entries, on the int8_act path: a UNet call's 83 QConvs summed
+    # (B = 1: a request's own inputs; B = 8: a batch's)
+    t1, t8 = int8_act["timings"][1], int8_act["timings"][8]
+    srv = int8_act["served"]["int8_act"]
+    for name, key, entry, where in (
+            ("qconv_quantize", "qconv_quantize", "quantize", ":163-168, the input quantize"),
+            ("qconv_int8_conv", "qconv_dense", "dense", ":174, conv_general_dilated int8 → int32"),
+            ("qconv_int8_depthwise", "qconv_depthwise", "depthwise",
+             ":174, conv_general_dilated int8 → int32, feature_group_count=C")):
+        r1, r8 = t1[entry], t8[entry]
+        kernels.append({
+            "name": name,
+            "route": "cuda",
+            "source": "cv_diffusion_tpu_torch/csrc/qconv.cu",
+            "replaces": f"cv_diffusion_tpu/ops/qconv.py{where} (XLA; no Pallas kernel)",
+            "launches": srv["launches"][key],
+            "launches_in_replays": sum(r * srv["launches_a_replay"][b][key]
+                                       for b, r in srv["replays"].items()),
+            "launches_int8_act_eval": int8_act["eval_launches"][key],
+            "launches_per_unet_call": r1["calls"],
+            "checked_bit_for_bit": int8["checked"][entry] + r1["calls"] + r8["calls"],
+            "max_abs_err": 0.0,
+            "ms": r1["ms"],
+            "plain_ms": r1["plain_ms"],
+            "graph_ms": r1["graph_ms"],
+            "bound_ms": r1["bound_ms"],
+            "bound_by": r1["bound_by"],
+            "library_ms": r1.get("library_ms"),
+            "library": ("torch._int_mm on the F.unfold im2col'd operands, padded"
+                        if entry == "dense" else None),
+            "shape": f"the {r1['calls']} calls of one small-UNet call at {size}², batch 1 "
+                     "(the int8_act package, a request's own inputs)",
+            "dtype": "float32",
+            "ms_b8": r8["ms"], "graph_ms_b8": r8["graph_ms"], "plain_ms_b8": r8["plain_ms"],
+            "bound_ms_b8": r8["bound_ms"], "bound_by_b8": r8["bound_by"],
+            "library_ms_b8": r8.get("library_ms"),
+        })
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi_line, flush=True)
     print(json.dumps({"ok": True, "device": {

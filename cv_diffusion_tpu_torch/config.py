@@ -33,9 +33,11 @@ class UNetConfig:
     dtype (``"float32"`` or ``"bfloat16"``; the parameters are float32
     either way), and ``remat`` with ``remat_policy`` (``"full"``,
     ``"conv"``) and ``remat_scope`` (``"all"``, ``"decoder"``)
-    rematerialises blocks in the backward (``models/unet.py``). The other
-    execution knobs (``split_skip``, ``act_quant``) are read likewise, and
-    building a model that asks for them raises ``NotImplementedError``.
+    rematerialises blocks in the backward (``models/unet.py``);
+    ``act_quant`` (False, True: int8 compute, ``"fake"``: fake-quant for
+    activation-aware QAT) is the convolutions' mode (``ops/qconv.py``). The
+    other execution knob, ``split_skip``, is read likewise, and building a
+    model that asks for it raises ``NotImplementedError``.
     """
 
     in_channels: int = 3
@@ -178,8 +180,9 @@ class TrainConfig:
     on a worker thread unless ``async_checkpoints`` is off; sample grids go
     to ``output_dir`` every ``sample_interval`` epochs. Fields the port does
     not have yet make the trainer raise ``NotImplementedError``
-    (``training.train_state.check_trainable``): ``qat``/``qat_act``, a
-    ``mesh_shape`` over more than one device, and ``use_wandb``.
+    (``training.train_state.check_trainable``): a ``mesh_shape`` over more
+    than one device, and ``use_wandb``. ``qat``/``qat_act`` train through
+    ``export.qat`` (``training.trainer``).
     """
 
     unet_variant: str = "small"

@@ -22,7 +22,11 @@ Serving packages (:func:`create_serving_package`,
 ``model_config.json`` in the JAX package's schema, ``noise_schedule.npz``,
 and the params in the port's weights format (``params.npz``), as float32,
 bfloat16 or int8 with float32 scales (``export/quantization.py``); bf16
-and int8 are brought back to float32 at load. :meth:`ServingPipeline.
+and int8 are brought back to float32 at load. An ``int8_act`` package
+holds bf16 weights and the calibrated activation scales
+(``act_scales.npz``), and is served by the int8-compute model
+(``unet.act_quant: true``): every convolution through the hand-written int8
+kernels, replayed from the CUDA graph as any other path. :meth:`ServingPipeline.
 from_artifact` serves a committed artifact on its own weights (the fp32 path
 of ``load_serving_package``). Every pipeline computes in its model config's
 ``unet.dtype`` (JAX ``serving.py:292-294``): a package or config that says
@@ -49,10 +53,11 @@ from ..device import pin_fp32, resolve_device
 from ..models.diffusion import (LowLightDiffusion, create_model, enhance,
                                 sampler_noise)
 from ..models.scheduler import LCMSchedule, lcm_timesteps
-from ..ops import fused_irb_kernel, linear_attention_kernel
+from ..ops import fused_irb_kernel, linear_attention_kernel, qconv_kernel
 from ..weights import load_state_dict_npz, save_state_dict_npz
 from .preprocess import PostProcessor, PreprocessMeta, PreProcessor
-from .quantization import dequantize_int8, quantize_model
+from .quantization import (assert_calibrated, dequantize_int8, load_act_scales,
+                           quantize_model)
 
 # the repository's root: ``artifacts/<name>/`` holds an artifact's JSON
 # files, ``artifacts_torch/<name>.npz`` its weights in the port's format
@@ -86,7 +91,10 @@ def kernel_launches() -> Dict[str, int]:
     """The hand-written kernels' wrappers' launch counts, by kernel."""
     return {"linear_attention": linear_attention_kernel.linear_attention_kernel.launches,
             "fused_irb_v2": fused_irb_kernel.fused_irb_v2.launches,
-            "fused_irb_v1": fused_irb_kernel.fused_irb_v1.launches}
+            "fused_irb_v1": fused_irb_kernel.fused_irb_v1.launches,
+            "qconv_quantize": qconv_kernel.quantize.launches,
+            "qconv_dense": qconv_kernel.int8_conv.launches,
+            "qconv_depthwise": qconv_kernel.int8_depthwise.launches}
 
 
 class SamplerGraph:
@@ -411,6 +419,7 @@ def create_serving_package(output_dir: str, model: LowLightDiffusion,
                            quantize: str = "none",
                            include_graph: bool = False,
                            batch_size: int = 1,
+                           act_scales: Optional[Dict[str, torch.Tensor]] = None,
                            dynamic_batch: bool = False,
                            deterministic: bool = False,
                            timesteps: Optional[Sequence[int]] = None
@@ -420,17 +429,19 @@ def create_serving_package(output_dir: str, model: LowLightDiffusion,
 
       params.npz           the weights in the port's format, as the codec
                            ``quantize`` gives them (``none``/``fp32``,
-                           ``bf16``, ``int8``: values, scales and mask)
+                           ``bf16``, ``int8``: values, scales and mask;
+                           ``int8_act``: bf16)
+      act_scales.npz       (``int8_act``) the calibrated activation scales,
+                           ``{QConv name: amax}`` (``export.quantization.
+                           calibrate_act_scales``), in the same format
       model_config.json    the JAX package's schema; ``framework`` is
-                           ``cv_diffusion_tpu_torch``
+                           ``cv_diffusion_tpu_torch``; an ``int8_act``
+                           package's model has ``unet.act_quant: true``
       noise_schedule.npz   ᾱ and the timestep grid
 
-    Raises ``NotImplementedError`` for ``quantize="int8_act"`` and for
+    ``int8_act`` raises ``ValueError`` without ``act_scales`` or with an
+    amax ≤ 0 (JAX ``:190-196``). Raises ``NotImplementedError`` for
     ``include_graph``. Returns the files written, by role."""
-    if quantize == "int8_act":
-        raise NotImplementedError(
-            "int8_act packages (int8 activation compute with calibrated "
-            "scales) are not ported (ROADMAP queue 1 item 6)")
     if include_graph:
         raise NotImplementedError(
             "include_graph: the JAX package's StableHLO sampler has no "
@@ -439,18 +450,35 @@ def create_serving_package(output_dir: str, model: LowLightDiffusion,
     out = Path(output_dir)
     out.mkdir(parents=True, exist_ok=True)
     state = {k: t.detach().cpu() for k, t in model.state_dict().items()}
-    qparams, codec = quantize_model(state, model.config, quantize)
+    model_cfg = model.config
+    files = {}
+    if quantize == "int8_act":
+        if act_scales is None:
+            raise ValueError(
+                "int8_act packages need calibrated act_scales "
+                "(export.quantization.calibrate_act_scales)")
+        assert_calibrated(act_scales)
+        qparams, codec = quantize_model(state, model.config, "bf16")
+        codec = "int8_act"
+        model_cfg = dataclasses.replace(model.config, unet=dataclasses.replace(
+            model.config.unet, act_quant=True))
+        files["act_scales"] = str(out / "act_scales.npz")
+        save_state_dict_npz({k: torch.as_tensor(v).detach().float().cpu().reshape(())
+                             for k, v in act_scales.items()},
+                            files["act_scales"], source="serving package, act_scales")
+    else:
+        qparams, codec = quantize_model(state, model.config, quantize)
     if codec == "int8":
         qparams = {f"{part}/{k}": torch.tensor(v) if part == "quantized" else v
                    for part in _INT8_PARTS for k, v in qparams[part].items()}
-    files = {"params": str(out / "params.npz")}
+    files["params"] = str(out / "params.npz")
     save_state_dict_npz(qparams, files["params"], source=f"serving package, {codec}")
 
     if timesteps is not None:
         timesteps = [int(t) for t in timesteps]
         num_inference_steps = len(timesteps)
     cfg = {
-        "model": json.loads(to_json(model.config)),
+        "model": json.loads(to_json(model_cfg)),
         "num_inference_steps": num_inference_steps,
         "quantization": codec,
         "input": ["dynamic" if dynamic_batch else batch_size,
@@ -482,7 +510,11 @@ def load_serving_package(package_dir: str, device="cuda",
     ``load_serving_package``, ``serving.py:266``), on ``device``. int8
     params are dequantized to float32 (JAX ``:303-306``), bf16 ones upcast
     to float32: JAX's float32 model computes with its bf16 params in float32
-    too. ``use_pallas_irb`` (None: as recorded) sets the fused-IRB route."""
+    too. An ``int8_act`` package's model is the int8-compute one its config
+    records, with its bf16 weights upcast the same way and its activation
+    scales loaded (``export.quantization.load_act_scales``).
+    ``use_pallas_irb`` (None: as recorded) sets the fused-IRB route, which
+    the int8-compute model does not take (as in JAX)."""
     pkg = Path(package_dir)
     with open(pkg / "model_config.json") as f:
         cfg = json.load(f)
@@ -498,11 +530,12 @@ def load_serving_package(package_dir: str, device="cuda",
             part, name = key.split("/", 1)
             parts[part][name] = bool(t) if part == "quantized" else t
         state = dequantize_int8(parts)
-    elif codec in ("bf16", "fp32"):
+    elif codec in ("bf16", "fp32", "int8_act"):
         state = {k: t.float() for k, t in tensors.items()}
     else:
-        raise NotImplementedError(
-            f"{package_dir}: codec {codec!r} is not ported (ROADMAP queue 1 item 6)")
+        raise ValueError(f"{package_dir}: unknown codec {codec!r}")
     model, schedule = create_model(model_cfg, device=device)
     model.load_state_dict(state, strict=True)
+    if codec == "int8_act":
+        load_act_scales(model, load_state_dict_npz(str(pkg / "act_scales.npz"), device))
     return model, schedule, state, cfg

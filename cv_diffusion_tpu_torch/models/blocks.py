@@ -1,6 +1,8 @@
 """EfficientUNet building blocks as ``nn.Module``s, NCHW.
 
-Counterpart of ``cv_diffusion_tpu/models/blocks.py`` (float path). Module and
+Counterpart of ``cv_diffusion_tpu/models/blocks.py``, with its
+convolutions as :class:`~..ops.qconv.QConv` where JAX has one (float, int8
+or fake-quant compute, ``act_quant``). Module and
 parameter names are those of the reference torch EfficientUNet, which the
 JAX package's ``export_unet_state_dict`` emits, so a state dict from either
 loads with ``strict=True``.
@@ -30,6 +32,7 @@ from ..ops.attention import linear_attention
 from ..ops.fused_irb import irb_args
 from ..ops.norms import (gn2_film_affine_gram, gn_num_groups, group_norm,
                          group_norm_film)
+from ..ops.qconv import Conv2d, QConv
 
 
 def dense(x: torch.Tensor, weight: torch.Tensor, bias: Optional[torch.Tensor],
@@ -43,20 +46,14 @@ def dense(x: torch.Tensor, weight: torch.Tensor, bias: Optional[torch.Tensor],
     return y if bias is None else y + bias.to(dtype)
 
 
-class Conv2d(nn.Conv2d):
-    """``nn.Conv2d`` with a compute dtype (``ops/qconv.py::QConv``'s float
-    path): with ``compute_dtype`` set, the input and the weight are cast to
-    it, the convolution's output has it, and the bias is added in it after
-    that rounding."""
-
-    compute_dtype: Optional[torch.dtype] = None
+class DenseConv(Conv2d):
+    """A 1×1 :class:`Conv2d` that a module applies as a dense layer to [B, C]
+    (:func:`dense` on its flattened weight): the SE block's ``fc1``/``fc2``,
+    which are flax ``Dense`` layers in the JAX package. A module of its own
+    call, so that a forward hook sees its output."""
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        dt = self.compute_dtype
-        if dt is None:
-            return super().forward(x)
-        y = self._conv_forward(x.to(dt), self.weight.to(dt), None)
-        return y if self.bias is None else y + self.bias.to(dt)[:, None, None]
+        return dense(x, self.weight.flatten(1), self.bias, self.compute_dtype)
 
 
 class Linear(nn.Linear):
@@ -81,8 +78,8 @@ def compute_dtype(name: str) -> Optional[torch.dtype]:
 
 
 def set_compute_dtype(module: nn.Module, dtype: Optional[torch.dtype]) -> None:
-    """Set ``compute_dtype`` on every :class:`Conv2d` and :class:`Linear`
-    inside ``module``."""
+    """Set ``compute_dtype`` on every :class:`Conv2d` (:class:`QConv`
+    included) and :class:`Linear` inside ``module``."""
     for m in module.modules():
         if isinstance(m, (Conv2d, Linear)):
             m.compute_dtype = dtype
@@ -186,16 +183,13 @@ class SqueezeExcitation(nn.Module):
         super().__init__()
         squeezed = max(1, int(channels * ratio))
         self.quantization_friendly = quantization_friendly
-        self.fc1 = Conv2d(channels, squeezed, 1)
-        self.fc2 = Conv2d(squeezed, channels, 1)
+        self.fc1 = DenseConv(channels, squeezed, 1)
+        self.fc2 = DenseConv(squeezed, channels, 1)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        s = x.mean(dim=(2, 3))
-        s = dense(s, self.fc1.weight.flatten(1), self.fc1.bias,
-                  self.fc1.compute_dtype)
+        s = self.fc1(x.mean(dim=(2, 3)))
         s = activation(s, self.quantization_friendly)
-        s = dense(s, self.fc2.weight.flatten(1), self.fc2.bias,
-                  self.fc2.compute_dtype)
+        s = self.fc2(s)
         s = torch.sigmoid(upcast(s)).to(x.dtype)
         return x * s[:, :, None, None]
 
@@ -214,33 +208,44 @@ class InvertedResidualBlock(nn.Module):
     would have to pass through it (the kernel has no backward; a regression
     student's sampler runs in eval mode with grad enabled); ``fold_gn``
     keeps the separate convs but applies GN2 ⊕ FiLM as the affine folded
-    from the Gram of x̂, so the expand output needs no statistics pass."""
+    from the Gram of x̂, so the expand output needs no statistics pass.
+
+    ``act_quant`` (``ops/qconv.py``) makes expand, depthwise, project and
+    skip :class:`QConv`s of that mode, expand and depthwise with the static
+    bound 6 of their ReLU6 inputs when ``quantization_friendly`` (JAX
+    ``blocks.py:266-311``); the block then takes the unfused route whatever
+    ``use_pallas_irb`` and ``fold_gn`` say, as JAX does (``:211-212, 260``)."""
 
     def __init__(self, in_channels: int, out_channels: int,
                  time_embed_dim: int, expansion_ratio: int = 4,
                  stride: int = 1, use_se: bool = True, se_ratio: float = 0.25,
                  quantization_friendly: bool = True, dropout: float = 0.0,
-                 use_pallas_irb: bool = False, fold_gn: bool = False):
+                 use_pallas_irb: bool = False, fold_gn: bool = False,
+                 act_quant=False):
         super().__init__()
         hidden = int(in_channels * expansion_ratio)
+        bound6 = 6.0 if quantization_friendly else None
         self.quantization_friendly = quantization_friendly
         self.dropout = dropout
         self.stride = stride
-        self.use_pallas_irb = use_pallas_irb
-        self.fold_gn = fold_gn
+        self.use_pallas_irb = use_pallas_irb and not act_quant
+        self.fold_gn = fold_gn and not act_quant
         self.use_residual = stride == 1 and in_channels == out_channels
         self.norm1 = GroupNorm(in_channels)
-        self.expand = Conv2d(in_channels, hidden, 1, bias=False)
+        self.expand = QConv(in_channels, hidden, 1, bias=False,
+                            act_quant=act_quant, act_bound=bound6)
         self.norm2 = GroupNorm(hidden)
         self.time_mlp = nn.Sequential(SiLU(),
                                       Linear(time_embed_dim, hidden * 2))
-        self.depthwise = Conv2d(hidden, hidden, 3, stride=stride, padding=1,
-                                groups=hidden, bias=False)
+        self.depthwise = QConv(hidden, hidden, 3, stride=stride, padding=1,
+                               groups=hidden, bias=False, act_quant=act_quant,
+                               act_bound=bound6)
         self.se = (SqueezeExcitation(hidden, se_ratio, quantization_friendly)
                    if use_se else None)
-        self.project = Conv2d(hidden, out_channels, 1, bias=False)
-        self.skip = (Conv2d(in_channels, out_channels, 1, stride=stride,
-                            bias=False)
+        self.project = QConv(hidden, out_channels, 1, bias=False,
+                             act_quant=act_quant)
+        self.skip = (QConv(in_channels, out_channels, 1, stride=stride,
+                           bias=False, act_quant=act_quant)
                      if in_channels != out_channels else None)
 
     def forward(self, x: torch.Tensor, time_emb: torch.Tensor,
@@ -297,17 +302,21 @@ class LinearAttention(nn.Module):
 
 
 class LinearAttentionBlock(nn.Module):
-    """GN → 1×1 qkv → φ-linear attention → 1×1 out → GN → +residual."""
+    """GN → 1×1 qkv → φ-linear attention → 1×1 out → GN → +residual; the
+    two 1×1s are :class:`QConv`s of ``act_quant``'s mode."""
 
-    def __init__(self, channels: int, num_heads: int = 4, dim_head: int = 32):
+    def __init__(self, channels: int, num_heads: int = 4, dim_head: int = 32,
+                 act_quant=False):
         super().__init__()
         inner = num_heads * dim_head
         self.num_heads = num_heads
         self.dim_head = dim_head
         self.norm = GroupNorm(channels)
-        self.to_qkv = Conv2d(channels, inner * 3, 1, bias=False)
+        self.to_qkv = QConv(channels, inner * 3, 1, bias=False,
+                            act_quant=act_quant)
         self.attn = LinearAttention()
-        self.to_out = nn.Sequential(Conv2d(inner, channels, 1, bias=False),
+        self.to_out = nn.Sequential(QConv(inner, channels, 1, bias=False,
+                                          act_quant=act_quant),
                                     GroupNorm(channels))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
@@ -324,11 +333,12 @@ class LinearAttentionBlock(nn.Module):
 
 
 class Downsample(nn.Module):
-    """3×3 stride-2 conv, padding 1."""
+    """3×3 stride-2 conv, padding 1 (a :class:`QConv`)."""
 
-    def __init__(self, channels: int):
+    def __init__(self, channels: int, act_quant=False):
         super().__init__()
-        self.down = Conv2d(channels, channels, 3, stride=2, padding=1)
+        self.down = QConv(channels, channels, 3, stride=2, padding=1,
+                          act_quant=act_quant)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return self.down(x)
@@ -351,9 +361,9 @@ class Upsample(nn.Module):
     (:data:`CUDNN_FFT_FROM_BATCH`) runs with cuDNN off, as PyTorch's own
     convolution."""
 
-    def __init__(self, channels: int):
+    def __init__(self, channels: int, act_quant=False):
         super().__init__()
-        self.conv = Conv2d(channels, channels, 3, padding=1)
+        self.conv = QConv(channels, channels, 3, padding=1, act_quant=act_quant)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         up = F.interpolate(upcast(x), scale_factor=2, mode="bilinear",

@@ -25,6 +25,7 @@ from torch import nn
 from ..config import DiffusionConfig
 from ..device import pin_fp32, resolve_device
 from ..ops import upcast
+from ..ops.qconv import QConv
 from . import scheduler as sched
 from .blocks import Conv2d, SiLU, set_compute_dtype
 from .scheduler import LCMSchedule, make_schedule
@@ -97,7 +98,9 @@ def with_dtype(model: LowLightDiffusion, dtype: str) -> LowLightDiffusion:
     """``model``'s weights in a model built for the compute dtype ``dtype``
     (``"float32"`` or ``"bfloat16"``), on the same device and in eval mode:
     what a JAX user gets from the same params with ``unet.dtype`` set in
-    the model config. The parameters are copied (float32 either way)."""
+    the model config. The parameters are copied (float32 either way), and
+    so are the activation scales of an ``act_quant`` model, which the state
+    dict does not hold."""
     import dataclasses
 
     cfg = dataclasses.replace(model.config, unet=dataclasses.replace(
@@ -106,6 +109,10 @@ def with_dtype(model: LowLightDiffusion, dtype: str) -> LowLightDiffusion:
     with dev:
         other = LowLightDiffusion(cfg).eval()
     other.load_state_dict(model.state_dict(), strict=True)
+    amax = {n: m.amax for n, m in model.named_modules() if isinstance(m, QConv)}
+    for n, m in other.named_modules():
+        if isinstance(m, QConv):
+            m.set_amax(amax[n])
     return other
 
 

@@ -11,7 +11,10 @@ attention is ``mid_attn``. Module names are the reference torch ones
 
 ``config.dtype`` is the compute dtype (float32 parameters cast at each use,
 ``blocks.set_compute_dtype``): the input is cast to it, and the output has
-it. ``config.remat`` rematerialises the IRBs and attention blocks in the
+it. ``config.act_quant`` makes every convolution of JAX's ``QConv`` sites
+(the IRBs' four, attention's two, the Down/Upsample convs, ``init_conv``
+and ``final_conv``) compute in its mode (``ops/qconv.py``): int8
+(``True``) or fake-quant (``"fake"``). ``config.remat`` rematerialises the IRBs and attention blocks in the
 backward (``torch.utils.checkpoint``, non-reentrant), those of
 ``remat_scope`` ``"all"`` or ``"decoder"`` (the JAX names starting ``mid``
 or ``dec``: the middle and decoder blocks), saving nothing (``remat_policy
@@ -31,14 +34,15 @@ from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
                                     create_selective_checkpoint_contexts)
 
 from ..config import UNetConfig
-from .blocks import (Conv2d, Downsample, GroupNorm, InvertedResidualBlock,
+from ..ops.qconv import QConv
+from .blocks import (Downsample, GroupNorm, InvertedResidualBlock,
                      LinearAttentionBlock, TimeEmbedding, Upsample,
                      compute_dtype, set_compute_dtype, silu)
 
 _UNPORTED = (
     ("split_skip", "the split_skip graph rewrite (ROADMAP queue 1 item 7)"),
-    ("act_quant", "int8 activation compute (ROADMAP queue 1 item 6)"),
 )
+ACT_QUANT_MODES = (False, True, "fake")
 REMAT_POLICIES = ("full", "conv")
 REMAT_SCOPES = ("all", "decoder")
 
@@ -46,11 +50,15 @@ REMAT_SCOPES = ("all", "decoder")
 def check_ported(config: UNetConfig) -> None:
     """Raise ``NotImplementedError`` for any path the port does not have
     yet (it never runs another path in its place), and ``ValueError`` for a
-    dtype other than float32 and bfloat16 or, with remat, an unknown scope
-    or policy (the JAX package's messages)."""
+    dtype other than float32 and bfloat16, an ``act_quant`` other than
+    False, True and ``"fake"`` or, with remat, an unknown scope or policy
+    (the JAX package's messages)."""
     for name, what in _UNPORTED:
         if getattr(config, name):
             raise NotImplementedError(f"UNetConfig.{name}: {what} is not ported")
+    if config.act_quant not in ACT_QUANT_MODES:
+        raise ValueError(f"UNetConfig.act_quant={config.act_quant!r}: one of "
+                         f"{ACT_QUANT_MODES}")
     if not config.use_linear_attention:
         raise NotImplementedError(
             "standard softmax attention is not ported (ROADMAP queue 1 item 7)")
@@ -111,6 +119,7 @@ class EfficientUNet(nn.Module):
         self.compute_dtype = compute_dtype(config.dtype)
         ch = config.channels
         tdim = config.time_embed_dim
+        aq = config.act_quant
 
         def irb(cin, cout):
             return InvertedResidualBlock(
@@ -118,14 +127,15 @@ class EfficientUNet(nn.Module):
                 use_se=config.use_se, se_ratio=config.se_ratio,
                 quantization_friendly=config.quantization_friendly,
                 dropout=config.dropout, use_pallas_irb=config.use_pallas_irb,
-                fold_gn=config.fold_gn)
+                fold_gn=config.fold_gn, act_quant=aq)
 
         def attention(c):
             return LinearAttentionBlock(c, config.num_attention_heads,
-                                        config.attention_head_dim)
+                                        config.attention_head_dim, act_quant=aq)
 
         self.time_mlp = TimeEmbedding(config.base_channels, tdim)
-        self.init_conv = Conv2d(config.in_channels, ch[0], 3, padding=1)
+        self.init_conv = QConv(config.in_channels, ch[0], 3, padding=1,
+                               act_quant=aq)
 
         res = config.image_size
         cur = ch[0]
@@ -142,7 +152,7 @@ class EfficientUNet(nn.Module):
             self.encoder_blocks.append(blocks)
             skip_channels.append(cur)
             if level < len(ch) - 1:
-                self.downsamplers.append(Downsample(cur))
+                self.downsamplers.append(Downsample(cur, act_quant=aq))
                 res //= 2
 
         self.mid_block1 = irb(cur, ch[-1])
@@ -163,11 +173,12 @@ class EfficientUNet(nn.Module):
             self.decoder_blocks.append(blocks)
             cur = out_ch
             if level < len(ch) - 1:
-                self.upsamplers.append(Upsample(cur))
+                self.upsamplers.append(Upsample(cur, act_quant=aq))
                 res *= 2
 
         self.final_norm = GroupNorm(cur)
-        self.final_conv = Conv2d(cur, config.out_channels, 3, padding=1)
+        self.final_conv = QConv(cur, config.out_channels, 3, padding=1,
+                                act_quant=aq)
         set_compute_dtype(self, self.compute_dtype)
         # remat by JAX block name: the encoder's only under scope "all"
         self.remat_encoder = config.remat and config.remat_scope == "all"

@@ -7,7 +7,9 @@ directories (or, with ``--use_synthetic``, a directory of normal-light
 images) through ``training.trainer.train_model``. Flags of features the port
 does not have raise ``NotImplementedError``: ``--config`` (YAML, and no
 PyYAML where the card is; ROADMAP queue 1 item 9), ``--distributed`` (item
-8), ``--qat`` and ``--qat_act`` (item 6), ``--wandb`` (not queued).
+8), ``--wandb`` (not queued). ``--qat`` trains with the weights
+fake-quantized in the forward, ``--qat_act`` also with every convolution's
+input fake-quantized (``export.qat``).
 
     python -m cv_diffusion_tpu_torch.train --data_dir D --val_dir V \\
         --variant small --image_size 256 --epochs 100 --batch_size 8
@@ -63,10 +65,6 @@ _REFUSED = {
               "(PyYAML is absent where the card is): ROADMAP queue 1 item 9",
     "distributed": "--distributed: training over more than one process is "
                    "not ported (ROADMAP queue 1 item 8)",
-    "qat": "--qat: quantization-aware training is not ported (ROADMAP "
-           "queue 1 item 6)",
-    "qat_act": "--qat_act: activation-aware QAT is not ported (ROADMAP "
-               "queue 1 item 6)",
     "wandb": "--wandb: W&B logging is not ported (not queued: no wandb and "
              "no network; ROADMAP queue 1 item 4)",
 }
@@ -130,8 +128,14 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--resume", type=str, default=None)
     p.add_argument("--prediction", type=str, default="epsilon",
                    choices=("epsilon", "v_prediction"))
-    p.add_argument("--qat", action="store_true", help="Refused")
-    p.add_argument("--qat_act", action="store_true", help="Refused")
+    p.add_argument("--qat", action="store_true",
+                   help="Quantization-aware training: fake-quantize the "
+                        "weights in the forward pass (int8, straight-through, "
+                        "the int8 export's scale and skip rules)")
+    p.add_argument("--qat_act", action="store_true",
+                   help="Activation-aware QAT: also fake-quantize every "
+                        "convolution's input (the int8 path's scale rules); "
+                        "implies --qat")
     p.add_argument("--init_params", type=str, default=None,
                    help="Warm-start params (+EMA) from a checkpoint with a "
                         "fresh optimizer and epoch")

@@ -4,7 +4,8 @@ Counterpart of ``cv_diffusion_tpu/training/train_state.py:47-131``. One
 train step is forward, backward, global-norm clip, AdamW with the LR
 schedule, and EMA, as the JAX step; with ``grad_accum_steps > 1`` it runs
 the micro-batches one after another and makes one update from their mean.
-The state is updated in place. Linear attention runs forward and backward
+The state is updated in place; ``params_transform`` (QAT's fake-quant)
+maps the parameters the forward sees. Linear attention runs forward and backward
 through the port's CUDA kernels (the CPU runs their plain versions). The
 model computes in its config's dtype (bfloat16 under ``use_amp``, which
 ``trainer.train_model`` maps as the JAX trainer does) while the parameters,
@@ -32,9 +33,6 @@ Schedule = Callable[[int], float]
 
 # TrainConfig fields the port does not have yet: (name, refused when, what).
 _UNPORTED = (
-    ("qat", lambda v: v, "quantization-aware training (ROADMAP queue 1 item 6)"),
-    ("qat_act", lambda v: v,
-     "activation-aware QAT (ROADMAP queue 1 item 6)"),
     ("mesh_shape", lambda v: v is not None and math.prod(v) > 1,
      "training over more than one device (ROADMAP queue 1 item 8)"),
     ("use_wandb", lambda v: v,
@@ -220,10 +218,17 @@ def _as_tensor(x, device) -> torch.Tensor:
 
 
 def make_train_step(model: LowLightDiffusion, schedule: LCMSchedule,
-                    config: TrainConfig) -> Callable:
+                    config: TrainConfig,
+                    params_transform: Optional[Callable] = None) -> Callable:
     """``step(state, batch) → (state, {"loss", "grad_norm"})``, both device
     scalars (no host sync). ``batch`` holds NHWC ``low_light`` and
-    ``normal_light`` in [-1, 1] (numpy arrays or tensors)."""
+    ``normal_light`` in [-1, 1] (numpy arrays or tensors).
+
+    ``params_transform`` (the QAT fake-quant, ``export.qat``) maps the
+    parameters (``{name: Parameter}``) to those the forward uses, inside
+    the loss (``torch.func.functional_call``): the gradients reach the raw
+    parameters through it, and the optimizer and the EMA update those (JAX
+    ``train_state.py:140-163``)."""
     check_trainable(config)
     accum = max(1, config.grad_accum_steps)
     device = next(model.parameters()).device
@@ -240,8 +245,11 @@ def make_train_step(model: LowLightDiffusion, schedule: LCMSchedule,
         loss = torch.zeros((), device=device)
         for i in range(accum):
             rows = slice(i * micro, (i + 1) * micro)
+            params = (None if params_transform is None
+                      else params_transform(dict(model.named_parameters())))
             out = train_forward(model, schedule, low[rows], normal[rows],
-                                generator=state.generator, train=True)
+                                generator=state.generator, train=True,
+                                params=params)
             micro_loss = diffusion_loss(out["noise_pred"], out["target"],
                                         config.loss_type)
             micro_loss.backward()

@@ -10,7 +10,10 @@ of an existing checkpoint, with a fresh optimizer, LR schedule, epoch and
 EMA). The loss is read back to the host at log intervals and once per
 epoch, never after each step. :meth:`Trainer.evaluate_quality` is the
 full-sampler PSNR/SSIM evaluation (``metrics.py``). :func:`train_model`
-trains from image directories, as the JAX one. W&B is not ported.
+trains from image directories, as the JAX one. ``qat`` / ``qat_act`` take
+the QAT step (``export.qat``); ``qat_act`` on a model not built with
+``unet.act_quant="fake"`` raises, where the JAX trainer quietly trains
+weight-only QAT. W&B is not ported.
 :class:`DistillationTrainer` is the host loop of distillation (JAX
 ``trainer.py:369-598``): a student trained from a frozen teacher, with the
 best-by-PSNR EMA student kept.
@@ -131,7 +134,18 @@ class Trainer(_HostLoop):
                 use_ema=self.config.init_params_ema), strict=True)
         self.state = create_train_state(model, self.config,
                                         steps_per_epoch=len(train_loader))
-        self.train_step = make_train_step(model, schedule, self.config)
+        if self.config.qat_act and model.config.unet.act_quant != "fake":
+            # the JAX trainer trains weight-only QAT here without a word
+            # (trainer.py:122; ROADMAP queue 3)
+            raise ValueError(
+                "TrainConfig.qat_act needs a model built with unet.act_quant="
+                f"'fake' (this one has {model.config.unet.act_quant!r}); "
+                "train_model builds it so")
+        if self.config.qat or self.config.qat_act:
+            from ..export.qat import make_qat_train_step
+            self.train_step = make_qat_train_step(model, schedule, self.config)
+        else:
+            self.train_step = make_train_step(model, schedule, self.config)
         self.eval_step = make_eval_step(model, schedule, self.config)
         self.best_val_loss = float("inf")
         if self.config.resume_from:
@@ -253,8 +267,11 @@ def train_model(train_data_dir: str, val_data_dir: Optional[str] = None,
     directories (JAX ``train_model``, ``trainer.py:339-366``): the loaders
     come from ``data.dataset.create_dataloaders`` (``native_loader``,
     ``prefetch_batches`` and ``data_on_device`` route them), ``use_amp``
-    makes the model compute in bfloat16 and ``remat`` rematerialises its
-    blocks. Returns the trainer after ``train()``."""
+    makes the model compute in bfloat16, ``remat`` rematerialises its
+    blocks, and ``qat_act`` builds it with ``unet.act_quant="fake"`` (its
+    convolutions fake-quantize their inputs; with ``qat`` or ``qat_act``
+    the step fake-quantizes the weights, ``export.qat``). Returns the
+    trainer after ``train()``."""
     from ..data.dataset import create_dataloaders
     from ..weights import init_weights
 
@@ -271,7 +288,8 @@ def train_model(train_data_dir: str, val_data_dir: Optional[str] = None,
                                  dtype="bfloat16" if config.use_amp else "float32",
                                  prediction_type=config.prediction_type,
                                  use_pallas=config.use_pallas,
-                                 remat=config.remat)
+                                 remat=config.remat,
+                                 **({"act_quant": "fake"} if config.qat_act else {}))
     model, schedule = create_model(model_cfg, device=device)
     model.load_state_dict(init_weights(model_cfg, seed=config.seed,
                                        device=device), strict=True)

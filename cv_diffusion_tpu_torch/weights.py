@@ -11,7 +11,9 @@ wherever the params can be read, and the tensors travel on from there.
 Both walk :func:`model_entries`, which pairs each state-dict name with the
 path of its JAX leaf; :func:`jax_paths` gives those paths, so that the
 port's quantization (``export/quantization.py``) applies the JAX package's
-skip rule, which is written for JAX paths.
+skip rule, which is written for JAX paths, and :func:`act_scales_to_jax` /
+:func:`act_scales_from_jax` carry calibrated activation scales between the
+port's ``QConv`` modules and JAX's ``act_scales`` collection.
 
 :func:`save_state_dict_npz` and :func:`load_state_dict_npz` write and read
 the port's own weights file (``artifacts_torch/<name>.npz``; a committed
@@ -211,6 +213,46 @@ def jax_paths(config: DiffusionConfig,
     if missing:
         raise KeyError(f"not parameters of the model: {missing[:5]}")
     return {n: paths[n] for n in names}
+
+
+def _module_path(config: DiffusionConfig, module: str) -> Tuple[str, ...]:
+    """The JAX module path of the port's convolution ``module`` (the path
+    of its kernel without ``kernel``)."""
+    path = jax_paths(config, [f"{module}.weight"])[f"{module}.weight"]
+    if path[-1] != "kernel":
+        raise KeyError(f"{module} is not a convolution of the model")
+    return path[:-1]
+
+
+def act_scales_to_jax(config: DiffusionConfig,
+                      scales: Dict[str, Any]) -> Dict[str, Any]:
+    """The port's activation scales (``{QConv module name: amax}``, e.g.
+    ``unet.mid_attn.to_out.0``) as the JAX package's ``act_scales``
+    collection: nested dicts to ``{"amax": float32 array}`` under each
+    module's JAX path (``unet/mid_attn/to_out/amax``)."""
+    out: Dict[str, Any] = {}
+    for name, amax in scales.items():
+        node = out
+        for key in _module_path(config, name):
+            node = node.setdefault(key, {})
+        node["amax"] = np.asarray(torch.as_tensor(amax).detach().cpu(), np.float32)
+    return out
+
+
+def act_scales_from_jax(config: DiffusionConfig, act_scales: Dict[str, Any],
+                        modules: Iterable[str]) -> Dict[str, torch.Tensor]:
+    """The JAX ``act_scales`` collection as the port's scales for the
+    convolutions ``modules`` (the names of a model's ``QConv``s): each
+    one's amax, read at its JAX path, in its dtype (float32). Raises ``KeyError`` for a
+    module the collection does not hold."""
+    out = {}
+    for name in modules:
+        path = _module_path(config, name) + ("amax",)
+        leaf = _leaf(act_scales, path)
+        if leaf is None:
+            raise KeyError(f"act_scales have no {'/'.join(path)} (for {name})")
+        out[name] = torch.from_numpy(np.array(leaf).reshape(()))
+    return out
 
 
 def _npz_text(a: np.ndarray) -> str:

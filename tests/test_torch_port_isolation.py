@@ -6,8 +6,9 @@ tensorstore, PyYAML, OpenCV, Pillow, safetensors or scikit-learn. A
 subprocess here refuses to import any of those, or anything of the JAX
 package, and under that block imports every module of the port and
 ``chip_smoke``, then serves one request through
-``ServingPipeline.from_config`` on the CPU, writes, loads and serves a bf16
-and an int8 serving package of that model, serves the same request with
+``ServingPipeline.from_config`` on the CPU, writes, loads and serves a bf16,
+an int8 and an int8_act (calibrated on one batch) serving package of that
+model, serves the same request with
 ``use_pallas_irb`` on, runs ``fused_irb_v1`` on one block, takes one
 train step, serves the request in bf16 compute and takes one ``use_amp``
 step; then loads the committed student's ``.npz`` and serves a request
@@ -77,6 +78,7 @@ _CHILD = textwrap.dedent("""
 
     # bf16 and int8 serving packages written, loaded and served
     import tempfile
+    import torch
     from cv_diffusion_tpu_torch.export.serving import create_serving_package
     with tempfile.TemporaryDirectory() as tmp:
         for codec in ("bf16", "int8"):
@@ -86,6 +88,22 @@ _CHILD = textwrap.dedent("""
             assert packaged.config.timesteps == (739,)
             got = packaged(img, seed=0)
             assert got.shape == img.shape and got.dtype == np.uint8
+        # an int8_act package: the int8-compute model calibrated on one
+        # batch, written, loaded and served
+        from cv_diffusion_tpu_torch.export.quantization import (
+            act_quant_model, calibrate_act_scales)
+        qmodel, _ = act_quant_model(cfg, device="cpu")
+        qmodel.load_state_dict(pipe.model.state_dict(), strict=True)
+        calib = [{{"low_light": np.full((2, 32, 32, 3), -0.5, np.float32),
+                   "normal_light": np.zeros((2, 32, 32, 3), np.float32)}}]
+        scales = calibrate_act_scales(qmodel, pipe.schedule, calib,
+                                      generator=torch.Generator().manual_seed(0))
+        create_serving_package(f"{{tmp}}/int8_act", pipe.model, pipe.schedule,
+                               quantize="int8_act", act_scales=scales, timesteps=[739])
+        packaged = ServingPipeline.from_package(f"{{tmp}}/int8_act", device="cpu")
+        assert packaged.model.config.unet.act_quant is True
+        got = packaged(img, seed=0)
+        assert got.shape == img.shape and got.dtype == np.uint8
 
     # the same request with every IRB through the fused kernel's wrapper
     import dataclasses
@@ -263,8 +281,7 @@ def test_entry_points_default_to_cuda():
 
 
 @pytest.mark.parametrize("field,value", [
-    ("split_skip", True),
-    ("act_quant", True), ("act_quant", "fake"), ("use_linear_attention", False)])
+    ("split_skip", True), ("use_linear_attention", False)])
 def test_unported_paths_raise(field, value):
     from cv_diffusion_tpu_torch.config import diffusion_config
     from cv_diffusion_tpu_torch.models.diffusion import create_model
@@ -274,9 +291,11 @@ def test_unported_paths_raise(field, value):
         create_model(cfg, device="cpu")
 
 
-@pytest.mark.parametrize("field,value", [("remat", True), ("dtype", "bfloat16")])
+@pytest.mark.parametrize("field,value", [("remat", True), ("dtype", "bfloat16"),
+                                         ("act_quant", True), ("act_quant", "fake")])
 def test_ported_paths_build(field, value):
-    """bf16 compute and remat, refused before they were ported, build."""
+    """bf16 compute, remat and int8 / fake-quant activation compute, refused
+    before they were ported, build."""
     from cv_diffusion_tpu_torch.config import diffusion_config
     from cv_diffusion_tpu_torch.models.diffusion import create_model
 

@@ -5,7 +5,8 @@ package (``cv_diffusion_tpu/export/serving.py``).
   ``params.npz``; its ``model_config.json`` equals the one JAX's
   ``create_serving_package`` writes for the same settings, key for key but
   ``framework``, and its ``noise_schedule.npz`` equals JAX's; ``int8_act``
-  and ``include_graph`` are refused.
+  without calibrated scales and ``include_graph`` are refused (int8_act
+  packages: ``tests/test_torch_port_int8_act.py``).
 - The bf16 and int8 packages load to the weights JAX's own
   ``load_serving_package`` gives, bit for bit, and serve within 5e-3 of
   JAX's ``enhance`` on those params with the same explicit noise, unfused
@@ -140,13 +141,13 @@ def test_package_files_equal_jax(pair, tmp_path, settings):
             np.testing.assert_array_equal(a[k], b[k])
 
 
-@pytest.mark.parametrize("kwargs,match", [
-    (dict(quantize="int8_act"), "ROADMAP queue 1 item 6"),
-    (dict(include_graph=True), "CUDA graph"),
+@pytest.mark.parametrize("kwargs,error,match", [
+    (dict(quantize="int8_act"), ValueError, "calibrated act_scales"),
+    (dict(include_graph=True), NotImplementedError, "CUDA graph"),
 ])
-def test_unported_package_options_raise(tiny32, tmp_path, kwargs, match):
+def test_unported_package_options_raise(tiny32, tmp_path, kwargs, error, match):
     model, schedule = tiny32
-    with pytest.raises(NotImplementedError, match=match):
+    with pytest.raises(error, match=match):
         create_serving_package(str(tmp_path), model, schedule, **kwargs)
 
 

@@ -439,7 +439,6 @@ def test_eval_step_is_masked_mse():
 
 
 @pytest.mark.parametrize("name,value", [
-    ("qat", True), ("qat_act", True),
     ("mesh_shape", (2,)), ("use_wandb", True)])
 def test_unported_training_features_raise(name, value):
     tc = dataclasses.replace(TrainConfig(use_amp=False), **{name: value})
@@ -452,11 +451,13 @@ def test_unported_training_features_raise(name, value):
 
 @pytest.mark.parametrize("name,value", [
     ("use_amp", True), ("remat", True), ("init_params_from", "weights.npz"),
-    ("data_on_device", True), ("native_loader", True)])
+    ("data_on_device", True), ("native_loader", True), ("qat", True),
+    ("qat_act", True)])
 def test_ported_training_features_are_accepted(name, value, tmp_path):
     """Refused before they were ported: a train step and a Trainer take
-    them (``init_params_from`` names a weights file written here)."""
-    model, schedule = _tiny_model()
+    them (``init_params_from`` names a weights file written here; ``qat_act``
+    is given a model built with ``act_quant="fake"``)."""
+    model, schedule = _tiny_model(**({"act_quant": "fake"} if name == "qat_act" else {}))
     if name == "init_params_from":
         value = str(tmp_path / value)
         tweights.save_state_dict_npz(model.state_dict(), value, source="test")
