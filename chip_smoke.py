@@ -166,20 +166,29 @@ Phases, one JSON line each on stdout (warnings and build logs go to stderr):
    ``student_timesteps.json``), its student then serving one request
    through ``ServingPipeline.from_config``.
 19. int8   -- the int8 convolution kernels (``csrc/qconv.cu``, built with the
-   others in phase 2, its ptxas report in its ``build`` line): each entry
-   (quantize, dense, depthwise) against its plain version bit for bit at
-   every ``QConv`` shape class of the small UNet at 256², batch 1 and 8,
-   float32 and bf16 compute, on random inputs (some past their amax); and
-   the adversarial accumulations (K = 2,048 1×1 and 2,304 3×3, every input
-   at its amax: an odd sum past 2²⁴), where a float32 ``F.conv2d`` of the
-   same int8 values must differ (the control).
+   others in phase 2; its ``build`` line: each instance's registers, static
+   shared memory and spills, which must be 0 for the dense and depthwise
+   kernels, each dense tile's dynamic shared memory, and from ``cuobjdump
+   -sass`` the dense kernels' ``IMMA`` count, which must be above 0, and
+   ``IDP4A`` count, which must be 0): each entry (quantize, dense,
+   depthwise) against its plain version bit for bit at every ``QConv``
+   shape class of the small UNet at 256² and at ``INT8_EDGES`` (ragged M,
+   O = 3, Cin = 6, stride 2 on odd H and W, outputs 300 and 301 wide),
+   batch 1 and 8, float32 and bf16 compute, on random inputs (some past
+   their amax), each launch's plan (``plan_dense``, ``plan_depthwise``)
+   held to the library's shared memory; and the adversarial accumulations
+   (K = 2,048 1×1 and 2,304 3×3 in a few output tiles, K = 1,152 1×1 in
+   many; every input at its amax: an odd sum past 2²⁴), where a float32
+   ``F.conv2d`` of the same int8 values must differ (the control).
 20. int8_act -- the student calibrated on the card (4 batches of 8
    synthetic pairs, numpy draws held by SHA-256) against JAX's scales
    (``….int8act_ref.json``, ``INT8_SCALE_TOL``); every entry on the inputs
    of the 83 QConvs of one eager int8 UNet call (batch 1, a request's; batch
    8, a batch's), bit for bit, and timed there (host and graph ms summed over
-   the call, the plain version's ms, the bound, ``torch._int_mm``'s on the
-   im2col'd operands for the dense entry, checked exact); the ``int8_act``
+   the call and by shape class, the plain version's ms, the bound, the
+   library yardstick checked exact on the same inputs: ``torch._int_mm`` on
+   the im2col'd operands for the dense entry, a float32 cuDNN depthwise
+   ``F.conv2d`` for the depthwise one); the ``int8_act``
    package written and loaded (bf16 weights, the scales); the 15 pairs
    against JAX's int8_act package (``INT8_EVAL_TOL``), the fp32 model the
    control that must fail; served beside the fp32 student in the same call
@@ -221,6 +230,7 @@ import time
 import warnings
 from collections import defaultdict
 from concurrent.futures import ThreadPoolExecutor
+from types import SimpleNamespace
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 # (label, artifact, grid, use_pallas_irb); every row serves the weights of
@@ -378,12 +388,14 @@ def ptxas_report(log: str) -> dict:
         m = re.search(r"Compiling entry function '(\w+)'", line)
         if m:
             mangled = m.group(1)
-            t = re.search(r"\d+((?:irb|linear)_\w+?)(?:I(.*?E)E|E)", mangled)
+            t = re.search(r"\d+((?:irb|linear|dense|depthwise|quantize)_\w+?)(?:I(.*?E)E|E)",
+                          mangled)
             args = re.findall(r"13__nv_bfloat16|f|L[bi]\d+E", (t and t.group(2)) or "")
             names = {"f": "float", "13__nv_bfloat16": "bf16", "Lb0E": "false", "Lb1E": "true"}
             name = mangled if not t else t.group(1) + (
                 "<" + ",".join(names.get(a, a[2:-1]) for a in args) + ">" if args else "")
-            cur = kernels.setdefault(name, {"registers": None, "spill_bytes": 0})
+            cur = kernels.setdefault(name, {"registers": None, "spill_bytes": 0,
+                                            "static_smem_bytes": 0})
             continue
         m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
         if m and cur is not None:
@@ -391,7 +403,35 @@ def ptxas_report(log: str) -> dict:
         m = re.search(r"Used (\d+) registers", line)
         if m and cur is not None:
             cur["registers"] = int(m.group(1))
+        m = re.search(r"(\d+) bytes smem", line)
+        if m and cur is not None:
+            cur["static_smem_bytes"] = int(m.group(1))
     return kernels
+
+
+def sass_counts(library: str, opcodes=("IMMA", "IGMMA", "IDP4A")):
+    """Per kernel of a built library (short names as :func:`ptxas_report`),
+    how many of its SASS instructions are each of ``opcodes``, from the
+    ``cuobjdump -sass`` beside the ``nvcc`` that built it; None where the
+    toolkit has no cuobjdump."""
+    from cv_diffusion_tpu_torch.ops import cuda_build
+
+    exe = os.path.join(os.path.dirname(cuda_build._nvcc(library)), "cuobjdump")
+    if not os.path.exists(exe):
+        return None
+    text = subprocess.run([exe, "-sass", library], capture_output=True, text=True,
+                          timeout=300, check=True).stdout
+    counts, cur = {}, None
+    for line in text.splitlines():
+        m = re.search(r"Function : (\w+)", line)
+        if m:
+            name = next(iter(ptxas_report(f"Compiling entry function '{m.group(1)}'")))
+            cur = counts.setdefault(name, dict.fromkeys(opcodes, 0))
+            continue
+        m = re.search(r"/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9]*)", line)
+        if m and cur is not None and m.group(1) in cur:
+            cur[m.group(1)] += 1
+    return counts
 
 
 def kernel_kind(name: str) -> str:
@@ -1108,10 +1148,23 @@ def distill_phase(dev, n_attn: int, lak, cuda_build) -> dict:
 INT8_OPS_PER_S = 1.979e15     # H100 SXM dense int8 on the tensor cores
 QCONVS_PER_UNET_CALL = 83     # small UNet: 22 depthwise, 61 dense
 DEPTHWISE_PER_UNET_CALL = 22
-# (Cin, kernel) of the adversarial accumulations: every input at its amax,
-# one output channel's weights at 127 but its last at 126, so an interior
-# sum 127·(127·(K − 1) + 126) is odd and past 2**24
-INT8_ADVERSARIAL = ((2048, 1), (256, 3))
+# (Cin, kernel, H = W, batch, Cout) of the adversarial accumulations: every
+# input at its amax, one output channel's weights at 127 but its last at
+# 126, so an interior sum 127·(127·(K − 1) + 126) is odd and past 2**24;
+# the first two in a few output tiles, the third in many
+INT8_ADVERSARIAL = ((2048, 1, 8, 1, 8), (256, 3, 8, 1, 8), (1152, 1, 32, 8, 128))
+# edge shapes of the int8 kernels beside the UNet's (depthwise, Cin, Cout,
+# kernel, stride, H, W, bias): ragged M, O = 3, Cin = 6, stride 2 on odd H
+# and W, channels that are not a multiple of 32, outputs wider than a
+# depthwise band (DW_MAX_COLS: column tiles that take their halo from the
+# next tile's columns); each at batch 1 and 8
+INT8_EDGES = ((False, 6, 3, 3, 1, 37, 29, True), (False, 6, 32, 3, 2, 33, 19, True),
+              (False, 100, 70, 3, 2, 17, 9, False), (False, 40, 3, 1, 1, 13, 7, True),
+              (False, 2048, 256, 1, 1, 5, 3, False), (False, 300, 136, 3, 1, 11, 11, True),
+              (True, 12, 12, 3, 1, 9, 7, False), (True, 40, 40, 3, 2, 17, 9, False),
+              (True, 100, 100, 3, 2, 33, 31, True), (True, 2048, 2048, 3, 1, 5, 3, False),
+              (True, 32, 32, 3, 1, 5, 300, False), (True, 40, 40, 3, 2, 7, 601, True),
+              (False, 32, 48, 3, 1, 5, 300, True))
 # each calibrated amax of the student against JAX's (relative): 45 of the
 # 83 equal (the 44 bound, init_conv), the deepest up to 5.4e-3 off (on an
 # H100): float32 rounding of the float work between int8 convolutions puts
@@ -1140,15 +1193,19 @@ def build_dir() -> str:
     return cuda_build.BUILD_DIR
 
 
-def qconv_work(kind, x, out, wq, cin=None, k=1):
+def qconv_work(kind, x, out, cin=None, k=1):
     """(bytes, int8 operations or float32 operations, rate) of one entry's
-    call: each input read once, each output written once."""
-    if kind == "quantize":
-        return (x.numel() * x.element_size() + out.numel(), 4 * x.numel(), F32_FLOPS_PER_S)
+    call: each input read once, each output written once, of the real
+    channels only (the zeros that pad them to ``CHANNEL_MULTIPLE`` are the
+    port's layout, not the function's). ``x``: quantize's float NCHW input,
+    or the dense and depthwise entries' padded int8 ``xq``."""
+    if kind == "quantize":       # the float input, its int8 values (N·H·W·C)
+        return x.numel() * (x.element_size() + 1), 4 * x.numel(), F32_FLOPS_PER_S
     n, o, oh, ow = out.shape
-    moved = x.numel() + wq.numel() + out.numel() * out.element_size()
-    if kind == "depthwise":
+    if kind == "depthwise":      # C = O channels in, 9·C weights
+        moved = x.numel() // x.shape[-1] * o + 9 * o + out.numel() * out.element_size()
         return moved, 2 * n * oh * ow * o * 9, INT8_OPS_PER_S
+    moved = x.numel() // x.shape[-1] * cin + o * k * k * cin + out.numel() * out.element_size()
     return moved, 2 * n * oh * ow * o * cin * k * k, INT8_OPS_PER_S
 
 
@@ -1184,12 +1241,15 @@ def int_mm_call(xq, wq, stride, padding, cin, k):
 
 def int8_kernel_phase(dev, qk, cuda_ms, graph_ms, cfg, weights) -> dict:
     """Phase 19: each int8 entry against its plain version, bit for bit, at
-    every QConv shape class of the small UNet at 256² (B = 1 and 8, float32
-    and bf16 compute) on random inputs, and on the adversarial
-    accumulations, where float32 must differ. Returns the ``int8`` line."""
+    every QConv shape class of the small UNet at 256² and at the edge shapes
+    (``INT8_EDGES``; B = 1 and 8, float32 and bf16 compute) on random
+    inputs, each launch's plan held to the library's shared memory; and on
+    the adversarial accumulations, where float32 must differ. Returns the
+    ``int8`` line."""
     import torch
     import torch.nn.functional as F
     from cv_diffusion_tpu_torch.export.quantization import act_quant_model, qconv_modules
+    from cv_diffusion_tpu_torch.ops import cuda_build
     from cv_diffusion_tpu_torch.ops import qconv as tq
 
     t0 = time.perf_counter()
@@ -1214,10 +1274,30 @@ def int8_kernel_phase(dev, qk, cuda_ms, graph_ms, cfg, weights) -> dict:
             f"int8: {len(calls)} QConvs a UNet call, not {QCONVS_PER_UNET_CALL}")
     gen = torch.Generator(device=dev).manual_seed(19)
     checked = {"quantize": 0, "dense": 0, "depthwise": 0}
-    for (dw, cin, cout, k, stride, h, w, bias), mod in classes.items():
+    cases = list(classes.items())
+    for dw, cin, cout, k, stride, h, w, bias in INT8_EDGES:
+        edge = SimpleNamespace(
+            weight=torch.randn((cout, 1 if dw else cin, k, k), generator=gen, device=dev),
+            bias=torch.randn((cout,), generator=gen, device=dev) if bias else None)
+        cases.append(((dw, cin, cout, k, stride, h, w, bias), edge))
+    qlib = cuda_build.load(qk.SOURCE, qk._declare)
+    plans = {"dense": set(), "depthwise": set()}
+    for (dw, cin, cout, k, stride, h, w, bias), mod in cases:
         wq, s_w = tq.quantize_weight(mod.weight)
         for b in (1, 8):
+            cp = tq.padded_channels(cin)
             for dt in (torch.float32, torch.bfloat16):
+                bf = int(dt == torch.bfloat16)
+                if dw:
+                    p = qk.plan_depthwise(b, h, w, cp, stride)
+                    lib_smem = qlib.qconv_depthwise_smem_bytes(p.rows, p.cols, stride)
+                    plans["depthwise"].add((p.rows, p.cols))
+                else:
+                    p = qk.plan_dense(b, h, w, cp, cout, k, stride, k // 2, dt)
+                    lib_smem = qlib.qconv_dense_smem_bytes(p.tile, bf)
+                    plans["dense"].add(p.tile)
+                require(lib_smem == p.smem_bytes <= qk.SMEM_MAX,
+                        f"int8 plan {p} against the library's {lib_smem} bytes")
                 x = (torch.randn((b, cin, h, w), generator=gen, device=dev) * 2).to(dt)
                 amax = x.float().abs().amax() * 0.75          # some inputs clip
                 xq = qk.quantize(x, amax)
@@ -1240,10 +1320,10 @@ def int8_kernel_phase(dev, qk, cuda_ms, graph_ms, cfg, weights) -> dict:
                 checked["depthwise" if dw else "dense"] += 1
     del model
     adversarial = []
-    for cin, k in INT8_ADVERSARIAL:
-        x = torch.full((1, cin, 8, 8), 3.0, device=dev)
+    for cin, k, hw, b, cout in INT8_ADVERSARIAL:
+        x = torch.full((b, cin, hw, hw), 3.0, device=dev)
         amax = torch.tensor(3.0, device=dev)
-        w = torch.randn((8, cin, k, k), generator=gen, device=dev) * 0.05
+        w = torch.randn((cout, cin, k, k), generator=gen, device=dev) * 0.05
         w[0] = 1.0
         w[0, -1, -1, -1] = 126.0 / 127.0
         wq, s_w = tq.quantize_weight(w)
@@ -1264,24 +1344,46 @@ def int8_kernel_phase(dev, qk, cuda_ms, graph_ms, cfg, weights) -> dict:
         control = float(f32[0, 0, 4, 4])
         require(control != exact, f"int8 adversarial {cin}x{k}: float32 conv gave the exact "
                                   f"{exact}: the control does not fail")
-        adversarial.append(dict(cin=cin, kernel=k, k=cin * k * k, exact_sum=exact,
+        plan = qk.plan_dense(b, hw, hw, cin, cout, k, 1, k // 2, torch.float32)
+        adversarial.append(dict(cin=cin, kernel=k, k=cin * k * k, hw=hw, batch=b, cout=cout,
+                                tile=plan.tile, exact_sum=exact,
                                 float32_conv=control, kernel_equals_plain=True))
-    fields = dict(classes=len(classes), checked=checked, batches=[1, 8],
+    fields = dict(classes=len(classes), edges=len(INT8_EDGES), checked=checked,
+                  plans={k: sorted(v) for k, v in plans.items()}, batches=[1, 8],
                   dtypes=["float32", "bfloat16"], bit_for_bit=True, adversarial=adversarial,
                   seconds=time.perf_counter() - t0)
     emit("int8", **fields)
     return fields
 
 
+def depthwise_library_call(xq, wq, channels, stride):
+    """The library yardstick of a depthwise entry: one float32 cuDNN
+    depthwise ``F.conv2d`` of the int8 values (TF32 off), exact as every
+    sum is at most 9·127² < 2**24. Returns (the call, its int32 result)."""
+    import torch
+    import torch.nn.functional as F
+    x = xq[..., :channels].permute(0, 3, 1, 2).float()
+    w = wq[:, :channels].t().reshape(channels, 1, 3, 3).float()
+
+    def call():
+        with torch.backends.cudnn.flags(enabled=True, allow_tf32=False):
+            return F.conv2d(x, w, stride=stride, padding=1, groups=channels)
+    return call, call().to(torch.int32)
+
+
 def int8_timings(dev, qk, cuda_ms, graph_ms, captured) -> dict:
     """Each entry's time summed over one UNet call's QConvs (``captured``:
     (module, input) of each, in call order), beside its plain version's,
-    its bound and, for the dense entry, ``torch._int_mm``'s; every kernel
-    output checked against the plain version on these inputs first."""
+    its bound and its library yardstick (dense: ``torch._int_mm``;
+    depthwise: a float32 cuDNN depthwise convolution; both checked exact on
+    these inputs); every kernel output checked against the plain version on
+    these inputs first. ``per_shape``: the dense and depthwise rows by
+    shape class (depthwise, Cin, Cout, kernel, stride, H, W)."""
     import torch
     from cv_diffusion_tpu_torch.ops import qconv as tq
 
     sums = {e: defaultdict(float) for e in ("quantize", "dense", "depthwise")}
+    shapes = defaultdict(lambda: defaultdict(float))
     for mod, x in captured:
         x = x.contiguous()       # as QConv hands it to the kernel
         amax = mod.amax_eff(x)
@@ -1291,47 +1393,62 @@ def int8_timings(dev, qk, cuda_ms, graph_ms, captured) -> dict:
         xq = qk.quantize(x, amax)
         require(torch.equal(xq, tq.quantize_plain(x, amax)), "request quantize != plain")
         entries = [("quantize", lambda: qk.quantize(x, amax), lambda: tq.quantize_plain(x, amax),
-                    qconv_work("quantize", x, xq, None))]
+                    qconv_work("quantize", x, xq))]
+        k, s, p = mod.kernel_size[0], mod.stride[0], mod.padding[0]
+        c = mod.out_channels
         if mod.depthwise:
             wl = tq.depthwise_weight_layout(wq)
-            c = mod.out_channels
-            got = qk.int8_depthwise(xq, wl, c, amax, s_w, bvec, mod.stride[0], dt)
-            want = tq.int8_depthwise_plain(xq, wl, c, amax, s_w, bvec, mod.stride[0], dt)
-            entries.append(("depthwise",
-                            lambda: qk.int8_depthwise(xq, wl, c, amax, s_w, bvec, mod.stride[0], dt),
-                            lambda: tq.int8_depthwise_plain(xq, wl, c, amax, s_w, bvec,
-                                                            mod.stride[0], dt),
-                            qconv_work("depthwise", xq, got, wl)))
+            got = qk.int8_depthwise(xq, wl, c, amax, s_w, bvec, s, dt)
+            want = tq.int8_depthwise_plain(xq, wl, c, amax, s_w, bvec, s, dt)
+            entries.append(("depthwise", lambda: qk.int8_depthwise(xq, wl, c, amax, s_w, bvec, s, dt),
+                            lambda: tq.int8_depthwise_plain(xq, wl, c, amax, s_w, bvec, s, dt),
+                            qconv_work("depthwise", xq, got)))
+            lib, acc = depthwise_library_call(xq, wl, c, s)
+            require(torch.equal(acc, tq.int8_depthwise_acc_plain(xq, wl, c, s)),
+                    "the float32 cuDNN depthwise convolution is not the exact sum")
         else:
             wl = tq.dense_weight_layout(wq)
-            k, s, p = mod.kernel_size[0], mod.stride[0], mod.padding[0]
             got = qk.int8_conv(xq, wl, amax, s_w, bvec, s, p, dt)
             want = tq.int8_conv_plain(xq, wl, amax, s_w, bvec, s, p, dt)
             entries.append(("dense", lambda: qk.int8_conv(xq, wl, amax, s_w, bvec, s, p, dt),
                             lambda: tq.int8_conv_plain(xq, wl, amax, s_w, bvec, s, p, dt),
-                            qconv_work("dense", xq, got, wl, mod.in_channels, k)))
+                            qconv_work("dense", xq, got, mod.in_channels, k)))
             lib, rows = int_mm_call(xq, wl, s, p, mod.in_channels, k)
-            acc = lib()[:rows, :mod.out_channels]
+            acc = lib()[:rows, :c]
             exact = tq.int8_acc_plain(xq, wl, s, p)
             require(torch.equal(acc, exact.permute(0, 2, 3, 1).reshape(rows, -1)),
                     "torch._int_mm on the im2col'd operands is not the exact sum")
-            sums["dense"]["library_ms"] += cuda_ms(lib, iters=50, warmup=5)
         require(torch.equal(got, want), "request conv: kernel != plain")
-        for name, kernel, plain, (moved, ops, rate) in entries:
+        name = entries[-1][0]
+        library_ms = cuda_ms(lib, iters=50, warmup=5)
+        sums[name]["library_ms"] += library_ms
+        shape = shapes[(mod.depthwise, mod.in_channels, c, k, s, x.shape[2], x.shape[3])]
+        shape["library_ms"] += library_ms
+        for entry, kernel, plain, (moved, ops, rate) in entries:
             bnd, _ = qconv_bound(moved, ops, rate)
-            row = sums[name]
+            row = sums[entry]
             row["ms"] += cuda_ms(kernel, iters=50, warmup=5)
-            row["graph_ms"] += graph_ms(kernel, iters=50, warmup=5)
+            g_ms = graph_ms(kernel, iters=50, warmup=5)
+            row["graph_ms"] += g_ms
             row["plain_ms"] += cuda_ms(plain, iters=2, warmup=1)
             row["bound_ms"] += bnd
             row["bytes"] += moved
             row["ops"] += ops
             row["calls"] += 1
+            if entry == name:
+                shape["graph_ms"] += g_ms
+                shape["bound_ms"] += bnd
+                shape["calls"] += 1
     for name, row in sums.items():
         t_bytes = row["bytes"] / HBM_BYTES_PER_S
         t_ops = row["ops"] / (F32_FLOPS_PER_S if name == "quantize" else INT8_OPS_PER_S)
         row["bound_by"] = "bytes" if t_bytes >= t_ops else "operations"
-    return {k: dict(v) for k, v in sums.items()}
+    out = {k: dict(v) for k, v in sums.items()}
+    out["per_shape"] = sorted(
+        ({"depthwise": key[0], "cin": key[1], "cout": key[2], "kernel": key[3],
+          "stride": key[4], "hw": [key[5], key[6]], **v} for key, v in shapes.items()),
+        key=lambda r: -r["graph_ms"])
+    return out
 
 
 def int8_act_phase(dev, qk, cuda_ms, graph_ms, cfg, weights, images, batch_images,
@@ -1779,8 +1896,32 @@ def main() -> int:
     for (name, module), (built, seconds) in zip(wrappers, builds):
         print(built.log, file=sys.stderr)
         fields = {}
-        if module in (lak, qk):      # registers and spills of each instance
+        if module is lak:      # registers and spills of each instance
             fields["kernels"] = ptxas_report(built.log)
+        if module is qk:
+            # registers, static shared memory and spills of each instance,
+            # the dynamic shared memory of each dense tile, and the dense
+            # kernels on the tensor cores: IMMA in their SASS, no IDP4A
+            report = ptxas_report(built.log)
+            new = {k: v for k, v in report.items() if k.startswith(("dense_", "depthwise_"))}
+            require(len(new) == 2 * len(qk.DENSE_TILES) + 4,     # depthwise: f32, bf16 × stride
+                    f"int8: ptxas reports {sorted(new)}")
+            spilled = {k: v for k, v in new.items() if v["spill_bytes"]}
+            require(not spilled, f"int8 kernels spill: {spilled}")
+            qlib = cuda_build.load(qk.SOURCE, qk._declare)
+            fields["kernels"] = report
+            fields["dense_dynamic_smem_bytes"] = {
+                f"{t}:{bm}x{bn}": [qlib.qconv_dense_smem_bytes(t, bf) for bf in (0, 1)]
+                for t, (bm, bn, _, _) in enumerate(qk.DENSE_TILES)}
+            sass = sass_counts(built.path)
+            fields["sass"] = sass if sass is None else {
+                k: v for k, v in sass.items() if k.startswith(("dense_", "depthwise_"))}
+            if sass is not None:
+                dense = {k: v for k, v in sass.items() if k.startswith("dense_")}
+                require(len(dense) == 2 * len(qk.DENSE_TILES)
+                        and all(v["IMMA"] + v["IGMMA"] > 0 and v["IDP4A"] == 0
+                                for v in dense.values()),
+                        f"int8 dense kernels not on the tensor cores: {dense}")
         if module is fik:      # registers and spills of each fused-IRB kernel
             report = ptxas_report(built.log)
             require(any(k.startswith(NO_SPILL_KERNELS) for k in report),
@@ -3937,8 +4078,12 @@ def main() -> int:
             "bound_ms": r1["bound_ms"],
             "bound_by": r1["bound_by"],
             "library_ms": r1.get("library_ms"),
-            "library": ("torch._int_mm on the F.unfold im2col'd operands, padded"
-                        if entry == "dense" else None),
+            "library": {
+                "quantize": "none: torch.quantize_per_tensor clips at -128, not -127, "
+                            "and writes NCHW",
+                "dense": "torch._int_mm on the F.unfold im2col'd operands, padded",
+                "depthwise": "F.conv2d float32 depthwise of the int8 values (cuDNN, TF32 "
+                             "off): exact, every sum below 2**24"}[entry],
             "shape": f"the {r1['calls']} calls of one small-UNet call at {size}², batch 1 "
                      "(the int8_act package, a request's own inputs)",
             "dtype": "float32",

@@ -12,8 +12,8 @@
 // (cv_diffusion_tpu_torch/ops/qconv.py) bit for bit:
 //
 //   qconv_quantize_*   x [N, C, H, W] -> int8 [N, H, W, Cp], Cp = C rounded up
-//                      to a multiple of 4 (the padding channels 0):
-//                      q = clip(rint(x / s_x), -127, 127), s_x =
+//                      to a multiple of 32 (kChannelMultiple; the padding
+//                      channels 0): q = clip(rint(x / s_x), -127, 127), s_x =
 //                      max(amax, 1e-6) * float(1/127). The product needs the
 //                      channel (K) axis contiguous, so the NCHW -> NHWC
 //                      transpose is done in the same pass, through a 32 x 32
@@ -24,36 +24,52 @@
 //                      xq * wq, wq laid out [O, K, K, Cp].
 //   qconv_depthwise_*  3x3 depthwise, stride 1 or 2, padding 1, wq [9, Cp].
 //
-// Both convolutions sum in int32, exactly and so in any order, and apply the
-// epilogue of the plain version in its order: y = float(acc) * (s_x *
-// s_w[o]), the scale product formed first, rounded to the compute dtype,
-// then + bias in that dtype. Every multiply and add is an explicitly rounded
-// intrinsic (__fmul_rn, __fadd_rn): nvcc would otherwise contract y * s + b
-// into one FMA, which rounds once where PyTorch rounds twice. The divide is
-// __fdiv_rn and the rounding rintf (half to even); the file is built without
-// --use_fast_math. s_x is computed from the device scalar amax in every
-// thread that needs it, the same way, so no host sync is needed and the
-// sampler's CUDA graph captures the path.
+// Both convolutions sum in int32, exactly and so in any order (|acc| <=
+// 2,304 * 127^2 < 2^31), and apply the epilogue of the plain version in its
+// order: y = float(acc) * (s_x * s_w[o]), the scale product formed first,
+// rounded to the compute dtype, then + bias in that dtype. Every multiply
+// and add is an explicitly rounded intrinsic (__fmul_rn, __fadd_rn): nvcc
+// would otherwise contract y * s + b into one FMA, which rounds once where
+// PyTorch rounds twice. The divide is __fdiv_rn and the rounding rintf (half
+// to even); the file is built without --use_fast_math. s_x is computed from
+// the device scalar amax in every thread that needs it, the same way, so no
+// host sync is needed and the sampler's CUDA graph captures the path.
 //
-// What bounds them on an H100 SXM (3.35 TB/s, 1,979 dense int8 TOP/s on the
-// tensor cores; __dp4a runs on the CUDA cores at a small fraction of that).
-// At the small UNet's widest 1x1 (the decoder's project, 2,048 -> 512 at
-// 32 x 32, batch 1) the product is 2 * 1024 * 2048 * 512 = 2.1 G int8
-// operations, ~1.1 us at the tensor-core rate, against ~5.2 MB moved
-// (2.1 MB of int8 input, 1.0 MB of int8 weights, 2.1 MB of f32 output),
-// ~1.6 us: bound by bytes, as chip_smoke.py's qconv_work counts it; at
-// batch 1 most convolutions of the UNet are bound by bytes, and by the
-// launch. This first version is the simple tiling that
-// is right: each 256-thread block computes a 64-pixel x 64-channel tile of
-// the output, stages 32 channels of one tap at a time for both operands in
-// shared memory as 32-bit words, and each thread sums a 4 x 4 sub-tile with
-// __dp4a (four int8 products a instruction). It reads the input once per
-// 64 output channels and per tap (no reuse across the taps of a 3x3), and
-// leaves the tensor cores idle: mma.sync m16n8k32 s8 (its .row.col operands
-// are why the activations are pixel-major) and reuse of the staged pixels
-// across taps are the work for a later kernel PR. The depthwise entry is one
-// thread per output pixel and group of four channels, nine 32-bit loads and
-// 36 integer products; it is bound by bytes.
+// What bounds them on an H100 SXM (3.35 TB/s; 1,979 dense int8 TOP/s on the
+// tensor cores). The dense entry is an implicit GEMM, M = N * OH * OW
+// pixels, N = O channels, K = taps * Cp: at the small UNet's shapes its
+// products need under a seventh of the time its bytes do (chip_smoke.py's
+// qconv_work), and its bytes are above all the float32 NCHW output. So:
+//  - the products run on the tensor cores (mma.sync m16n8k32 s8, int32
+//    accumulators), fed by ldmatrix from a shared-memory ring whose 16-byte
+//    chunks are swizzled so that eight rows of one chunk column fall in
+//    eight different bank groups;
+//  - the operands arrive by 16-byte cp.async, kStages stages of a 64-byte K
+//    step in flight: both layouts are K-major (xq pixel-major, wq [O, kh,
+//    kw, Cp]), so a chunk is 16 contiguous bytes of one tap, zero-filled
+//    where a tap falls in the padding; the taps of a 3x3 are nine K steps
+//    over the same input rows, which the ring reaches in L2, not in device
+//    memory nine times over;
+//  - the epilogue stages the tile in shared memory, transposed, so that a
+//    warp stores 512 contiguous bytes of one output channel, 16 a thread;
+//  - a per-shape plan (ops/qconv_kernel.py::plan_dense) picks the largest
+//    of four tiles that still gives a wave of blocks. (Splitting K where the
+//    tiles do not fill the 132 SMs was measured slower at every small-UNet
+//    shape, its zeroed workspace and atomics included, and is not done.)
+// The depthwise entry does 9 products a byte it reads and is bound by
+// bytes, again above all its output's. A block takes 32 channels (one
+// 32-byte run of each pixel) of a band of output rows of one image: it
+// stages the band's input rows with their halo in shared memory by 16-byte
+// copies along channels (two neighbouring threads, one pixel's 32 bytes), so
+// each input byte comes from device memory once per band and each of the
+// nine taps from shared memory, pixels rotated within groups of 4 so that a
+// warp's reads fall in distinct banks; a thread then takes 4 channels of 4
+// neighbouring output pixels, with the slab's weights in registers, and
+// stores each channel's 4 pixels at once, 16 bytes of float32: a warp writes
+// whole 32-byte sectors along pixels, in NCHW, with no staging of the output
+// (ops/qconv_kernel.py::plan_depthwise sizes the band). The quantize entry
+// reads x once and writes xq once; it is bound by bytes. No Pallas kernel is
+// replaced by any of the three.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -63,10 +79,8 @@ namespace {
 
 constexpr float kInv127 = 1.0f / 127.0f;   // float(1/127), as JAX's compiled scales
 constexpr float kActFloor = 1e-6f;
-constexpr int kTileM = 64;      // output pixels a dense block
-constexpr int kTileN = 64;      // output channels a dense block
-constexpr int kTileWords = 8;   // 32-bit words (4 int8 channels each) staged a step
-constexpr int kThreads = 256;
+constexpr int kChannelMultiple = 32;       // ops/qconv.py CHANNEL_MULTIPLE
+constexpr int kQuantizeThreads = 256;
 
 __device__ __forceinline__ float act_scale(const float* amax) {
   return __fmul_rn(fmaxf(*amax, kActFloor), kInv127);
@@ -81,25 +95,59 @@ __device__ __forceinline__ signed char quantize_one(float x, float s) {
 }
 
 // float(acc) * scale, rounded to the output dtype, then + bias in that dtype
-__device__ __forceinline__ void store(float* out, int acc, float scale, const float* bias, int c) {
+__device__ __forceinline__ float dequant(int acc, float scale, const float* bias, int c) {
   float y = __fmul_rn(__int2float_rn(acc), scale);
   if (bias != nullptr) y = __fadd_rn(y, bias[c]);
-  *out = y;
+  return y;
 }
 
-__device__ __forceinline__ void store(__nv_bfloat16* out, int acc, float scale,
-                                      const __nv_bfloat16* bias, int c) {
+__device__ __forceinline__ __nv_bfloat16 dequant(int acc, float scale, const __nv_bfloat16* bias,
+                                                 int c) {
   __nv_bfloat16 y = __float2bfloat16_rn(__fmul_rn(__int2float_rn(acc), scale));
   if (bias != nullptr) y = __float2bfloat16_rn(__fadd_rn(__bfloat162float(y), __bfloat162float(bias[c])));
-  *out = y;
+  return y;
 }
+
+// Inline PTX: every instruction this file uses beyond plain C++.
+
+// Asynchronous 16-byte copy from device to shared memory; with valid false
+// the destination is zero-filled and nothing is read.
+__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool valid) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d), "l"(src),
+               "r"(valid ? 16 : 0));
+}
+__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
+template <int N> __device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+
+// Four 8 x 16-byte matrices from shared memory: lanes 8q .. 8q + 7 give the
+// rows of matrix q, and each lane receives, of matrix q, the 4 bytes
+// 4 * (lane % 4) .. + 3 of its row lane / 4 in r[q].
+__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const void* row) {
+  const unsigned a = static_cast<unsigned>(__cvta_generic_to_shared(row));
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(a));
+}
+
+// d += a (16 x 32, row) . b (32 x 8, col), int8 in, int32 accumulate.
+__device__ __forceinline__ void mma_s8(int (&d)[4], const uint32_t (&a)[4], const uint32_t* b) {
+  asm volatile("mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 "
+               "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+               : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3])
+               : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+// End of inline PTX.
 
 // grid (ceil(HW / 32), ceil(Cp / 32), N), block (32, 8)
 template <typename T>
-__global__ void __launch_bounds__(kThreads) quantize_kernel(const T* __restrict__ x,
-                                                           const float* __restrict__ amax,
-                                                           signed char* __restrict__ out, int C,
-                                                           int HW, int Cp) {
+__global__ void __launch_bounds__(kQuantizeThreads) quantize_kernel(const T* __restrict__ x,
+                                                                   const float* __restrict__ amax,
+                                                                   signed char* __restrict__ out,
+                                                                   int C, int HW, int Cp) {
   __shared__ signed char tile[32][33];
   const int n = blockIdx.z, p0 = blockIdx.x * 32, c0 = blockIdx.y * 32;
   const int tx = threadIdx.x, ty = threadIdx.y;
@@ -119,129 +167,311 @@ __global__ void __launch_bounds__(kThreads) quantize_kernel(const T* __restrict_
   }
 }
 
-// grid (ceil(M / 64), ceil(O / 64)), M = N * OH * OW; 256 threads
-template <typename T>
-__global__ void __launch_bounds__(kThreads)
+// --- the dense entry: implicit GEMM on the tensor cores ----------------------
+
+constexpr int kBK = 64;       // bytes of K a pipeline stage: two m16n8k32 steps
+constexpr int kStages = 4;    // stages of the cp.async ring
+
+// A tile of BM pixels x BN output channels, WM x WN warps; these four are
+// ops/qconv_kernel.py's DENSE_TILES, in order.
+template <int BM_, int BN_, int WM_, int WN_>
+struct DenseTile {
+  static constexpr int BM = BM_, BN = BN_, WM = WM_, WN = WN_;
+  static constexpr int kThreads = 32 * WM * WN;
+  static constexpr int kMT = BM / WM / 16;   // m16 tiles a warp
+  static constexpr int kNT = BN / WN / 8;    // n8 tiles a warp
+  static constexpr int kStageBytes = (BM + BN) * kBK;
+  static_assert(kMT >= 1 && kNT >= 1 && (BM * 4) % kThreads == 0 && (BN * 4) % kThreads == 0,
+                "tile shape");
+  // the epilogue's [BN][BM + pad] tile of the output dtype, rows 16-byte aligned
+  template <typename T> __host__ __device__ static constexpr int out_stride() {
+    return BM + 16 / sizeof(T);
+  }
+  template <typename T> __host__ __device__ static constexpr int smem_bytes() {
+    return kStages * kStageBytes > BN * out_stride<T>() * static_cast<int>(sizeof(T))
+               ? kStages * kStageBytes
+               : BN * out_stride<T>() * static_cast<int>(sizeof(T));
+  }
+};
+using Tile0 = DenseTile<128, 128, 2, 4>;
+using Tile1 = DenseTile<128, 64, 2, 2>;
+using Tile2 = DenseTile<64, 64, 2, 2>;
+using Tile3 = DenseTile<128, 32, 4, 1>;
+
+// The byte offset of 16-byte chunk `chunk` of row `row` in a ring tile of
+// 64-byte rows: rows 2j and 2j + 1 share a bank group pattern, so the chunk
+// is XORed with (row / 2) % 4, and ldmatrix's eight rows of one chunk
+// column fall in eight different 16-byte bank groups.
+__device__ __forceinline__ int swizzle(int row, int chunk) {
+  return row * kBK + ((chunk ^ ((row >> 1) & 3)) << 4);
+}
+
+// grid (ceil(M / BM), ceil(O / BN))
+template <typename T, typename Tile>
+__global__ void __launch_bounds__(Tile::kThreads)
     dense_kernel(const signed char* __restrict__ xq, const signed char* __restrict__ wq,
                  const float* __restrict__ amax, const float* __restrict__ s_w,
                  const T* __restrict__ bias, T* __restrict__ out, int N, int H, int W, int Cp,
-                 int O, int K, int stride, int pad, int OH, int OW) {
-  __shared__ int sA[kTileWords][kTileM];
-  __shared__ int sB[kTileWords][kTileN];
-  const int tid = threadIdx.x;
-  const int tm = tid & 15, tn = tid >> 4;    // this thread's 4 x 4 outputs
-  const int m0 = blockIdx.x * kTileM, o0 = blockIdx.y * kTileN;
-  const int P = OH * OW, M = N * P, words = Cp >> 2;
+                 int O, int KS, int stride, int pad, int OH, int OW) {
+  constexpr int BM = Tile::BM, BN = Tile::BN, THREADS = Tile::kThreads;
+  constexpr int MT = Tile::kMT, NT = Tile::kNT;
+  constexpr int A_PER = BM * 4 / THREADS, B_PER = BN * 4 / THREADS, ROW_STEP = THREADS / 4;
+  extern __shared__ __align__(128) unsigned char smem[];
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int wm0 = (warp % Tile::WM) * (BM / Tile::WM), wn0 = (warp / Tile::WM) * (BN / Tile::WN);
+  const int P = OH * OW, M = N * P, Ktot = KS * KS * Cp;
+  const int m0 = blockIdx.x * BM, o0 = blockIdx.y * BN, steps = (Ktot + kBK - 1) / kBK;
 
-  // loader: row `lrow` of both tiles (a pixel of A, an output channel of B),
-  // words lw and lw + 4 of each step
-  const int lrow = tid >> 2, lw = tid & 3;
-  const int lm = m0 + lrow, lo = o0 + lrow;
-  const bool m_ok = lm < M, o_ok = lo < O;
-  int ln = 0, loh = 0, low = 0;
-  if (m_ok) {
-    ln = lm / P;
-    const int r = lm - ln * P;
-    loh = r / OW;
-    low = r - loh * OW;
+  // the loader: 16-byte chunk `lc` of rows tid / 4 + i * ROW_STEP of both tiles
+  const int lc = tid & 3, lr = tid >> 2;
+  int a_pix[A_PER], a_ih[A_PER], a_iw[A_PER];
+#pragma unroll
+  for (int i = 0; i < A_PER; ++i) {
+    const int m = m0 + lr + i * ROW_STEP;
+    const int n = m / P, p = m - n * P, oh = p / OW, ow = p - oh * OW;
+    a_pix[i] = n * H * W;
+    a_ih[i] = m < M ? oh * stride - pad : -64;   // a row past M reads nothing
+    a_iw[i] = ow * stride - pad;
   }
+  auto load_stage = [&](int slot, int kt) {
+    const int k = kt * kBK + lc * 16;
+    const bool k_ok = k < Ktot;
+    const int tap = k / Cp, c = k - tap * Cp, kh = tap / KS, kw = tap - kh * KS;
+    unsigned char* sa = smem + slot * Tile::kStageBytes;
+    unsigned char* sb = sa + BM * kBK;
+#pragma unroll
+    for (int i = 0; i < A_PER; ++i) {
+      const int r = lr + i * ROW_STEP, ih = a_ih[i] + kh, iw = a_iw[i] + kw;
+      const bool ok = k_ok && ih >= 0 && ih < H && iw >= 0 && iw < W;
+      const signed char* src =
+          ok ? xq + static_cast<size_t>(a_pix[i] + ih * W + iw) * Cp + c : xq;
+      cp_async16(sa + swizzle(r, lc), src, ok);
+    }
+#pragma unroll
+    for (int i = 0; i < B_PER; ++i) {
+      const int r = lr + i * ROW_STEP, o = o0 + r;
+      const bool ok = k_ok && o < O;
+      cp_async16(sb + swizzle(r, lc), ok ? wq + static_cast<size_t>(o) * Ktot + k : wq, ok);
+    }
+  };
 
-  int acc[4][4];
+  int acc[MT][NT][4];
 #pragma unroll
-  for (int i = 0; i < 4; ++i)
+  for (int i = 0; i < MT; ++i)
 #pragma unroll
-    for (int j = 0; j < 4; ++j) acc[i][j] = 0;
+    for (int j = 0; j < NT; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[i][j][e] = 0;
 
-  for (int kh = 0; kh < K; ++kh) {
-    for (int kw = 0; kw < K; ++kw) {
-      const int ih = loh * stride - pad + kh, iw = low * stride - pad + kw;
-      const bool in = m_ok && ih >= 0 && ih < H && iw >= 0 && iw < W;
-      const int* xrow = reinterpret_cast<const int*>(
-          xq + ((static_cast<size_t>(ln) * H + (in ? ih : 0)) * W + (in ? iw : 0)) * Cp);
-      const int* wrow = reinterpret_cast<const int*>(
-          wq + ((static_cast<size_t>(o_ok ? lo : 0) * K + kh) * K + kw) * Cp);
-      for (int w0 = 0; w0 < words; w0 += kTileWords) {
 #pragma unroll
-        for (int h = 0; h < 2; ++h) {
-          const int word = lw + 4 * h, c = w0 + word;
-          sA[word][lrow] = (in && c < words) ? xrow[c] : 0;
-          sB[word][lrow] = (o_ok && c < words) ? wrow[c] : 0;
-        }
-        __syncthreads();
+  for (int s = 0; s < kStages - 1; ++s) {
+    if (s < steps) load_stage(s, s);
+    cp_async_commit();
+  }
+#pragma unroll 1
+  for (int t = 0; t < steps; ++t) {
+    cp_async_wait<kStages - 2>();
+    __syncthreads();   // step t has landed for all; slot (t - 1) % kStages is free
+    if (t + kStages - 1 < steps) load_stage((t + kStages - 1) % kStages, t + kStages - 1);
+    cp_async_commit();
+    const unsigned char* sa = smem + (t % kStages) * Tile::kStageBytes;
+    const unsigned char* sb = sa + BM * kBK;
+    uint32_t bf[NT][4];   // [nt]: b0, b1 of K bytes 0-31, then of 32-63
 #pragma unroll
-        for (int k = 0; k < kTileWords; ++k) {
-          int a[4], b[4];
+    for (int j = 0; j < NT; ++j) {
+      const int row = wn0 + j * 8 + (lane & 7);
+      ldmatrix_x4(bf[j], sb + swizzle(row, lane >> 3));
+    }
 #pragma unroll
-          for (int i = 0; i < 4; ++i) a[i] = sA[k][tm + 16 * i];
+    for (int ks = 0; ks < 2; ++ks) {
 #pragma unroll
-          for (int j = 0; j < 4; ++j) b[j] = sB[k][tn + 16 * j];
+      for (int i = 0; i < MT; ++i) {
+        uint32_t af[4];   // rows 0-7 and 8-15 of K bytes 0-15, then of 16-31
+        const int row = wm0 + i * 16 + (lane & 15);
+        ldmatrix_x4(af, sa + swizzle(row, 2 * ks + (lane >> 4)));
 #pragma unroll
-          for (int i = 0; i < 4; ++i)
-#pragma unroll
-            for (int j = 0; j < 4; ++j) acc[i][j] = __dp4a(a[i], b[j], acc[i][j]);
-        }
-        __syncthreads();
+        for (int j = 0; j < NT; ++j) mma_s8(acc[i][j], af, &bf[j][2 * ks]);
       }
     }
   }
+  cp_async_wait<0>();
+  __syncthreads();   // the ring is free for the epilogue
 
+  // lane's accumulator e of tile (i, j): pixel row wm0 + 16i + lane / 4 (+ 8
+  // for e >= 2), channel column wn0 + 8j + 2 (lane % 4) + e % 2
+  const int er = lane >> 2, ec = 2 * (lane & 3);
+
+  // the epilogue into a [BN][BM] tile of T, then out along pixels
+  constexpr int OS = Tile::template out_stride<T>();
+  T* so = reinterpret_cast<T*>(smem);
   const float s = act_scale(amax);
 #pragma unroll
-  for (int j = 0; j < 4; ++j) {
-    const int o = o0 + tn + 16 * j;
-    if (o >= O) continue;
-    const float scale = __fmul_rn(s, s_w[o]);
+  for (int j = 0; j < NT; ++j)
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int m = m0 + tm + 16 * i;
-      if (m >= M) continue;
+    for (int h = 0; h < 2; ++h) {
+      const int col = wn0 + j * 8 + ec + h, o = o0 + col;
+      if (o >= O) continue;
+      const float scale = __fmul_rn(s, s_w[o]);
+#pragma unroll
+      for (int i = 0; i < MT; ++i)
+#pragma unroll
+        for (int g = 0; g < 2; ++g)
+          so[col * OS + wm0 + i * 16 + er + 8 * g] = dequant(acc[i][j][2 * g + h], scale, bias, o);
+    }
+  __syncthreads();
+  constexpr int V = 16 / sizeof(T), CPR = BM / V;   // elements a chunk, chunks a row
+  const bool vec = P % V == 0;                      // no chunk crosses an image
+#pragma unroll 1
+  for (int idx = tid; idx < BN * CPR; idx += THREADS) {
+    const int col = idx / CPR, m = m0 + (idx - col * CPR) * V, o = o0 + col;
+    if (o >= O || m >= M) continue;
+    const T* src = so + col * OS + (m - m0);
+    if (vec) {
       const int n = m / P;
-      store(out + (static_cast<size_t>(n) * O + o) * P + (m - n * P), acc[i][j], scale, bias, o);
+      *reinterpret_cast<uint4*>(out + (static_cast<size_t>(n) * O + o) * P + (m - n * P)) =
+          *reinterpret_cast<const uint4*>(src);
+    } else {
+      for (int e = 0; e < V && m + e < M; ++e) {
+        const int n = (m + e) / P;
+        out[(static_cast<size_t>(n) * O + o) * P + (m + e - n * P)] = src[e];
+      }
     }
   }
 }
 
-// one thread per output pixel and group of 4 channels, the pixel fastest
+// --- the depthwise entry: staged, coalesced, reused ---------------------------
+
+constexpr int kSlab = 32;         // channels a block: one 32-byte run of a pixel
+constexpr int kDwThreads = 256;   // a warp: 8 groups of 4 channels x 4 quads of 4 pixels
+
+// Staged input columns of a band `cols` output pixels wide: its quads of 4
+// output pixels with their halo, rounded up to whole groups of 4 slots.
+__host__ __device__ constexpr int dw_in_cols(int cols, int stride) {
+  return ((((cols + 3) / 4 * 4 - 1) * stride + 3) + 3) / 4 * 4;
+}
+__host__ __device__ constexpr int dw_smem_bytes(int rows, int cols, int stride) {
+  return ((rows - 1) * stride + 3) * dw_in_cols(cols, stride) * kSlab;
+}
+// The slot of staged pixel p in its row: the 4 pixels of each group of 4
+// are rotated by p / 4, so that the four lanes of a warp that read pixels 4
+// apart (one each of four quads) hit four different 8-bank groups.
+__device__ __forceinline__ int dw_slot(int p) { return (p & ~3) | ((p + (p >> 2)) & 3); }
+
+// 4 values of T stored at once: 16 bytes of float32, 8 of bf16
 template <typename T>
-__global__ void __launch_bounds__(kThreads)
+__device__ __forceinline__ void store4(T* dst, const T (&v)[4]) {
+  if constexpr (sizeof(T) == 4) {
+    *reinterpret_cast<uint4*>(dst) = *reinterpret_cast<const uint4*>(v);
+  } else {
+    *reinterpret_cast<uint2*>(dst) = *reinterpret_cast<const uint2*>(v);
+  }
+}
+
+// grid (ceil(OW / cols), ceil(OH / rows), N * Cp / 32): a block takes 32
+// channels of `rows` x `cols` output pixels of one image. The input rows of
+// the band (with their halo, 32 bytes a pixel) are staged once in shared
+// memory; then each thread takes 4 channels of a quad of 4 output pixels
+// (lane % 8: the channels, lane / 8: the quad), slides a window of input
+// words along the quad for each of the 3 kernel rows, and stores each
+// channel's 4 pixels at once: a warp's store is 8 channel rows x 64
+// contiguous bytes (float32), whole sectors, with no staging of the output.
+template <typename T, int S>
+__global__ void __launch_bounds__(kDwThreads)
     depthwise_kernel(const signed char* __restrict__ xq, const signed char* __restrict__ wq,
                      const float* __restrict__ amax, const float* __restrict__ s_w,
                      const T* __restrict__ bias, T* __restrict__ out, int N, int H, int W, int C,
-                     int Cp, int stride, int OH, int OW) {
-  const int groups = Cp >> 2;
-  const long long idx = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
-  if (idx >= static_cast<long long>(N) * groups * OH * OW) return;
-  const int ow = static_cast<int>(idx % OW);
-  long long r = idx / OW;
-  const int oh = static_cast<int>(r % OH);
-  r /= OH;
-  const int g = static_cast<int>(r % groups);
-  const int n = static_cast<int>(r / groups);
-  int acc[4] = {0, 0, 0, 0};
-  for (int kh = 0; kh < 3; ++kh) {
-    const int ih = oh * stride - 1 + kh;
-    if (ih < 0 || ih >= H) continue;
-    for (int kw = 0; kw < 3; ++kw) {
-      const int iw = ow * stride - 1 + kw;
-      if (iw < 0 || iw >= W) continue;
-      const int xw = *reinterpret_cast<const int*>(
-          xq + ((static_cast<size_t>(n) * H + ih) * W + iw) * Cp + 4 * g);
-      const int ww = *reinterpret_cast<const int*>(wq + (kh * 3 + kw) * Cp + 4 * g);
-#pragma unroll
-      for (int l = 0; l < 4; ++l)
-        acc[l] += static_cast<int>(static_cast<signed char>(xw >> (8 * l))) *
-                  static_cast<int>(static_cast<signed char>(ww >> (8 * l)));
-    }
+                     int Cp, int OH, int OW, int rows, int cols) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  constexpr int NW = 3 * S + 3;   // input words of a quad's window in one kernel row
+  const int tid = threadIdx.x, slabs = Cp / kSlab;
+  const int n = blockIdx.z / slabs, c0 = (blockIdx.z - n * slabs) * kSlab;
+  const int oh0 = blockIdx.y * rows, ow0 = blockIdx.x * cols, quads = (cols + 3) / 4;
+  const int in_rows = (rows - 1) * S + 3, in_cols = dw_in_cols(cols, S);
+  const int ih0 = oh0 * S - 1, iw0 = ow0 * S - 1;
+
+  for (int i = tid; i < in_rows * in_cols * 2; i += kDwThreads) {
+    const int px = i >> 1, r = px / in_cols, p = px - r * in_cols;
+    const int ih = ih0 + r, iw = iw0 + p;
+    const bool ok = ih >= 0 && ih < H && iw >= 0 && iw < W;
+    const signed char* src =
+        ok ? xq + ((static_cast<size_t>(n) * H + ih) * W + iw) * Cp + c0 + 16 * (i & 1) : xq;
+    cp_async16(smem + (r * in_cols + dw_slot(p)) * kSlab + 16 * (i & 1), src, ok);
   }
+  cp_async_commit();
+
+  // this thread's channels 4g .. 4g + 3 of the slab: their weights and scales
+  const int g = tid & 7;
+  int wv[9];
+#pragma unroll
+  for (int t = 0; t < 9; ++t) wv[t] = *reinterpret_cast<const int*>(wq + t * Cp + c0 + 4 * g);
   const float s = act_scale(amax);
-  const size_t P = static_cast<size_t>(OH) * OW;
+  float scale[4];
 #pragma unroll
   for (int l = 0; l < 4; ++l) {
-    const int c = 4 * g + l;
-    if (c >= C) break;
-    store(out + (static_cast<size_t>(n) * C + c) * P + static_cast<size_t>(oh) * OW + ow, acc[l],
-          __fmul_rn(s, s_w[c]), bias, c);
+    const int c = c0 + 4 * g + l;
+    scale[l] = c < C ? __fmul_rn(s, s_w[c]) : 0.0f;
   }
+  const bool vec = OW % 4 == 0 && cols % 4 == 0;   // a quad is 4 aligned pixels of a row
+  cp_async_wait<0>();
+  __syncthreads();
+
+  for (int item = tid >> 3; item < rows * quads; item += kDwThreads / 8) {
+    const int r = item / quads, q = item - r * quads, oh = oh0 + r, ow = ow0 + 4 * q;
+    int acc[4][4] = {};   // [pixel][channel]
+#pragma unroll
+    for (int kh = 0; kh < 3; ++kh) {
+      const unsigned char* row = smem + (r * S + kh) * in_cols * kSlab + 4 * g;
+      int xw[NW];
+#pragma unroll
+      for (int m = 0; m < NW; ++m)
+        xw[m] = *reinterpret_cast<const int*>(row + dw_slot(4 * q * S + m) * kSlab);
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+#pragma unroll
+        for (int kw = 0; kw < 3; ++kw) {
+          const int x = xw[j * S + kw], w = wv[kh * 3 + kw];
+#pragma unroll
+          for (int l = 0; l < 4; ++l)
+            acc[j][l] += static_cast<int>(static_cast<signed char>(x >> (8 * l))) *
+                         static_cast<int>(static_cast<signed char>(w >> (8 * l)));
+        }
+    }
+    if (oh >= OH) continue;
+#pragma unroll
+    for (int l = 0; l < 4; ++l) {
+      const int c = c0 + 4 * g + l;
+      if (c >= C) continue;
+      alignas(16) T v[4];
+#pragma unroll
+      for (int j = 0; j < 4; ++j) v[j] = dequant(acc[j][l], scale[l], bias, c);
+      T* dst = out + ((static_cast<size_t>(n) * C + c) * OH + oh) * OW + ow;
+      if (vec && ow + 3 < OW) {
+        store4(dst, v);
+      } else {
+        for (int j = 0; j < 4; ++j)
+          if (4 * q + j < cols && ow + j < OW) dst[j] = v[j];
+      }
+    }
+  }
+}
+
+// Shared memory above 48 KB, static and dynamic together, has to be allowed
+// per kernel and per device; done at a kernel's first launch on a device
+// (the wrapper makes the tensors' device current) and again only for a
+// larger request, so a later launch (or a CUDA graph capture) calls no
+// cudaFuncSetAttribute.
+constexpr int kMaxDevices = 64;
+template <auto Kernel>
+cudaError_t allow_smem(int bytes) {
+  static int allowed[kMaxDevices] = {};   // 0: nothing above 48 KB allowed yet
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  if (dev >= kMaxDevices) return cudaErrorInvalidDevice;
+  if (bytes <= allowed[dev]) return cudaSuccess;
+  err = cudaFuncSetAttribute(Kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (err == cudaSuccess) allowed[dev] = bytes;
+  return err;
 }
 
 template <typename T>
@@ -255,14 +485,17 @@ cudaError_t quantize(const void* x, const void* amax, void* out, int N, int C, i
   return cudaGetLastError();
 }
 
-template <typename T>
-cudaError_t dense(const void* xq, const void* wq, const void* amax, const void* s_w,
-                  const void* bias, void* out, int N, int H, int W, int Cp, int O, int K,
-                  int stride, int pad, int OH, int OW, void* stream) {
+template <typename T, typename Tile>
+cudaError_t dense_launch(const void* xq, const void* wq, const void* amax, const void* s_w,
+                         const void* bias, void* out, int N, int H, int W, int Cp, int O, int K,
+                         int stride, int pad, int OH, int OW, void* stream) {
   const long long M = static_cast<long long>(N) * OH * OW;
-  if (M == 0 || O == 0) return cudaSuccess;
-  const dim3 grid(static_cast<unsigned>((M + kTileM - 1) / kTileM), (O + kTileN - 1) / kTileN);
-  dense_kernel<T><<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+  const dim3 grid(static_cast<unsigned>((M + Tile::BM - 1) / Tile::BM),
+                  (O + Tile::BN - 1) / Tile::BN);
+  constexpr int smem = Tile::template smem_bytes<T>();
+  const cudaError_t err = allow_smem<dense_kernel<T, Tile>>(smem);
+  if (err != cudaSuccess) return err;
+  dense_kernel<T, Tile><<<grid, Tile::kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const signed char*>(xq), static_cast<const signed char*>(wq),
       static_cast<const float*>(amax), static_cast<const float*>(s_w),
       static_cast<const T*>(bias), static_cast<T*>(out), N, H, W, Cp, O, K, stride, pad, OH, OW);
@@ -270,17 +503,61 @@ cudaError_t dense(const void* xq, const void* wq, const void* amax, const void* 
 }
 
 template <typename T>
-cudaError_t depthwise(const void* xq, const void* wq, const void* amax, const void* s_w,
-                      const void* bias, void* out, int N, int H, int W, int C, int Cp,
-                      int stride, int OH, int OW, void* stream) {
-  const long long threads = static_cast<long long>(N) * (Cp / 4) * OH * OW;
-  if (threads == 0) return cudaSuccess;
-  const unsigned blocks = static_cast<unsigned>((threads + kThreads - 1) / kThreads);
-  depthwise_kernel<T><<<blocks, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+int dense_smem(int tile) {
+  switch (tile) {
+    case 0: return Tile0::smem_bytes<T>();
+    case 1: return Tile1::smem_bytes<T>();
+    case 2: return Tile2::smem_bytes<T>();
+    case 3: return Tile3::smem_bytes<T>();
+    default: return -1;
+  }
+}
+
+template <typename T>
+cudaError_t dense(const void* xq, const void* wq, const void* amax, const void* s_w,
+                  const void* bias, void* out, int N, int H, int W, int Cp, int O, int K,
+                  int stride, int pad, int OH, int OW, int tile, void* stream) {
+  if (static_cast<long long>(N) * OH * OW == 0 || O == 0) return cudaSuccess;
+  if (Cp % kChannelMultiple != 0) return cudaErrorInvalidValue;
+#define QCONV_DENSE(TILE)                                                                     \
+  return dense_launch<T, TILE>(xq, wq, amax, s_w, bias, out, N, H, W, Cp, O, K, stride, pad, OH, \
+                               OW, stream)
+  switch (tile) {
+    case 0: QCONV_DENSE(Tile0);
+    case 1: QCONV_DENSE(Tile1);
+    case 2: QCONV_DENSE(Tile2);
+    case 3: QCONV_DENSE(Tile3);
+    default: return cudaErrorInvalidValue;
+  }
+#undef QCONV_DENSE
+}
+
+template <typename T, int S>
+cudaError_t depthwise_launch(const void* xq, const void* wq, const void* amax, const void* s_w,
+                             const void* bias, void* out, int N, int H, int W, int C, int Cp,
+                             int OH, int OW, int rows, int cols, void* stream) {
+  const dim3 grid((OW + cols - 1) / cols, (OH + rows - 1) / rows, N * (Cp / kSlab));
+  const int smem = dw_smem_bytes(rows, cols, S);
+  const cudaError_t err = allow_smem<depthwise_kernel<T, S>>(smem);
+  if (err != cudaSuccess) return err;
+  depthwise_kernel<T, S><<<grid, kDwThreads, smem, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const signed char*>(xq), static_cast<const signed char*>(wq),
       static_cast<const float*>(amax), static_cast<const float*>(s_w),
-      static_cast<const T*>(bias), static_cast<T*>(out), N, H, W, C, Cp, stride, OH, OW);
+      static_cast<const T*>(bias), static_cast<T*>(out), N, H, W, C, Cp, OH, OW, rows, cols);
   return cudaGetLastError();
+}
+
+template <typename T>
+cudaError_t depthwise(const void* xq, const void* wq, const void* amax, const void* s_w,
+                      const void* bias, void* out, int N, int H, int W, int C, int Cp, int stride,
+                      int OH, int OW, int rows, int cols, void* stream) {
+  if (static_cast<long long>(N) * OH * OW == 0 || C == 0) return cudaSuccess;
+  if (Cp % kChannelMultiple != 0 || rows < 1 || cols < 1 || (stride != 1 && stride != 2))
+    return cudaErrorInvalidValue;
+  return stride == 1 ? depthwise_launch<T, 1>(xq, wq, amax, s_w, bias, out, N, H, W, C, Cp, OH,
+                                              OW, rows, cols, stream)
+                     : depthwise_launch<T, 2>(xq, wq, amax, s_w, bias, out, N, H, W, C, Cp, OH,
+                                              OW, rows, cols, stream);
 }
 
 }  // namespace
@@ -299,29 +576,40 @@ int qconv_quantize_bf16(const void* x, const void* amax, void* out, int N, int C
 
 int qconv_dense_f32(const void* xq, const void* wq, const void* amax, const void* s_w,
                     const void* bias, void* out, int N, int H, int W, int Cp, int O, int K,
-                    int stride, int pad, int OH, int OW, void* stream) {
-  return dense<float>(xq, wq, amax, s_w, bias, out, N, H, W, Cp, O, K, stride, pad, OH, OW,
+                    int stride, int pad, int OH, int OW, int tile, void* stream) {
+  return dense<float>(xq, wq, amax, s_w, bias, out, N, H, W, Cp, O, K, stride, pad, OH, OW, tile,
                       stream);
 }
 
 int qconv_dense_bf16(const void* xq, const void* wq, const void* amax, const void* s_w,
                      const void* bias, void* out, int N, int H, int W, int Cp, int O, int K,
-                     int stride, int pad, int OH, int OW, void* stream) {
+                     int stride, int pad, int OH, int OW, int tile, void* stream) {
   return dense<__nv_bfloat16>(xq, wq, amax, s_w, bias, out, N, H, W, Cp, O, K, stride, pad, OH,
-                              OW, stream);
+                              OW, tile, stream);
 }
 
 int qconv_depthwise_f32(const void* xq, const void* wq, const void* amax, const void* s_w,
                         const void* bias, void* out, int N, int H, int W, int C, int Cp,
-                        int stride, int OH, int OW, void* stream) {
-  return depthwise<float>(xq, wq, amax, s_w, bias, out, N, H, W, C, Cp, stride, OH, OW, stream);
+                        int stride, int OH, int OW, int rows, int cols, void* stream) {
+  return depthwise<float>(xq, wq, amax, s_w, bias, out, N, H, W, C, Cp, stride, OH, OW, rows,
+                          cols, stream);
 }
 
 int qconv_depthwise_bf16(const void* xq, const void* wq, const void* amax, const void* s_w,
                          const void* bias, void* out, int N, int H, int W, int C, int Cp,
-                         int stride, int OH, int OW, void* stream) {
+                         int stride, int OH, int OW, int rows, int cols, void* stream) {
   return depthwise<__nv_bfloat16>(xq, wq, amax, s_w, bias, out, N, H, W, C, Cp, stride, OH, OW,
-                                  stream);
+                                  rows, cols, stream);
+}
+
+// The dynamic shared memory a launch takes, for the wrapper's plan to be
+// held against: the dense entry by tile, the depthwise entry by band.
+int qconv_dense_smem_bytes(int tile, int bf16) {
+  return bf16 ? dense_smem<__nv_bfloat16>(tile) : dense_smem<float>(tile);
+}
+
+int qconv_depthwise_smem_bytes(int rows, int cols, int stride) {
+  return dw_smem_bytes(rows, cols, stride);
 }
 
 const char* qconv_error_string(int err) {

@@ -52,9 +52,10 @@ INV_127 = 1.0 / 127.0
 ACT_SCALE_FLOOR = 1e-6       # s_x = max(amax, 1e-6) / 127   (qconv.py:165)
 WEIGHT_SCALE_FLOOR = 1e-12   # s_w = max(absmax / 127, 1e-12) (qconv.py:170-171)
 QMAX = 127.0
-# the quantized activations' channels are padded to a multiple of this (the
-# CUDA kernels read 4 int8 channels as one 32-bit word)
-CHANNEL_MULTIPLE = 4
+# the quantized activations' channels are padded to a multiple of this: the
+# CUDA kernels copy 16-byte chunks along channels, the dense entry's K steps
+# are 32-byte runs of one tap, and a depthwise block takes 32 channels
+CHANNEL_MULTIPLE = 32
 
 
 def padded_channels(c: int) -> int:
@@ -120,7 +121,8 @@ def quantize_weight(weight: torch.Tensor):
 
 def dense_weight_layout(wq: torch.Tensor) -> torch.Tensor:
     """int8 [O, I, kh, kw] → [O, kh, kw, Ip], Ip the channels padded with
-    zeros to a multiple of 4: the layout the dense entry reads."""
+    zeros to a multiple of ``CHANNEL_MULTIPLE``: the layout the dense entry
+    reads."""
     o, i, kh, kw = wq.shape
     out = wq.new_zeros((o, kh, kw, padded_channels(i)))
     out[..., :i] = wq.permute(0, 2, 3, 1)
@@ -194,14 +196,21 @@ def int8_depthwise_plain(xq: torch.Tensor, wq: torch.Tensor, channels: int,
                          out_dtype: torch.dtype) -> torch.Tensor:
     """The 3×3 depthwise int8 convolution, padding 1: xq int8 [N, H, W, Cp],
     wq int8 [9, Cp] (:func:`depthwise_weight_layout`) → [N, C, OH, OW] in
-    ``out_dtype``, summed exactly in float64 as :func:`int8_conv_plain`."""
+    ``out_dtype``: :func:`int8_depthwise_acc_plain`, then the epilogue."""
+    return _epilogue(int8_depthwise_acc_plain(xq, wq, channels, stride), amax_eff, s_w,
+                     bias, out_dtype)
+
+
+def int8_depthwise_acc_plain(xq: torch.Tensor, wq: torch.Tensor, channels: int,
+                             stride: int) -> torch.Tensor:
+    """The int32 accumulators [N, C, OH, OW] of the 3×3 depthwise int8
+    convolution, padding 1, summed in float64 as :func:`int8_acc_plain`."""
     n, h, w, cp = xq.shape
     x = xq.permute(0, 3, 1, 2).double()
     cols = F.unfold(x, 3, padding=1, stride=stride).reshape(n, cp, 9, -1)
     acc = (cols * wq.t().double()[None, :, :, None]).sum(dim=2)
     oh, ow = (h - 1) // stride + 1, (w - 1) // stride + 1
-    acc = acc[:, :channels].reshape(n, channels, oh, ow).to(torch.int32)
-    return _epilogue(acc, amax_eff, s_w, bias, out_dtype)
+    return acc[:, :channels].reshape(n, channels, oh, ow).to(torch.int32)
 
 
 # --- the modules ----------------------------------------------------------------

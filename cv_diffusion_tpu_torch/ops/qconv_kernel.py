@@ -7,10 +7,12 @@ kernel of it, and PyTorch's convolutions take no int8 on the card. Three
 entries, each with a float32 and a bfloat16 instance:
 
 * :func:`quantize`: x [N, C, H, W] → int8 [N, H, W, Cp] (pixel-major, the
-  channels padded with zeros to a multiple of 4), transposed in the same
+  channels padded with zeros to a multiple of 32), transposed in the same
   pass;
-* :func:`int8_conv`: the dense 1×1 and 3×3 convolutions, stride 1 or 2;
-* :func:`int8_depthwise`: the 3×3 depthwise convolution, stride 1 or 2;
+* :func:`int8_conv`: the dense 1×1 and 3×3 convolutions, stride 1 or 2, an
+  implicit GEMM on the tensor cores, tiled per shape by :func:`plan_dense`;
+* :func:`int8_depthwise`: the 3×3 depthwise convolution, stride 1 or 2, in
+  bands of output rows staged in shared memory (:func:`plan_depthwise`);
 
 both convolutions sum int8 × int8 exactly in int32 and apply the dequant
 and bias in their epilogue, writing NCHW in the compute dtype. They are
@@ -24,16 +26,132 @@ plain versions bit for bit.
 from __future__ import annotations
 
 import ctypes
-from typing import Optional
+import functools
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 
 from . import cuda_build
-from .qconv import (int8_conv_plain, int8_depthwise_plain, padded_channels,
-                    quantize_plain)
+from .qconv import (CHANNEL_MULTIPLE, int8_conv_plain, int8_depthwise_plain,
+                    padded_channels, quantize_plain)
 
 SOURCE = cuda_build.source("qconv.cu")
 _DTYPES = {torch.float32: "f32", torch.bfloat16: "bf16"}
+
+SMS = 132                   # streaming multiprocessors of an H100 SXM
+SMEM_MAX = 232_448          # dynamic shared memory a block may take
+# the dense entry (csrc/qconv.cu): a K step of BK bytes, STAGES steps in the
+# cp.async ring, and its tiles (BM pixels, BN channels, warps along M and N)
+# in the order of the source's Tile0..Tile3
+BK = 64
+STAGES = 4
+DENSE_TILES = ((128, 128, 2, 4), (128, 64, 2, 2), (64, 64, 2, 2), (128, 32, 4, 1))
+# the depthwise entry: 32 channels a block, bands of output rows (a power of
+# two, at most DW_MAX_ROWS) at most DW_MAX_COLS columns wide, their staged
+# input at most DW_SMEM_MAX bytes (two blocks share an SM, as their
+# registers allow)
+SLAB = 32
+DW_SMEM_MAX = 100 * 1024
+DW_MAX_COLS = 256
+DW_MAX_ROWS = 16
+
+
+def _out_hw(h: int, w: int, k: int, stride: int, padding: int) -> Tuple[int, int]:
+    return (h + 2 * padding - k) // stride + 1, (w + 2 * padding - k) // stride + 1
+
+
+class DensePlan(NamedTuple):
+    tile: int                       # index into DENSE_TILES
+    bm: int
+    bn: int
+    threads: int
+    steps: int                      # BK-byte steps of K
+    grid: Tuple[int, int]           # (M tiles, O tiles)
+    smem_bytes: int
+
+
+def dense_smem_bytes(tile: int, dtype: torch.dtype) -> int:
+    """Dynamic shared memory of a dense block, as the source lays it out:
+    the cp.async ring, reused by the epilogue's [BN][BM + pad] output tile."""
+    bm, bn = DENSE_TILES[tile][:2]
+    es = torch.tensor([], dtype=dtype).element_size()
+    return max(STAGES * (bm + bn) * BK, bn * (bm + 16 // es) * es)
+
+
+@functools.lru_cache(maxsize=None)
+def plan_dense(n: int, h: int, w: int, cp: int, o: int, k: int, stride: int,
+               padding: int, dtype: torch.dtype) -> DensePlan:
+    """How a dense call of this shape is launched: of the tiles that suit
+    its output channels, the largest that still gives a wave of blocks (one
+    per SM), else the smallest. A pure function of the shape."""
+    if dtype not in _DTYPES:
+        raise TypeError(f"the kernel writes float32 or bfloat16, not {dtype}")
+    if cp % CHANNEL_MULTIPLE or min(n, h, w, cp, o) < 1:
+        raise ValueError(f"dense plan: {(n, h, w, cp, o)}")
+    oh, ow = _out_hw(h, w, k, stride, padding)
+    m = n * oh * ow
+
+    def tiles(t):
+        bm, bn = DENSE_TILES[t][:2]
+        return -(-m // bm) * -(-o // bn)
+
+    candidates = (3,) if o <= 32 else (1, 2) if o <= 64 else (0, 2)
+    tile = next((t for t in candidates if tiles(t) >= SMS), candidates[-1])
+    return dense_launch(n, h, w, cp, o, k, stride, padding, dtype, tile)
+
+
+def dense_launch(n: int, h: int, w: int, cp: int, o: int, k: int, stride: int,
+                 padding: int, dtype: torch.dtype, tile: int) -> DensePlan:
+    """The launch of a dense call of this shape with ``tile``."""
+    oh, ow = _out_hw(h, w, k, stride, padding)
+    bm, bn, wm, wn = DENSE_TILES[tile]
+    return DensePlan(tile, bm, bn, 32 * wm * wn, -(-k * k * cp // BK),
+                     (-(-n * oh * ow // bm), -(-o // bn)), dense_smem_bytes(tile, dtype))
+
+
+class DepthwisePlan(NamedTuple):
+    rows: int                       # output rows a block
+    cols: int                       # output columns a block
+    grid: Tuple[int, int, int]      # (column tiles, row bands, N · Cp / 32)
+    smem_bytes: int
+
+
+def depthwise_smem_bytes(rows: int, cols: int, stride: int) -> int:
+    """Dynamic shared memory of a depthwise block, as the source lays it
+    out: the input rows of the band with their halo, 32 bytes a pixel, as
+    wide as its quads of 4 output pixels need, in whole groups of 4."""
+    in_cols = -(-((-(-cols // 4) * 4 - 1) * stride + 3) // 4) * 4
+    return ((rows - 1) * stride + 3) * in_cols * SLAB
+
+
+@functools.lru_cache(maxsize=None)
+def plan_depthwise(n: int, h: int, w: int, cp: int, stride: int) -> DepthwisePlan:
+    """How a depthwise call of this shape is launched: bands of output rows
+    (at most ``DW_MAX_COLS`` columns), the tallest power of two that the
+    staged input allows while the grid keeps one and a half blocks for each
+    SM. A pure function of the shape (the output dtype does not enter)."""
+    if cp % CHANNEL_MULTIPLE or min(n, h, w, cp) < 1 or stride not in (1, 2):
+        raise ValueError(f"depthwise plan: {(n, h, w, cp)}, stride {stride}")
+    oh, ow = _out_hw(h, w, 3, stride, 1)
+    cols = min(ow, DW_MAX_COLS)
+
+    def blocks(r):
+        return n * (cp // SLAB) * -(-oh // r) * -(-ow // cols)
+
+    rows = 1
+    while (rows < min(oh, DW_MAX_ROWS) and 2 * blocks(2 * rows) >= 3 * SMS
+           and depthwise_smem_bytes(2 * rows, cols, stride) <= DW_SMEM_MAX):
+        rows *= 2
+    return depthwise_launch(n, h, w, cp, stride, rows, cols)
+
+
+def depthwise_launch(n: int, h: int, w: int, cp: int, stride: int, rows: int,
+                     cols: int) -> DepthwisePlan:
+    """The launch of a depthwise call of this shape in bands of ``rows`` ×
+    ``cols`` output pixels."""
+    oh, ow = _out_hw(h, w, 3, stride, 1)
+    grid = (-(-ow // cols), -(-oh // rows), n * (cp // SLAB))
+    return DepthwisePlan(rows, cols, grid, depthwise_smem_bytes(rows, cols, stride))
 
 
 def build() -> cuda_build.Built:
@@ -48,14 +166,20 @@ def _declare(lib) -> None:
         fn = getattr(lib, f"qconv_quantize_{dt}")   # x, amax, out, N, C, HW, Cp, stream
         fn.argtypes = [ptr] * 3 + [i32] * 4 + [ptr]
         fn.restype = i32
-        # xq, wq, amax, s_w, bias, out, N, H, W, Cp, O, K, stride, pad, OH, OW, stream
+        # xq, wq, amax, s_w, bias, out, N, H, W, Cp, O, K, stride, pad, OH, OW,
+        # tile, stream
         fn = getattr(lib, f"qconv_dense_{dt}")
+        fn.argtypes = [ptr] * 6 + [i32] * 11 + [ptr]
+        fn.restype = i32
+        # xq, wq, amax, s_w, bias, out, N, H, W, C, Cp, stride, OH, OW, rows,
+        # cols, stream
+        fn = getattr(lib, f"qconv_depthwise_{dt}")
         fn.argtypes = [ptr] * 6 + [i32] * 10 + [ptr]
         fn.restype = i32
-        # xq, wq, amax, s_w, bias, out, N, H, W, C, Cp, stride, OH, OW, stream
-        fn = getattr(lib, f"qconv_depthwise_{dt}")
-        fn.argtypes = [ptr] * 6 + [i32] * 8 + [ptr]
-        fn.restype = i32
+    lib.qconv_dense_smem_bytes.argtypes = [i32, i32]
+    lib.qconv_dense_smem_bytes.restype = i32
+    lib.qconv_depthwise_smem_bytes.argtypes = [i32] * 3
+    lib.qconv_depthwise_smem_bytes.restype = i32
     lib.qconv_error_string.argtypes = [i32]
     lib.qconv_error_string.restype = ctypes.c_char_p
 
@@ -130,6 +254,41 @@ def _epilogue_args(what, out_dtype, s_w, bias, channels):
         raise ValueError(f"{what}: bias must be {out_dtype} [{channels}]")
 
 
+def _ptr(t: Optional[torch.Tensor]):
+    return None if t is None else t.data_ptr()
+
+
+def _dense(lib, xq, wq, amax_eff, s_w, bias, stride, padding, out_dtype, stream, plan=None):
+    """One launch of the dense entry of ``lib`` on ``xq``'s device, as
+    ``plan`` (by default :func:`plan_dense`) lays it out; the output
+    allocated there."""
+    o, k, _, cp = wq.shape
+    n, h, w, _ = xq.shape
+    p = plan or plan_dense(n, h, w, cp, o, k, stride, padding, out_dtype)
+    oh, ow = _out_hw(h, w, k, stride, padding)
+    out = torch.empty((n, o, oh, ow), dtype=out_dtype, device=xq.device)
+    err = getattr(lib, f"qconv_dense_{_DTYPES[out_dtype]}")(
+        xq.data_ptr(), wq.data_ptr(), amax_eff.data_ptr(), s_w.data_ptr(), _ptr(bias),
+        out.data_ptr(), n, h, w, cp, o, k, stride, padding, oh, ow, p.tile, stream)
+    _raise_on(lib, err, "int8 dense convolution")
+    return out
+
+
+def _depthwise(lib, xq, wq, channels, amax_eff, s_w, bias, stride, out_dtype, stream,
+               plan=None):
+    """One launch of the depthwise entry of ``lib`` on ``xq``'s device, as
+    ``plan`` (by default :func:`plan_depthwise`) lays it out."""
+    n, h, w, cp = xq.shape
+    p = plan or plan_depthwise(n, h, w, cp, stride)
+    oh, ow = _out_hw(h, w, 3, stride, 1)
+    out = torch.empty((n, channels, oh, ow), dtype=out_dtype, device=xq.device)
+    err = getattr(lib, f"qconv_depthwise_{_DTYPES[out_dtype]}")(
+        xq.data_ptr(), wq.data_ptr(), amax_eff.data_ptr(), s_w.data_ptr(), _ptr(bias),
+        out.data_ptr(), n, h, w, channels, cp, stride, oh, ow, p.rows, p.cols, stream)
+    _raise_on(lib, err, "int8 depthwise convolution")
+    return out
+
+
 def int8_conv(xq: torch.Tensor, wq: torch.Tensor, amax_eff: torch.Tensor,
               s_w: torch.Tensor, bias: Optional[torch.Tensor], stride: int,
               padding: int, out_dtype: torch.dtype) -> torch.Tensor:
@@ -144,20 +303,15 @@ def int8_conv(xq: torch.Tensor, wq: torch.Tensor, amax_eff: torch.Tensor,
     n, h, w, cpx = xq.shape
     if xq.dtype != torch.int8 or wq.dtype != torch.int8:
         raise TypeError("int8_conv takes int8 activations and weights")
-    if k != k2 or k not in (1, 3) or cp != cpx or cp % 4 or stride not in (1, 2):
+    if (k != k2 or k not in (1, 3) or cp != cpx or cp % CHANNEL_MULTIPLE
+            or stride not in (1, 2)):
         raise ValueError(f"int8_conv: weights {tuple(wq.shape)} and activations "
                          f"{tuple(xq.shape)}, stride {stride}")
     _epilogue_args("int8_conv", out_dtype, s_w, bias, o)
-    oh = (h + 2 * padding - k) // stride + 1
-    ow = (w + 2 * padding - k) // stride + 1
-    out = torch.empty((n, o, oh, ow), dtype=out_dtype, device=dev)
     lib = _lib()
     with torch.cuda.device(dev):
-        err = getattr(lib, f"qconv_dense_{_DTYPES[out_dtype]}")(
-            xq.data_ptr(), wq.data_ptr(), _amax(amax_eff).data_ptr(), s_w.data_ptr(),
-            None if bias is None else bias.data_ptr(), out.data_ptr(),
-            n, h, w, cp, o, k, stride, padding, oh, ow, _stream(dev))
-    _raise_on(lib, err, "int8 dense convolution")
+        out = _dense(lib, xq, wq, _amax(amax_eff), s_w, bias, stride, padding, out_dtype,
+                     _stream(dev))
     int8_conv.launches += 1
     return out
 
@@ -179,19 +333,15 @@ def int8_depthwise(xq: torch.Tensor, wq: torch.Tensor, channels: int,
     n, h, w, cp = xq.shape
     if xq.dtype != torch.int8 or wq.dtype != torch.int8:
         raise TypeError("int8_depthwise takes int8 activations and weights")
-    if wq.shape != (9, cp) or cp % 4 or channels > cp or stride not in (1, 2):
+    if (wq.shape != (9, cp) or cp % CHANNEL_MULTIPLE or channels > cp
+            or stride not in (1, 2)):
         raise ValueError(f"int8_depthwise: weights {tuple(wq.shape)}, activations "
                          f"{tuple(xq.shape)}, {channels} channels, stride {stride}")
     _epilogue_args("int8_depthwise", out_dtype, s_w, bias, channels)
-    oh, ow = (h - 1) // stride + 1, (w - 1) // stride + 1
-    out = torch.empty((n, channels, oh, ow), dtype=out_dtype, device=dev)
     lib = _lib()
     with torch.cuda.device(dev):
-        err = getattr(lib, f"qconv_depthwise_{_DTYPES[out_dtype]}")(
-            xq.data_ptr(), wq.data_ptr(), _amax(amax_eff).data_ptr(), s_w.data_ptr(),
-            None if bias is None else bias.data_ptr(), out.data_ptr(),
-            n, h, w, channels, cp, stride, oh, ow, _stream(dev))
-    _raise_on(lib, err, "int8 depthwise convolution")
+        out = _depthwise(lib, xq, wq, channels, _amax(amax_eff), s_w, bias, stride,
+                         out_dtype, _stream(dev))
     int8_depthwise.launches += 1
     return out
 

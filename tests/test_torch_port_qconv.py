@@ -362,7 +362,7 @@ def test_kernel_wrappers_run_their_plain_versions_on_the_cpu():
     x = torch.randn(1, 6, 5, 5)
     amax = torch.tensor(2.0)
     xq = qk.quantize(x, amax)
-    assert xq.shape == (1, 5, 5, 8) and xq.dtype == torch.int8
+    assert xq.shape == (1, 5, 5, 32) and xq.dtype == torch.int8
     assert torch.equal(xq, tq.quantize_plain(x, amax)) and not bool(xq[..., 6:].any())
     wq, s_w = tq.quantize_weight(torch.randn(4, 6, 3, 3))
     dense = qk.int8_conv(xq, tq.dense_weight_layout(wq), amax, s_w, None, 1, 1, torch.float32)
