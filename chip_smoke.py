@@ -167,16 +167,22 @@ Phases, one JSON line each on stdout (warnings and build logs go to stderr):
    through ``ServingPipeline.from_config``.
 19. int8   -- the int8 convolution kernels (``csrc/qconv.cu``, built with the
    others in phase 2; its ``build`` line: each instance's registers, static
-   shared memory and spills, which must be 0 for the dense and depthwise
-   kernels, each dense tile's dynamic shared memory, and from ``cuobjdump
-   -sass`` the dense kernels' ``IMMA`` count, which must be above 0, and
-   ``IDP4A`` count, which must be 0): each entry (quantize, dense,
-   depthwise) against its plain version bit for bit at every ``QConv``
+   shared memory and spills, which must be 0 for the dense, depthwise and
+   both quantize kernels, each dense tile's dynamic shared memory, and from
+   ``cuobjdump -sass`` the dense kernels' ``IMMA`` count, which must be
+   above 0, and ``IDP4A`` count, which must be 0): the weight pass
+   (``quantize_weight``: s_w and the layout in one launch) against
+   ``quantize_weight`` and the layout bit for bit at every shape class, edge
+   and adversarial weight, and on an all-zero output channel (s_w = 1e-12)
+   and a channel that lands on exact halves (``INT8_HALVES``); each entry
+   (quantize, dense, depthwise) against its plain version bit for bit at
+   every ``QConv``
    shape class of the small UNet at 256² and at ``INT8_EDGES`` (ragged M,
    O = 3, Cin = 6, stride 2 on odd H and W, outputs 300 and 301 wide),
    batch 1 and 8, float32 and bf16 compute, on random inputs (some past
    their amax), each launch's plan (``plan_dense``, ``plan_depthwise``)
-   held to the library's shared memory; and the adversarial accumulations
+   held to the library's shared memory, the quantize's loads by vector or
+   element by element (``quantize_launch``); and the adversarial accumulations
    (K = 2,048 1×1 and 2,304 3×3 in a few output tiles, K = 1,152 1×1 in
    many; every input at its amax: an odd sum past 2²⁴), where a float32
    ``F.conv2d`` of the same int8 values must differ (the control).
@@ -184,8 +190,10 @@ Phases, one JSON line each on stdout (warnings and build logs go to stderr):
    synthetic pairs, numpy draws held by SHA-256) against JAX's scales
    (``….int8act_ref.json``, ``INT8_SCALE_TOL``); every entry on the inputs
    of the 83 QConvs of one eager int8 UNet call (batch 1, a request's; batch
-   8, a batch's), bit for bit, and timed there (host and graph ms summed over
-   the call and by shape class, the plain version's ms, the bound, the
+   8, a batch's) and the weight pass on their 83 weights, bit for bit, and
+   timed there (host and graph ms summed over the call and by shape class,
+   quantize and the weight pass beside each class's convolution, the plain
+   version's ms, the bound, the
    library yardstick checked exact on the same inputs: ``torch._int_mm`` on
    the im2col'd operands for the dense entry, a float32 cuDNN depthwise
    ``F.conv2d`` for the depthwise one); the ``int8_act``
@@ -193,8 +201,12 @@ Phases, one JSON line each on stdout (warnings and build logs go to stderr):
    against JAX's int8_act package (``INT8_EVAL_TOL``), the fp32 model the
    control that must fail; served beside the fp32 student in the same call
    (480×720 latency, batch-8 pipelined images/s, peak, graph vs eager 0
-   LSB, launches a replay: 83 quantize, 61 dense, 22 depthwise, 1
-   attention); ``use_pallas_irb`` launching no fused IRB; ``python -m
+   LSB, launches a replay: 83 weight passes, 83 quantize, 61 dense, 22
+   depthwise, 1 attention); the ``int8_trace`` line: torch.profiler over 5
+   replays of the int8_act graphs at batch 1 and 8, the device kernels and
+   ms a replay by group (quantize, the weight pass, dense, depthwise,
+   attention, the rest by name) and the device's idle share;
+   ``use_pallas_irb`` launching no fused IRB; ``python -m
    cv_diffusion_tpu_torch.export --quantize int8_act --calib_dir`` on
    ``write_lol``'s first 8 pairs, its package serving a request.
 21. qat    -- a ``qat`` and a ``qat_act`` loss and gradient at batch 2 on the
@@ -463,12 +475,7 @@ def profile(label: str, fn, requests_per_run: int, runs: int = 5) -> None:
                and not getattr(e, "is_user_annotation", False)]
     require(bool(kernels), "the profiler traced no device kernels")
     spans = sorted((e.time_range.start, e.time_range.end) for e in kernels)
-    busy, end = 0.0, spans[0][0]
-    for s, e in spans:                     # union of kernel intervals (µs)
-        if e > end:
-            busy += e - max(s, end)
-            end = e
-    active = spans[-1][1] - spans[0][0]
+    busy, active = busy_us(spans)
     by_kind, by_name = defaultdict(float), defaultdict(lambda: [0.0, 0])
     for e in kernels:
         dur = e.time_range.end - e.time_range.start
@@ -487,6 +494,17 @@ def profile(label: str, fn, requests_per_run: int, runs: int = 5) -> None:
                                  sorted(by_kind.items(), key=lambda kv: -kv[1])},
          top_kernels=[{"name": name[:90], "ms_per_request": t / 1e3 / n,
                        "calls_per_request": c / n} for name, (t, c) in top])
+
+
+def busy_us(spans) -> tuple:
+    """(µs the device was busy, µs from the first start to the last end) of
+    (start, end) intervals sorted by start: the length of their union."""
+    busy, end = 0.0, spans[0][0]
+    for s, e in spans:
+        if e > end:
+            busy += e - max(s, end)
+            end = e
+    return busy, max(e for _, e in spans) - spans[0][0]
 
 
 def device_kernels(fn, calls: int = 2, traces: int = 8) -> dict:
@@ -1153,6 +1171,10 @@ DEPTHWISE_PER_UNET_CALL = 22
 # 126, so an interior sum 127·(127·(K − 1) + 126) is odd and past 2**24;
 # the first two in a few output tiles, the third in many
 INT8_ADVERSARIAL = ((2048, 1, 8, 1, 8), (256, 3, 8, 1, 8), (1152, 1, 32, 8, 128))
+# an output channel's first 9 weights for the weight pass: absmax 127, so
+# s_w = 127 · float(1/127) = 1 and the other eight land on exact halves,
+# which round half to even
+INT8_HALVES = (127.0, 2.5, -3.5, 0.5, -0.5, 1.5, -2.5, 126.5, -125.5)
 # edge shapes of the int8 kernels beside the UNet's (depthwise, Cin, Cout,
 # kernel, stride, H, W, bias): ragged M, O = 3, Cin = 6, stride 2 on odd H
 # and W, channels that are not a multiple of 32, outputs wider than a
@@ -1201,6 +1223,8 @@ def qconv_work(kind, x, out, cin=None, k=1):
     or the dense and depthwise entries' padded int8 ``xq``."""
     if kind == "quantize":       # the float input, its int8 values (N·H·W·C)
         return x.numel() * (x.element_size() + 1), 4 * x.numel(), F32_FLOPS_PER_S
+    if kind == "quantize_weight":   # the float32 weight, its int8 values and s_w
+        return x.numel() * (x.element_size() + 1) + 4 * x.shape[0], 4 * x.numel(), F32_FLOPS_PER_S
     n, o, oh, ow = out.shape
     if kind == "depthwise":      # C = O channels in, 9·C weights
         moved = x.numel() // x.shape[-1] * o + 9 * o + out.numel() * out.element_size()
@@ -1239,6 +1263,43 @@ def int_mm_call(xq, wq, stride, padding, cin, k):
     return (lambda: torch._int_mm(a_pad, bt)), a.shape[0]
 
 
+def qconv_build_report(built, qk) -> dict:
+    """The int8 library's ``build`` fields: registers, static shared memory
+    and spills of each instance (0 spills required in the dense, depthwise
+    and quantize kernels), the dynamic shared memory of each dense tile,
+    and the dense kernels on the tensor cores (``IMMA`` in their SASS, no
+    ``IDP4A``)."""
+    from cv_diffusion_tpu_torch.ops import cuda_build
+
+    report = ptxas_report(built.log)
+    new = {k: v for k, v in report.items() if k.startswith(("dense_", "depthwise_"))}
+    require(len(new) == 2 * len(qk.DENSE_TILES) + 4,     # depthwise: f32, bf16 × stride
+            f"int8: ptxas reports {sorted(new)}")
+    quant = {k: v for k, v in report.items() if k.startswith("quantize_")}
+    require(sorted(quant) == ["quantize_kernel<bf16>", "quantize_kernel<float>",
+                              "quantize_weight_kernel<false>",
+                              "quantize_weight_kernel<true>"],
+            f"int8: ptxas reports {sorted(quant)}")
+    new.update(quant)
+    spilled = {k: v for k, v in new.items() if v["spill_bytes"]}
+    require(not spilled, f"int8 kernels spill: {spilled}")
+    qlib = cuda_build.load(qk.SOURCE, qk._declare)
+    fields = {"kernels": report}
+    fields["dense_dynamic_smem_bytes"] = {
+        f"{t}:{bm}x{bn}": [qlib.qconv_dense_smem_bytes(t, bf) for bf in (0, 1)]
+        for t, (bm, bn, _, _) in enumerate(qk.DENSE_TILES)}
+    sass = sass_counts(built.path)
+    fields["sass"] = sass if sass is None else {
+        k: v for k, v in sass.items() if k.startswith(("dense_", "depthwise_"))}
+    if sass is not None:
+        dense = {k: v for k, v in sass.items() if k.startswith("dense_")}
+        require(len(dense) == 2 * len(qk.DENSE_TILES)
+                and all(v["IMMA"] + v["IGMMA"] > 0 and v["IDP4A"] == 0
+                        for v in dense.values()),
+                f"int8 dense kernels not on the tensor cores: {dense}")
+    return fields
+
+
 def int8_kernel_phase(dev, qk, cuda_ms, graph_ms, cfg, weights) -> dict:
     """Phase 19: each int8 entry against its plain version, bit for bit, at
     every QConv shape class of the small UNet at 256² and at the edge shapes
@@ -1273,7 +1334,21 @@ def int8_kernel_phase(dev, qk, cuda_ms, graph_ms, cfg, weights) -> dict:
     require(len(calls) == QCONVS_PER_UNET_CALL,
             f"int8: {len(calls)} QConvs a UNet call, not {QCONVS_PER_UNET_CALL}")
     gen = torch.Generator(device=dev).manual_seed(19)
-    checked = {"quantize": 0, "dense": 0, "depthwise": 0}
+    checked = {"quantize": 0, "quantize_weight": 0, "dense": 0, "depthwise": 0}
+
+    def weight_pass(w, dw):
+        """The weight kernel against its plain version (quantize_weight, then
+        the layout), bit for bit; returns the plain (wq, s_w)."""
+        wq, s_w = tq.quantize_weight(w)
+        want = (tq.depthwise_weight_layout if dw else tq.dense_weight_layout)(wq)
+        got, got_s = qk.quantize_weight(w, dw)
+        torch.cuda.synchronize()
+        require(torch.equal(got, want) and torch.equal(got_s, s_w),
+                f"int8 weight pass {tuple(w.shape)} depthwise {dw}: kernel != plain "
+                f"({int((got != want).sum())} values, {int((got_s != s_w).sum())} scales)")
+        checked["quantize_weight"] += 1
+        return wq, s_w
+
     cases = list(classes.items())
     for dw, cin, cout, k, stride, h, w, bias in INT8_EDGES:
         edge = SimpleNamespace(
@@ -1281,9 +1356,9 @@ def int8_kernel_phase(dev, qk, cuda_ms, graph_ms, cfg, weights) -> dict:
             bias=torch.randn((cout,), generator=gen, device=dev) if bias else None)
         cases.append(((dw, cin, cout, k, stride, h, w, bias), edge))
     qlib = cuda_build.load(qk.SOURCE, qk._declare)
-    plans = {"dense": set(), "depthwise": set()}
+    plans = {"dense": set(), "depthwise": set(), "quantize": set()}
     for (dw, cin, cout, k, stride, h, w, bias), mod in cases:
-        wq, s_w = tq.quantize_weight(mod.weight)
+        wq, s_w = weight_pass(mod.weight.detach(), dw)
         for b in (1, 8):
             cp = tq.padded_channels(cin)
             for dt in (torch.float32, torch.bfloat16):
@@ -1300,6 +1375,8 @@ def int8_kernel_phase(dev, qk, cuda_ms, graph_ms, cfg, weights) -> dict:
                         f"int8 plan {p} against the library's {lib_smem} bytes")
                 x = (torch.randn((b, cin, h, w), generator=gen, device=dev) * 2).to(dt)
                 amax = x.float().abs().amax() * 0.75          # some inputs clip
+                pq = qk.quantize_launch(b, cin, h * w, dt)
+                plans["quantize"].add(("vector" if pq.vectorized else "element", pq.vec))
                 xq = qk.quantize(x, amax)
                 require(torch.equal(xq, tq.quantize_plain(x, amax)),
                         f"int8 quantize {b, cin, h, w} {dt}: kernel != plain")
@@ -1326,7 +1403,7 @@ def int8_kernel_phase(dev, qk, cuda_ms, graph_ms, cfg, weights) -> dict:
         w = torch.randn((cout, cin, k, k), generator=gen, device=dev) * 0.05
         w[0] = 1.0
         w[0, -1, -1, -1] = 126.0 / 127.0
-        wq, s_w = tq.quantize_weight(w)
+        wq, s_w = weight_pass(w, False)
         require(int(wq[0, -1, -1, -1]) == 126 and int((wq[0] == 127).sum()) == cin * k * k - 1,
                 f"int8 adversarial {cin}x{k}: weights {wq[0].flatten()[-3:].tolist()}")
         xq = qk.quantize(x, amax)
@@ -1348,7 +1425,26 @@ def int8_kernel_phase(dev, qk, cuda_ms, graph_ms, cfg, weights) -> dict:
         adversarial.append(dict(cin=cin, kernel=k, k=cin * k * k, hw=hw, batch=b, cout=cout,
                                 tile=plan.tile, exact_sum=exact,
                                 float32_conv=control, kernel_equals_plain=True))
+    # the weight pass on an all-zero output channel (s_w = 1e-12, every
+    # value 0) and on a channel whose w / s_w lands on exact halves (its
+    # absmax 127, so s_w = 1: round half to even), dense and depthwise
+    special = {}
+    for dw, (o, i) in ((False, (4, 6)), (True, (40, 1))):
+        w = torch.randn((o, i, 3, 3), generator=gen, device=dev) * 0.01
+        w[0] = 0.0
+        w[1].view(-1)[:9] = torch.tensor(INT8_HALVES, device=dev)
+        wq, s_w = weight_pass(w, dw)
+        quot = w[1] / s_w[1]
+        halves = int((quot - quot.floor() == 0.5).sum())
+        torch.cuda.synchronize()
+        require(float(s_w[0]) == float(torch.tensor(tq.WEIGHT_SCALE_FLOOR)) and not bool(wq[0].any())
+                and halves == len(INT8_HALVES) - 1,
+                f"int8 weight pass special channels: s_w {s_w[:2].tolist()}, {halves} halves")
+        special["depthwise" if dw else "dense"] = dict(
+            shape=[o, i, 3, 3], zero_channel_s_w=float(s_w[0]), exact_halves=halves,
+            rounded=wq[1].flatten()[:9].tolist())
     fields = dict(classes=len(classes), edges=len(INT8_EDGES), checked=checked,
+                  weight_special=special,
                   plans={k: sorted(v) for k, v in plans.items()}, batches=[1, 8],
                   dtypes=["float32", "bfloat16"], bit_for_bit=True, adversarial=adversarial,
                   seconds=time.perf_counter() - t0)
@@ -1382,18 +1478,26 @@ def int8_timings(dev, qk, cuda_ms, graph_ms, captured) -> dict:
     import torch
     from cv_diffusion_tpu_torch.ops import qconv as tq
 
-    sums = {e: defaultdict(float) for e in ("quantize", "dense", "depthwise")}
+    sums = {e: defaultdict(float) for e in ("quantize", "quantize_weight", "dense", "depthwise")}
     shapes = defaultdict(lambda: defaultdict(float))
     for mod, x in captured:
         x = x.contiguous()       # as QConv hands it to the kernel
         amax = mod.amax_eff(x)
         dt = mod.out_dtype()
-        wq, s_w = tq.quantize_weight(mod.weight)
+        wt, dw = mod.weight.detach(), mod.depthwise
+        wq, s_w = tq.quantize_weight(wt)
+        layout = tq.depthwise_weight_layout if dw else tq.dense_weight_layout
+        got_l, got_s = qk.quantize_weight(wt, dw)
+        require(torch.equal(got_l, layout(wq)) and torch.equal(got_s, s_w),
+                "request weight pass != plain")
         bvec = None if mod.bias is None else mod.bias.detach().to(dt)
         xq = qk.quantize(x, amax)
         require(torch.equal(xq, tq.quantize_plain(x, amax)), "request quantize != plain")
         entries = [("quantize", lambda: qk.quantize(x, amax), lambda: tq.quantize_plain(x, amax),
-                    qconv_work("quantize", x, xq))]
+                    qconv_work("quantize", x, xq)),
+                   ("quantize_weight", lambda: qk.quantize_weight(wt, dw),
+                    lambda: layout(tq.quantize_weight(wt)[0]),
+                    qconv_work("quantize_weight", wt, got_l))]
         k, s, p = mod.kernel_size[0], mod.stride[0], mod.padding[0]
         c = mod.out_channels
         if mod.depthwise:
@@ -1439,15 +1543,162 @@ def int8_timings(dev, qk, cuda_ms, graph_ms, captured) -> dict:
                 shape["graph_ms"] += g_ms
                 shape["bound_ms"] += bnd
                 shape["calls"] += 1
+            else:
+                shape[f"{entry}_graph_ms"] += g_ms
+                shape[f"{entry}_bound_ms"] += bnd
     for name, row in sums.items():
         t_bytes = row["bytes"] / HBM_BYTES_PER_S
-        t_ops = row["ops"] / (F32_FLOPS_PER_S if name == "quantize" else INT8_OPS_PER_S)
+        t_ops = row["ops"] / (F32_FLOPS_PER_S if name.startswith("quantize") else INT8_OPS_PER_S)
         row["bound_by"] = "bytes" if t_bytes >= t_ops else "operations"
     out = {k: dict(v) for k, v in sums.items()}
     out["per_shape"] = sorted(
         ({"depthwise": key[0], "cin": key[1], "cout": key[2], "kernel": key[3],
           "stride": key[4], "hw": [key[5], key[6]], **v} for key, v in shapes.items()),
         key=lambda r: -r["graph_ms"])
+    return out
+
+
+def traced_kernels(fn, calls: int, traces: int = 4) -> list:
+    """(name, start µs, end µs) of each device activity (kernels, copies,
+    fills) of ``calls`` calls of ``fn`` under torch.profiler, in start
+    order. The profiler now and then drops events, never adds one
+    (:func:`device_kernels`): the trace that read the most counts, and one
+    that reads a whole multiple of ``calls`` ends the search."""
+    import torch
+    from torch.profiler import ProfilerActivity
+    from torch.profiler import profile as trace
+
+    fn()
+    torch.cuda.synchronize()
+    best = []
+    for _ in range(traces):
+        with trace(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+        events = sorted(((e.name, e.time_range.start, e.time_range.end) for e in prof.events()
+                         if e.device_type == torch.autograd.DeviceType.CUDA
+                         and not getattr(e, "is_user_annotation", False)),
+                        key=lambda e: e[1])
+        if len(events) > len(best):
+            best = events
+        if events and len(events) % calls == 0:
+            break
+        time.sleep(0.2)
+    return best
+
+
+def replayed_name(name: str) -> str:
+    """A device activity's name with copies and fills by kind: an eager
+    ``Memcpy DtoD`` replays in a CUDA graph as a ``memcpy32_post`` kernel."""
+    low = name.lower()
+    return "memcpy" if "memcpy" in low else "memset" if "memset" in low else name
+
+
+def weight_pass_kernels(weight_pass, mods) -> list:
+    """The kernels (sorted :func:`replayed_name`s) that
+    ``weight_pass(module)`` runs for one of ``mods`` of each kind, each kind
+    once: traced eagerly over 20 calls, as :func:`device_kernels` does."""
+    import torch
+
+    kinds = {}        # the weight pass's kernels depend on these
+    for m in mods:
+        kinds.setdefault((m.depthwise, m.kernel_size[0], m.in_channels % 32, m.out_channels % 32), m)
+    sigs = []
+    for mod in kinds.values():
+        with torch.inference_mode():
+            names = device_kernels(lambda: weight_pass(mod), calls=20)
+        sig = sorted(replayed_name(n) for n, c in names.items() for _ in range(round(c)))
+        if sig and sig not in sigs:
+            sigs.append(sig)
+    return sigs
+
+
+def int8_trace(graphs, weight_pass, mods, replays: int = 5) -> dict:
+    """Where an int8 replay's device time goes: torch.profiler over
+    ``replays`` back-to-back replays of each of the int8_act pipeline's CUDA
+    graphs (``graphs``: batch size → SamplerGraph), per replay the device
+    kernels and device ms in groups, and the device's idle share between
+    the first kernel's start and the last one's end. Groups: ``quantize``
+    (the activations'), ``weight_pass`` (what quantizes and lays out a
+    QConv's weight: the ``quantize_weight`` kernel, or, on a tree whose
+    QConvs run the plain chain, the kernels that ``weight_pass(module)``
+    runs alone for one of ``mods`` (the pipeline's QConvs) of each kind,
+    found in the replay around each activation quantize, their names
+    checked), ``dense``, ``depthwise``, ``attention`` and the rest, the
+    weight pass and the rest also by kernel name."""
+    sigs = []
+
+    def group(name):
+        if "quantize_weight" in name:
+            return "weight_pass"
+        if "quantize_kernel" in name:
+            return "quantize"
+        if "dense_kernel" in name:
+            return "dense"
+        if "depthwise_kernel" in name:
+            return "depthwise"
+        if "linear_attention" in name:
+            return "attention"
+        return "rest"
+
+    out = {}
+    for b, g in sorted(graphs.items()):
+        events = traced_kernels(g.graph.replay, replays)
+        require(bool(events), f"int8_trace: no device kernels in the batch-{b} replays")
+        groups = [group(n) for n, _, _ in events]
+        matched = groups.count("weight_pass")
+        if not matched:
+            # the plain chain: a QConv's weight pass runs around its
+            # activation quantize and before its convolution: every other
+            # kernel between the quantize and the convolution, then as many
+            # as the pass has left just before the quantize (or before the
+            # copy that makes x contiguous, where there is one); their names
+            # must be the pass's
+            if not sigs:
+                sigs = weight_pass_kernels(weight_pass, mods)
+            for i, gr in enumerate(groups):
+                if gr != "quantize":
+                    continue
+                j = next((j for j in range(i + 1, len(groups))
+                          if groups[j] in ("dense", "depthwise")), None)
+                if j is None:
+                    continue
+                after = [x for x in range(i + 1, j) if groups[x] == "rest"]
+                for sig, gap in ((sig, gap) for gap in (0, 1) for sig in sigs):
+                    end = i - gap
+                    before = list(range(max(end - (len(sig) - len(after)), 0), end))
+                    window = before + after
+                    if (len(window) == len(sig) and all(groups[x] == "rest" for x in window)
+                            and sorted(replayed_name(events[x][0]) for x in window) == sig):
+                        for x in window:
+                            groups[x] = "weight_pass"
+                        matched += 1
+                        break
+        sums = defaultdict(lambda: [0, 0.0])
+        by_name = {"weight_pass": defaultdict(lambda: [0, 0.0]), "rest": defaultdict(lambda: [0, 0.0])}
+        for (name, s, e), gr in zip(events, groups):
+            sums[gr][0] += 1
+            sums[gr][1] += e - s
+            if gr in by_name:
+                by_name[gr][name][0] += 1
+                by_name[gr][name][1] += e - s
+        busy, active = busy_us([(s, e) for _, s, e in events])
+
+        def named(d, top=None):
+            rows = sorted(d.items(), key=lambda kv: -kv[1][1])[:top]
+            return [{"name": n[:100], "kernels": c / replays, "ms": t / 1e3 / replays}
+                    for n, (c, t) in rows]
+
+        out[b] = dict(replays=replays, kernels=len(events) / replays,
+                      device_ms=sum(v[1] for v in sums.values()) / 1e3 / replays,
+                      span_ms=active / 1e3 / replays, idle_share=1 - busy / active,
+                      groups={k: {"kernels": v[0] / replays, "ms": v[1] / 1e3 / replays}
+                              for k, v in sorted(sums.items(), key=lambda kv: -kv[1][1])},
+                      weight_pass_kernels_a_qconv=sorted({len(v) for v in sigs}) or [1],
+                      weight_pass_found=matched / replays,
+                      weight_pass_by_name=named(by_name["weight_pass"]),
+                      rest_by_name=named(by_name["rest"], 10))
     return out
 
 
@@ -1587,6 +1838,7 @@ def int8_act_phase(dev, qk, cuda_ms, graph_ms, cfg, weights, images, batch_image
     require(quality["int8_act"]["launches"] == {
         "linear_attention": calls, "fused_irb_v2": 0, "fused_irb_v1": 0,
         "qconv_quantize": QCONVS_PER_UNET_CALL * calls,
+        "qconv_quantize_weight": QCONVS_PER_UNET_CALL * calls,
         "qconv_dense": (QCONVS_PER_UNET_CALL - DEPTHWISE_PER_UNET_CALL) * calls,
         "qconv_depthwise": DEPTHWISE_PER_UNET_CALL * calls},
         f"int8_act eval launches {quality['int8_act']['launches']}")
@@ -1632,10 +1884,16 @@ def int8_act_phase(dev, qk, cuda_ms, graph_ms, cfg, weights, images, batch_image
         if label == "int8_act":
             want_replay = {"linear_attention": 1, "fused_irb_v2": 0, "fused_irb_v1": 0,
                            "qconv_quantize": QCONVS_PER_UNET_CALL,
+                           "qconv_quantize_weight": QCONVS_PER_UNET_CALL,
                            "qconv_dense": QCONVS_PER_UNET_CALL - DEPTHWISE_PER_UNET_CALL,
                            "qconv_depthwise": DEPTHWISE_PER_UNET_CALL}
             require(all(g.launches == want_replay for g in pipe.graphs.values()),
                     f"int8_act: launches a replay {served[label]['launches_a_replay']}")
+            a = time.perf_counter()
+            trace = int8_trace(pipe.graphs, lambda m: qk.quantize_weight(m.weight, m.depthwise),
+                               [m for m in pipe.model.modules() if isinstance(m, QConv)])
+            emit("int8_trace", **{f"batch_{b}": v for b, v in trace.items()},
+                 seconds=time.perf_counter() - a)
         del pipe
     # use_pallas_irb is ignored under act_quant: no fused IRB launches
     fused = ServingPipeline.from_package(pkg, device=dev, use_pallas_irb=True)
@@ -1864,7 +2122,8 @@ def main() -> int:
     dev = torch.device("cuda")
     kind = torch.cuda.get_device_name(0)
     pin_fp32()   # the plain versions' convolutions in full f32, as served
-    qconv_kernels = ("qconv_quantize", "qconv_dense", "qconv_depthwise")
+    qconv_kernels = ("qconv_quantize", "qconv_quantize_weight", "qconv_dense",
+                     "qconv_depthwise")
 
     def kernel_launches():
         """The float paths' kernels' launch counts; on a float path the int8
@@ -1899,29 +2158,7 @@ def main() -> int:
         if module is lak:      # registers and spills of each instance
             fields["kernels"] = ptxas_report(built.log)
         if module is qk:
-            # registers, static shared memory and spills of each instance,
-            # the dynamic shared memory of each dense tile, and the dense
-            # kernels on the tensor cores: IMMA in their SASS, no IDP4A
-            report = ptxas_report(built.log)
-            new = {k: v for k, v in report.items() if k.startswith(("dense_", "depthwise_"))}
-            require(len(new) == 2 * len(qk.DENSE_TILES) + 4,     # depthwise: f32, bf16 × stride
-                    f"int8: ptxas reports {sorted(new)}")
-            spilled = {k: v for k, v in new.items() if v["spill_bytes"]}
-            require(not spilled, f"int8 kernels spill: {spilled}")
-            qlib = cuda_build.load(qk.SOURCE, qk._declare)
-            fields["kernels"] = report
-            fields["dense_dynamic_smem_bytes"] = {
-                f"{t}:{bm}x{bn}": [qlib.qconv_dense_smem_bytes(t, bf) for bf in (0, 1)]
-                for t, (bm, bn, _, _) in enumerate(qk.DENSE_TILES)}
-            sass = sass_counts(built.path)
-            fields["sass"] = sass if sass is None else {
-                k: v for k, v in sass.items() if k.startswith(("dense_", "depthwise_"))}
-            if sass is not None:
-                dense = {k: v for k, v in sass.items() if k.startswith("dense_")}
-                require(len(dense) == 2 * len(qk.DENSE_TILES)
-                        and all(v["IMMA"] + v["IGMMA"] > 0 and v["IDP4A"] == 0
-                                for v in dense.values()),
-                        f"int8 dense kernels not on the tensor cores: {dense}")
+            fields = qconv_build_report(built, qk)
         if module is fik:      # registers and spills of each fused-IRB kernel
             report = ptxas_report(built.log)
             require(any(k.startswith(NO_SPILL_KERNELS) for k in report),
@@ -2451,7 +2688,8 @@ def main() -> int:
         lak.linear_attention_kernel.launches = 0
         fik.fused_irb_v2.launches = 0
         fik.fused_irb_v1.launches = 0
-        qk.quantize.launches = qk.int8_conv.launches = qk.int8_depthwise.launches = 0
+        qk.quantize.launches = qk.quantize_weight.launches = 0
+        qk.int8_conv.launches = qk.int8_depthwise.launches = 0
 
     def graph_accounting(pipe, label, want, eager_calls):
         """Hold the launches of a configuration's run to its graphs: each
@@ -4056,6 +4294,8 @@ def main() -> int:
     srv = int8_act["served"]["int8_act"]
     for name, key, entry, where in (
             ("qconv_quantize", "qconv_quantize", "quantize", ":163-168, the input quantize"),
+            ("qconv_quantize_weight", "qconv_quantize_weight", "quantize_weight",
+             ":169-172, the weight quantize (and the port's padded layout)"),
             ("qconv_int8_conv", "qconv_dense", "dense", ":174, conv_general_dilated int8 → int32"),
             ("qconv_int8_depthwise", "qconv_depthwise", "depthwise",
              ":174, conv_general_dilated int8 → int32, feature_group_count=C")):
@@ -4081,6 +4321,9 @@ def main() -> int:
             "library": {
                 "quantize": "none: torch.quantize_per_tensor clips at -128, not -127, "
                             "and writes NCHW",
+                "quantize_weight": "none: torch.quantize_per_channel takes the scales as "
+                                   "given (their absmax is another call), clips at -128 and "
+                                   "writes [O, I, kh, kw], not the padded layout",
                 "dense": "torch._int_mm on the F.unfold im2col'd operands, padded",
                 "depthwise": "F.conv2d float32 depthwise of the int8 values (cuDNN, TF32 "
                              "off): exact, every sum below 2**24"}[entry],

@@ -7,18 +7,26 @@
 // same, because PyTorch has no int8 convolution on the card and a float32
 // convolution of int8 values is not exact once a partial sum passes 2^24
 // (a product is at most 127^2 = 16,129; the small UNet's widest 1x1 has
-// K = 2,048 and its 3x3 Up/Downsample convs K = 2,304). Three entries, each
-// for float32 and bfloat16 compute, each equal to its plain PyTorch version
-// (cv_diffusion_tpu_torch/ops/qconv.py) bit for bit:
+// K = 2,048 and its 3x3 Up/Downsample convs K = 2,304). Four entries, each
+// equal to its plain PyTorch version (cv_diffusion_tpu_torch/ops/qconv.py)
+// bit for bit, each but the weight pass for float32 and bfloat16 compute:
 //
-//   qconv_quantize_*   x [N, C, H, W] -> int8 [N, H, W, Cp], Cp = C rounded up
-//                      to a multiple of 32 (kChannelMultiple; the padding
-//                      channels 0): q = clip(rint(x / s_x), -127, 127), s_x =
-//                      max(amax, 1e-6) * float(1/127). The product needs the
-//                      channel (K) axis contiguous, so the NCHW -> NHWC
-//                      transpose is done in the same pass, through a 32 x 32
-//                      tile in shared memory (reads along pixels, writes
-//                      along channels).
+//   qconv_quantize_weight_f32
+//                      the weight half of JAX's quantize (:169-172), which
+//                      XLA fuses into the jitted call and the port runs on
+//                      every call too: w [O, I, K, K] float32 -> s_w [O] =
+//                      max(absmax_o * float(1/127), 1e-12) and q = clip(
+//                      rint(w / s_w), -127, 127) in the layout the
+//                      convolution reads, [O, K, K, Cp] or (depthwise) [9,
+//                      Cp], zero-padded; one launch in place of ten small
+//                      PyTorch kernels.
+//   qconv_quantize_*   the input half (:163-168): x [N, C, H, W] -> int8
+//                      [N, H, W, Cp], Cp = C rounded up to a multiple of 32
+//                      (kChannelMultiple; the padding channels 0): q =
+//                      clip(rint(x / s_x), -127, 127), s_x = max(amax, 1e-6)
+//                      * float(1/127). The product needs the channel (K)
+//                      axis contiguous, so the NCHW -> NHWC transpose is done
+//                      in the same pass, in registers.
 //   qconv_dense_*      1x1 and 3x3, stride 1 or 2, zero padding `pad`:
 //                      acc[n, o, p] = sum over taps and channels of
 //                      xq * wq, wq laid out [O, K, K, Cp].
@@ -67,9 +75,28 @@
 // neighbouring output pixels, with the slab's weights in registers, and
 // stores each channel's 4 pixels at once, 16 bytes of float32: a warp writes
 // whole 32-byte sectors along pixels, in NCHW, with no staging of the output
-// (ops/qconv_kernel.py::plan_depthwise sizes the band). The quantize entry
-// reads x once and writes xq once; it is bound by bytes. No Pallas kernel is
-// replaced by any of the three.
+// (ops/qconv_kernel.py::plan_depthwise sizes the band).
+// Both quantize entries read their input once and write their output once,
+// and are bound by bytes: 5 bytes an element in float32, 3 in bf16. One
+// __fdiv_rn, rintf and clamp an element is ~15 instructions, under the ~45
+// of issue the bytes' time leaves, but __fdiv_rn ends in a branch to its
+// slow path, so one lane's divisions run one after another, and its range
+// check takes a zero dividend down that slow path: after ReLU6 about half
+// the activations are zeros. So the activations' design: a warp takes one
+// 32-channel slab of 32 pixels; a lane 32 elements, 8 (float32) or 4 (bf16)
+// channels of one 16-byte vector of pixels, whose loads it issues before it
+// uses any (a warp's load is 4 or 8 runs of 128 or 64 bytes of channel
+// rows); it quantizes them in registers (a zero is not divided: it is 0)
+// and stores each pixel's 8 or 4 channels as one word packed with prmt
+// (__byte_perm), so the 4 or 8 lanes of a pixel write its whole 32-byte
+// sector: no shared memory, and many short lanes in flight, which a batch-1
+// 32^2 input (64 blocks or more) needs as much as a batch-8 256^2 one
+// (tens of thousands). Rows that are not 16-byte aligned (HW % V != 0, or
+// x offset) take the same path with element loads. The weight pass reads
+// 4 bytes and writes 1 an element, 72 MB at most (the student's 18,008,035
+// parameters), each read once; launch latency dominates it (83 launches a
+// UNet call, at most 2,048 blocks each). No Pallas kernel is replaced by
+// any of the four.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -80,18 +107,27 @@ namespace {
 constexpr float kInv127 = 1.0f / 127.0f;   // float(1/127), as JAX's compiled scales
 constexpr float kActFloor = 1e-6f;
 constexpr int kChannelMultiple = 32;       // ops/qconv.py CHANNEL_MULTIPLE
-constexpr int kQuantizeThreads = 256;
+constexpr float kWeightFloor = 1e-12f;
+// the activation quantize: 4 warps a block, each its own tile of one
+// 32-channel slab x kQuantizeTile pixels; a lane kQuantizeLaneElems elements
+// (one 16-byte vector of pixels of each of its channels)
+constexpr int kQuantizeThreads = 128;
+constexpr int kQuantizeLaneElems = 32;
+constexpr int kQuantizeTile = kQuantizeLaneElems;   // 32 lanes' elements over 32 channels
+// the weight pass: a block an output channel (dense) or 8 slabs (depthwise)
+constexpr int kWeightThreads = 256;
 
 __device__ __forceinline__ float act_scale(const float* amax) {
   return __fmul_rn(fmaxf(*amax, kActFloor), kInv127);
 }
 
-__device__ __forceinline__ float load_f32(const float* p) { return *p; }
-__device__ __forceinline__ float load_f32(const __nv_bfloat16* p) { return __bfloat162float(*p); }
-
+// clip(rint(x / s), -127, 127) for s > 0: an IEEE division, half to even.
+// A zero x quantizes to 0 and is not divided: __fdiv_rn's range check sends
+// a zero dividend down its slow path, and the activations after ReLU6 are
+// about half zeros.
 __device__ __forceinline__ signed char quantize_one(float x, float s) {
-  const float q = fminf(fmaxf(rintf(__fdiv_rn(x, s)), -127.0f), 127.0f);
-  return static_cast<signed char>(__float2int_rn(q));
+  const float q = fminf(fmaxf(rintf(__fdiv_rn(x == 0.0f ? s : x, s)), -127.0f), 127.0f);
+  return x == 0.0f ? 0 : static_cast<signed char>(__float2int_rn(q));
 }
 
 // float(acc) * scale, rounded to the output dtype, then + bias in that dtype
@@ -142,28 +178,177 @@ __device__ __forceinline__ void mma_s8(int (&d)[4], const uint32_t (&a)[4], cons
 
 // End of inline PTX.
 
-// grid (ceil(HW / 32), ceil(Cp / 32), N), block (32, 8)
+// --- the quantize entries: activations and weights ---------------------------
+
+// Word i of a 16-byte vector (i known at compile time once unrolled).
+__device__ __forceinline__ uint32_t word(const uint4& u, int i) {
+  return i == 0 ? u.x : i == 1 ? u.y : i == 2 ? u.z : u.w;
+}
+
+// Element e of 16 bytes of T held as raw bits, as float32 (exact: a bf16 is
+// the upper half of its float32).
 template <typename T>
-__global__ void __launch_bounds__(kQuantizeThreads) quantize_kernel(const T* __restrict__ x,
-                                                                   const float* __restrict__ amax,
-                                                                   signed char* __restrict__ out,
-                                                                   int C, int HW, int Cp) {
-  __shared__ signed char tile[32][33];
-  const int n = blockIdx.z, p0 = blockIdx.x * 32, c0 = blockIdx.y * 32;
-  const int tx = threadIdx.x, ty = threadIdx.y;
-  const float s = act_scale(amax);
-  const T* xn = x + static_cast<size_t>(n) * C * HW;
-  for (int r = 0; r < 4; ++r) {
-    const int c = c0 + ty + 8 * r, p = p0 + tx;
-    signed char q = 0;
-    if (c < C && p < HW) q = quantize_one(load_f32(xn + static_cast<size_t>(c) * HW + p), s);
-    tile[ty + 8 * r][tx] = q;
+__device__ __forceinline__ float element(const uint4& u, int e) {
+  if constexpr (sizeof(T) == 4) {
+    return __uint_as_float(word(u, e));
+  } else {
+    const uint32_t w = word(u, e >> 1);
+    return __uint_as_float(e & 1 ? w & 0xffff0000u : w << 16);
   }
-  __syncthreads();
-  signed char* on = out + static_cast<size_t>(n) * HW * Cp;
-  for (int r = 0; r < 4; ++r) {
-    const int p = p0 + ty + 8 * r, c = c0 + tx;
-    if (p < HW && c < Cp) on[static_cast<size_t>(p) * Cp + c] = tile[tx][ty + 8 * r];
+}
+
+// The raw bits of one element of T, in the low bits of a word.
+template <typename T>
+__device__ __forceinline__ uint32_t raw_bits(const T* p) {
+  if constexpr (sizeof(T) == 4) {
+    return __float_as_uint(*reinterpret_cast<const float*>(p));
+  } else {
+    return *reinterpret_cast<const unsigned short*>(p);
+  }
+}
+
+// Four int8 values (as ints) in one word, the first at the lowest address.
+__device__ __forceinline__ uint32_t pack4(int a, int b, int c, int d) {
+  return __byte_perm(__byte_perm(a, b, 0x0040), __byte_perm(c, d, 0x0040), 0x5410);
+}
+
+// Stores the LC quantized channels of one pixel, LC bytes at dst.
+template <int LC>
+__device__ __forceinline__ void store_channels(signed char* dst, const uint32_t (&w)[LC / 4]) {
+  if constexpr (LC == 8) {
+    *reinterpret_cast<uint2*>(dst) = make_uint2(w[0], w[1]);
+  } else {
+    *reinterpret_cast<uint32_t*>(dst) = w[0];
+  }
+}
+
+// A warp's tile: one 32-channel slab of Cp x kQuantizeTile pixels. A lane
+// takes kQuantizeLaneElems elements: LC = 32 / V channels (8 float32, 4 bf16)
+// of one 16-byte vector of V pixels (V = 16 / sizeof(T): 4 float32, 8 bf16).
+// Lane l: channels LC (l % S) .. + LC - 1 of the slab, S = 32 / LC lanes to a
+// pixel's 32-byte sector, at pixels V (l / S) .. + V - 1 of the tile. It
+// issues its LC 16-byte loads, one a channel row, before it uses any (a
+// warp's load: S rows of 32 / S lanes x 16 contiguous bytes), holds LC
+// channels x V pixels in registers, and stores each pixel's LC channels as
+// one LC-byte word packed with prmt, so the S lanes of a pixel write its
+// whole 32-byte sector: no shared memory. Channels past C load nothing and
+// store 0, the padding, without arithmetic. Where a channel row is not
+// 16-byte aligned (vec false: HW % V != 0, or x offset) the same block is
+// loaded element by element.
+// grid ceil(units / 4), units = N * (Cp / 32) * chunks, chunks = ceil(HW /
+// kQuantizeTile); block 128, warp w of block b takes unit 4b + w, ordered
+// (n, slab, chunk), chunk fastest.
+template <typename T>
+__global__ void __launch_bounds__(kQuantizeThreads)
+    quantize_kernel(const T* __restrict__ x, const float* __restrict__ amax,
+                    signed char* __restrict__ out, int N, int C, int HW, int Cp, int chunks,
+                    bool vec) {
+  constexpr int V = 16 / static_cast<int>(sizeof(T));
+  constexpr int LC = kQuantizeLaneElems / V, S = kChannelMultiple / LC;
+  static_assert(V * (32 / S) == kQuantizeTile, "a warp's lanes cover its tile");
+  const int lane = threadIdx.x & 31;
+  const long long unit =
+      static_cast<long long>(blockIdx.x) * (kQuantizeThreads / 32) + (threadIdx.x >> 5);
+  const int slabs = Cp / kChannelMultiple;
+  if (unit >= static_cast<long long>(N) * slabs * chunks) return;
+  const int chunk = static_cast<int>(unit % chunks);
+  const int slab = static_cast<int>(unit / chunks % slabs);
+  const int n = static_cast<int>(unit / chunks / slabs);
+  const int c0 = slab * kChannelMultiple + LC * (lane % S);
+  const int p0 = chunk * kQuantizeTile + V * (lane / S);
+  if (p0 >= HW) return;
+  const T* src = x + (static_cast<size_t>(n) * C + c0) * HW + p0;
+  uint4 u[LC];
+#pragma unroll
+  for (int i = 0; i < LC; ++i) {
+    u[i] = make_uint4(0u, 0u, 0u, 0u);
+    if (c0 + i >= C) continue;
+    const T* row = src + static_cast<size_t>(i) * HW;
+    if (vec) {
+      u[i] = *reinterpret_cast<const uint4*>(row);
+    } else {
+      uint32_t b[V];
+#pragma unroll
+      for (int j = 0; j < V; ++j) b[j] = p0 + j < HW ? raw_bits(row + j) : 0u;
+      if constexpr (V == 4) {
+        u[i] = make_uint4(b[0], b[1], b[2], b[3]);
+      } else {
+        u[i] = make_uint4(b[0] | b[1] << 16, b[2] | b[3] << 16, b[4] | b[5] << 16,
+                          b[6] | b[7] << 16);
+      }
+    }
+  }
+  const float s = act_scale(amax);
+  signed char* dst = out + (static_cast<size_t>(n) * HW + p0) * Cp + c0;
+#pragma unroll
+  for (int j = 0; j < V; ++j) {
+    if (p0 + j >= HW) break;
+    uint32_t w[LC / 4];
+#pragma unroll
+    for (int k = 0; k < LC / 4; ++k)
+      w[k] = c0 + 4 * k >= C ? 0u
+                             : pack4(quantize_one(element<T>(u[4 * k], j), s),
+                                     quantize_one(element<T>(u[4 * k + 1], j), s),
+                                     quantize_one(element<T>(u[4 * k + 2], j), s),
+                                     quantize_one(element<T>(u[4 * k + 3], j), s));
+    store_channels<LC>(dst + static_cast<size_t>(j) * Cp, w);
+  }
+}
+
+// The weights of one QConv: s_w[o] = max(absmax_o * float(1/127), 1e-12)
+// over the I * KK values of output channel o, and q = clip(rint(w / s_w[o]),
+// -127, 127) written in the layout the convolution reads, zero-padded to Cp.
+// Dense (kDepthwise false), w [O, I, KK] -> [O, KK, Cp]: a block an output
+// channel; its threads take the row's max |w| along the row (coalesced),
+// reduce it by shuffles and through shared memory, then write the layout in
+// words of 4 channels of one tap, a warp 128 contiguous bytes a step,
+// reading the row again (from L1) at stride KK. Depthwise, w [O, 1, 9] ->
+// [9, Cp]: a warp a slab of 32 channels (warp v of block b the slab 8b +
+// v), a lane a channel: its 9 weights, their max and its 9 values, each
+// tap a 32-byte run of the warp.
+template <bool kDepthwise>
+__global__ void __launch_bounds__(kWeightThreads)
+    quantize_weight_kernel(const float* __restrict__ w, float* __restrict__ s_w,
+                           signed char* __restrict__ out, int O, int I, int KK, int Cp) {
+  const int lane = threadIdx.x & 31;
+  if constexpr (kDepthwise) {
+    const int o = (blockIdx.x * (kWeightThreads / 32) + (threadIdx.x >> 5)) * 32 + lane;
+    if (o >= Cp) return;
+    float v[9], m = 0.0f;
+#pragma unroll
+    for (int t = 0; t < 9; ++t) {
+      v[t] = o < O ? w[static_cast<size_t>(o) * 9 + t] : 0.0f;
+      m = fmaxf(m, fabsf(v[t]));
+    }
+    const float s = fmaxf(__fmul_rn(m, kInv127), kWeightFloor);
+    if (o < O) s_w[o] = s;
+#pragma unroll
+    for (int t = 0; t < 9; ++t) out[static_cast<size_t>(t) * Cp + o] = quantize_one(v[t], s);
+  } else {
+    __shared__ float part[kWeightThreads / 32];
+    const int o = blockIdx.x;
+    const int R = I * KK;
+    const float* row = w + static_cast<size_t>(o) * R;
+    float m = 0.0f;
+#pragma unroll 4
+    for (int e = threadIdx.x; e < R; e += kWeightThreads) m = fmaxf(m, fabsf(row[e]));
+#pragma unroll
+    for (int d = 16; d > 0; d >>= 1) m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, d));
+    if (lane == 0) part[threadIdx.x >> 5] = m;
+    __syncthreads();
+#pragma unroll
+    for (int v = 0; v < kWeightThreads / 32; ++v) m = fmaxf(m, part[v]);
+    const float s = fmaxf(__fmul_rn(m, kInv127), kWeightFloor);
+    if (threadIdx.x == 0) s_w[o] = s;
+    uint32_t* dst = reinterpret_cast<uint32_t*>(out + static_cast<size_t>(o) * KK * Cp);
+    const int words = KK * Cp / 4;
+    for (int i = threadIdx.x; i < words; i += kWeightThreads) {
+      const int t = 4 * i / Cp, c = 4 * i - t * Cp;
+      int q[4];
+#pragma unroll
+      for (int l = 0; l < 4; ++l) q[l] = c + l < I ? quantize_one(row[(c + l) * KK + t], s) : 0;
+      dst[i] = pack4(q[0], q[1], q[2], q[3]);
+    }
   }
 }
 
@@ -478,10 +663,40 @@ template <typename T>
 cudaError_t quantize(const void* x, const void* amax, void* out, int N, int C, int HW, int Cp,
                      void* stream) {
   if (N == 0 || HW == 0 || Cp == 0) return cudaSuccess;
-  const dim3 grid((HW + 31) / 32, (Cp + 31) / 32, N), block(32, 8);
-  quantize_kernel<T><<<grid, block, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const T*>(x), static_cast<const float*>(amax), static_cast<signed char*>(out), C,
-      HW, Cp);
+  if (Cp % kChannelMultiple != 0 || C > Cp) return cudaErrorInvalidValue;
+  if (reinterpret_cast<uintptr_t>(out) % 8 != 0) return cudaErrorMisalignedAddress;
+  constexpr int V = 16 / static_cast<int>(sizeof(T));
+  const bool vec = HW % V == 0 && reinterpret_cast<uintptr_t>(x) % 16 == 0;
+  const int chunks = (HW + kQuantizeTile - 1) / kQuantizeTile;
+  const long long units = static_cast<long long>(N) * (Cp / kChannelMultiple) * chunks;
+  constexpr int per_block = kQuantizeThreads / 32;
+  quantize_kernel<T><<<static_cast<unsigned>((units + per_block - 1) / per_block),
+                       kQuantizeThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const T*>(x), static_cast<const float*>(amax), static_cast<signed char*>(out), N,
+      C, HW, Cp, chunks, vec);
+  return cudaGetLastError();
+}
+
+cudaError_t quantize_weight(const void* w, void* s_w, void* out, int O, int I, int K, int Cp,
+                            int depthwise, void* stream) {
+  if (O == 0) return cudaSuccess;
+  if (Cp % kChannelMultiple != 0 || (K != 1 && K != 3)) return cudaErrorInvalidValue;
+  if (depthwise ? (I != 1 || K != 3 || Cp < O || Cp - O >= kChannelMultiple)
+                : (I < 1 || Cp < I || Cp - I >= kChannelMultiple))
+    return cudaErrorInvalidValue;
+  if (reinterpret_cast<uintptr_t>(out) % 4 != 0) return cudaErrorMisalignedAddress;
+  constexpr int warps = kWeightThreads / 32;
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (depthwise) {
+    const int slabs = Cp / kChannelMultiple;
+    quantize_weight_kernel<true><<<(slabs + warps - 1) / warps, kWeightThreads, 0, st>>>(
+        static_cast<const float*>(w), static_cast<float*>(s_w), static_cast<signed char*>(out), O,
+        I, K * K, Cp);
+  } else {
+    quantize_weight_kernel<false><<<O, kWeightThreads, 0, st>>>(
+        static_cast<const float*>(w), static_cast<float*>(s_w), static_cast<signed char*>(out), O,
+        I, K * K, Cp);
+  }
   return cudaGetLastError();
 }
 
@@ -572,6 +787,13 @@ int qconv_quantize_f32(const void* x, const void* amax, void* out, int N, int C,
 int qconv_quantize_bf16(const void* x, const void* amax, void* out, int N, int C, int HW, int Cp,
                         void* stream) {
   return quantize<__nv_bfloat16>(x, amax, out, N, C, HW, Cp, stream);
+}
+
+// w float32 [O, I, K, K] -> s_w float32 [O] and the layout: dense [O, K, K,
+// Cp], Cp = I padded to 32; depthwise (I 1, K 3) [9, Cp], Cp = O padded.
+int qconv_quantize_weight_f32(const void* w, void* s_w, void* out, int O, int I, int K, int Cp,
+                              int depthwise, void* stream) {
+  return quantize_weight(w, s_w, out, O, I, K, Cp, depthwise, stream);
 }
 
 int qconv_dense_f32(const void* xq, const void* wq, const void* amax, const void* s_w,

@@ -93,6 +93,7 @@ def kernel_launches() -> Dict[str, int]:
             "fused_irb_v2": fused_irb_kernel.fused_irb_v2.launches,
             "fused_irb_v1": fused_irb_kernel.fused_irb_v1.launches,
             "qconv_quantize": qconv_kernel.quantize.launches,
+            "qconv_quantize_weight": qconv_kernel.quantize_weight.launches,
             "qconv_dense": qconv_kernel.int8_conv.launches,
             "qconv_depthwise": qconv_kernel.int8_depthwise.launches}
 

@@ -11,8 +11,10 @@ float path, ``nn.Conv2d`` with a compute dtype; :class:`QConv` adds
   bound, the calibrated amax, or, for a module still at 0, the batch's own
   max |x|), the kernel per output channel with ``s_w``, the product summed
   exactly in int32, then ``y = float(acc) · (s_x · s_w)``, cast to the
-  compute dtype, ``+ bias`` in it. Three hand-written CUDA entries compute
-  it on the card (``ops/qconv_kernel.py``); their plain versions are here.
+  compute dtype, ``+ bias`` in it. Four hand-written CUDA entries compute
+  it on the card (``ops/qconv_kernel.py``: the weight pass, the activation
+  quantize, the dense and the depthwise convolution); their plain versions
+  are here.
 * ``"fake"``, activation-aware QAT (JAX ``_fake_quant_conv``,
   ``:116-143``): the input quantized and dequantized in float with the int8
   path's scale rules (a per-batch amax is stop-gradient'ed), straight-through
@@ -292,21 +294,21 @@ class QConv(Conv2d):
 
         if self.kernel_size[0] != self.kernel_size[1] or self.kernel_size[0] not in (1, 3):
             raise ValueError(f"int8 path: kernel {self.kernel_size}, not 1×1 or 3×3")
+        if self.depthwise and (self.groups != self.in_channels or self.groups != self.out_channels
+                               or self.kernel_size[0] != 3 or self.padding[0] != 1):
+            raise ValueError("int8 path: grouped convolutions are 3×3 depthwise, "
+                             "padding 1, only")
         amax = self.amax_eff(x)
-        wq, s_w = quantize_weight(self.weight)
+        # the weight quantized on every call, as in JAX (:169-172), in the
+        # layout the convolution reads
+        wl, s_w = qconv_kernel.quantize_weight(self.weight, self.depthwise)
         bias = None if self.bias is None else self.bias.detach().to(self.out_dtype())
         xq = qconv_kernel.quantize(x.detach().contiguous(), amax)
         if self.depthwise:
-            if (self.groups != self.in_channels or self.groups != self.out_channels
-                    or self.kernel_size[0] != 3 or self.padding[0] != 1):
-                raise ValueError("int8 path: grouped convolutions are 3×3 depthwise, "
-                                 "padding 1, only")
-            return qconv_kernel.int8_depthwise(
-                xq, depthwise_weight_layout(wq), self.out_channels, amax, s_w,
-                bias, self.stride[0], self.out_dtype())
-        return qconv_kernel.int8_conv(
-            xq, dense_weight_layout(wq), amax, s_w, bias, self.stride[0],
-            self.padding[0], self.out_dtype())
+            return qconv_kernel.int8_depthwise(xq, wl, self.out_channels, amax, s_w, bias,
+                                               self.stride[0], self.out_dtype())
+        return qconv_kernel.int8_conv(xq, wl, amax, s_w, bias, self.stride[0],
+                                      self.padding[0], self.out_dtype())
 
     def _fake_quant_conv(self, x: torch.Tensor) -> torch.Tensor:
         xf = upcast(x)

@@ -3,12 +3,15 @@
 The kernels (``csrc/qconv.cu``) replace XLA's int8 ``conv_general_dilated``
 with int32 accumulation that the JAX package's ``QConv`` runs on its int8
 path (``cv_diffusion_tpu/ops/qconv.py:104-110, 174``); there is no Pallas
-kernel of it, and PyTorch's convolutions take no int8 on the card. Three
-entries, each with a float32 and a bfloat16 instance:
+kernel of it, and PyTorch's convolutions take no int8 on the card. Four
+entries, each with a float32 and a bfloat16 instance but the first:
 
+* :func:`quantize_weight`: a conv weight → its int8 values in the layout
+  the convolution reads and the per-channel scales, in one launch
+  (``cv_diffusion_tpu/ops/qconv.py:169-172`` and the port's layout);
 * :func:`quantize`: x [N, C, H, W] → int8 [N, H, W, Cp] (pixel-major, the
-  channels padded with zeros to a multiple of 32), transposed in the same
-  pass;
+  channels padded with zeros to a multiple of 32), transposed in registers
+  in the same pass (:func:`quantize_launch`);
 * :func:`int8_conv`: the dense 1×1 and 3×3 convolutions, stride 1 or 2, an
   implicit GEMM on the tensor cores, tiled per shape by :func:`plan_dense`;
 * :func:`int8_depthwise`: the 3×3 depthwise convolution, stride 1 or 2, in
@@ -19,7 +22,7 @@ and bias in their epilogue, writing NCHW in the compute dtype. They are
 built from the package's own source with one ``nvcc`` call and loaded
 through ``ctypes`` at first use (:mod:`.cuda_build`). Each wrapper runs the
 plain version (:mod:`.qconv`) for CPU tensors; for CUDA tensors it launches
-its kernel, counted in its ``launches``, or raises. All three equal their
+its kernel, counted in its ``launches``, or raises. All four equal their
 plain versions bit for bit.
 """
 
@@ -32,8 +35,9 @@ from typing import NamedTuple, Optional, Tuple
 import torch
 
 from . import cuda_build
-from .qconv import (CHANNEL_MULTIPLE, int8_conv_plain, int8_depthwise_plain,
-                    padded_channels, quantize_plain)
+from .qconv import (CHANNEL_MULTIPLE, dense_weight_layout, depthwise_weight_layout,
+                    int8_conv_plain, int8_depthwise_plain, padded_channels, quantize_plain)
+from .qconv import quantize_weight as quantize_weight_plain
 
 SOURCE = cuda_build.source("qconv.cu")
 _DTYPES = {torch.float32: "f32", torch.bfloat16: "bf16"}
@@ -54,6 +58,18 @@ SLAB = 32
 DW_SMEM_MAX = 100 * 1024
 DW_MAX_COLS = 256
 DW_MAX_ROWS = 16
+
+
+# the activation quantize: QUANTIZE_THREADS threads a block, each warp its
+# own tile of one 32-channel slab × QUANTIZE_TILE pixels; a lane takes
+# QUANTIZE_LANE_ELEMS elements, one 16-byte vector of pixels of each of its
+# channels, so a warp's 32 lanes cover QUANTIZE_LANE_ELEMS pixels
+QUANTIZE_THREADS = 128
+QUANTIZE_LANE_ELEMS = 32
+QUANTIZE_TILE = QUANTIZE_LANE_ELEMS
+# the weight pass: WEIGHT_THREADS threads a block, a block an output channel
+# (dense), a warp a 32-channel slab (depthwise)
+WEIGHT_THREADS = 256
 
 
 def _out_hw(h: int, w: int, k: int, stride: int, padding: int) -> Tuple[int, int]:
@@ -154,6 +170,30 @@ def depthwise_launch(n: int, h: int, w: int, cp: int, stride: int, rows: int,
     return DepthwisePlan(rows, cols, grid, depthwise_smem_bytes(rows, cols, stride))
 
 
+class QuantizePlan(NamedTuple):
+    vec: int                        # pixels a 16-byte load: 4 float32, 8 bfloat16
+    lane_channels: int              # channels a lane: QUANTIZE_LANE_ELEMS / vec
+    chunks: int                     # tiles of QUANTIZE_TILE pixels along a channel row
+    units: int                      # warp tiles: N · Cp / 32 · chunks
+    grid: int                       # blocks
+    vectorized: bool                # 16-byte loads, else element by element
+
+
+def quantize_launch(n: int, c: int, hw: int, dtype: torch.dtype,
+                    aligned: bool = True) -> QuantizePlan:
+    """How the source launches the activation quantize of x [n, c, hw] (it
+    chooses this itself: its C signature carries no plan). ``aligned``:
+    x's data starts on 16 bytes; rows load 16 bytes at a time only where
+    every channel row does."""
+    if dtype not in _DTYPES:
+        raise TypeError(f"quantize takes float32 or bfloat16, not {dtype}")
+    vec = 16 // torch.tensor([], dtype=dtype).element_size()
+    chunks = -(-hw // QUANTIZE_TILE)
+    units = n * padded_channels(c) // CHANNEL_MULTIPLE * chunks
+    return QuantizePlan(vec, QUANTIZE_LANE_ELEMS // vec, chunks, units,
+                        -(-units // (QUANTIZE_THREADS // 32)), hw % vec == 0 and aligned)
+
+
 def build() -> cuda_build.Built:
     """Compile the kernel library unless this source and these flags were
     built before; returns where it is."""
@@ -176,6 +216,9 @@ def _declare(lib) -> None:
         fn = getattr(lib, f"qconv_depthwise_{dt}")
         fn.argtypes = [ptr] * 6 + [i32] * 10 + [ptr]
         fn.restype = i32
+    # w, s_w, out, O, I, K, Cp, depthwise, stream
+    lib.qconv_quantize_weight_f32.argtypes = [ptr] * 3 + [i32] * 5 + [ptr]
+    lib.qconv_quantize_weight_f32.restype = i32
     lib.qconv_dense_smem_bytes.argtypes = [i32, i32]
     lib.qconv_dense_smem_bytes.restype = i32
     lib.qconv_depthwise_smem_bytes.argtypes = [i32] * 3
@@ -243,6 +286,42 @@ def quantize(x: torch.Tensor, amax_eff: torch.Tensor) -> torch.Tensor:
 
 
 quantize.launches = 0
+
+
+def quantize_weight(weight: torch.Tensor, depthwise: bool) -> Tuple[torch.Tensor, torch.Tensor]:
+    """A QConv's weight [O, I, K, K] → (its int8 values in the layout the
+    convolution reads, s_w [O]): ``clip(round(w / s_w), -127, 127)`` per
+    output channel, laid out [O, K, K, Cp] (dense, Cp = I padded) or [9, Cp]
+    (``depthwise``, I = 1, K = 3, Cp = O padded), the padding 0. Its plain
+    version is :func:`.qconv.quantize_weight` followed by
+    :func:`.qconv.dense_weight_layout` or :func:`.qconv.depthwise_weight_layout`
+    (float64 for a float64 weight); the kernel takes float32."""
+    w = weight.detach()
+    if w.device.type == "cpu":
+        wq, s_w = quantize_weight_plain(w)
+        return (depthwise_weight_layout if depthwise else dense_weight_layout)(wq), s_w
+    dev = _check_cuda("quantize_weight", w)
+    if w.dtype != torch.float32 or w.dim() != 4:
+        raise TypeError(f"quantize_weight takes a float32 [O, I, K, K] weight, not {w.dtype} "
+                        f"{tuple(w.shape)}")
+    o, i, k, k2 = w.shape
+    if k != k2 or k not in (1, 3) or (depthwise and (i, k) != (1, 3)):
+        raise ValueError(f"quantize_weight: weight {tuple(w.shape)}, depthwise {depthwise}")
+    if depthwise:
+        wl = torch.empty((9, padded_channels(o)), dtype=torch.int8, device=dev)
+    else:
+        wl = torch.empty((o, k, k, padded_channels(i)), dtype=torch.int8, device=dev)
+    s_w = torch.empty((o,), dtype=torch.float32, device=dev)
+    lib = _lib()
+    with torch.cuda.device(dev):
+        err = lib.qconv_quantize_weight_f32(w.data_ptr(), s_w.data_ptr(), wl.data_ptr(),
+                                            o, i, k, wl.shape[-1], int(depthwise), _stream(dev))
+    _raise_on(lib, err, "int8 weight quantize")
+    quantize_weight.launches += 1
+    return wl, s_w
+
+
+quantize_weight.launches = 0
 
 
 def _epilogue_args(what, out_dtype, s_w, bias, channels):

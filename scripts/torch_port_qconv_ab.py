@@ -1,27 +1,41 @@
 #!/usr/bin/env python
-"""The int8 dense and depthwise kernels against an earlier version of
-``csrc/qconv.cu``, in one process on one card.
+"""The int8 kernels against an earlier version of ``csrc/qconv.cu``, in one
+process on one card.
 
     git show <commit>:cv_diffusion_tpu_torch/csrc/qconv.cu > _archive/qconv_old.cu
     python scripts/torch_port_qconv_ab.py --old _archive/qconv_old.cu [--batches 1 8]
+        [--entries quantize weight conv]
 
 The earlier source is built with its own ``nvcc`` call beside the current
 one (``ops/cuda_build.py``) and called with the C signatures read from its
 text: those of the ``__dp4a`` kernels (no launch-plan arguments), or the
-current ones (a dense tile; a depthwise band's rows and columns), which
+planned ones (a dense tile; a depthwise band's rows and columns), which
 take the current plans, held first to the source's own shared-memory
-sizes. A source with other signatures is refused. At every
-``QConv`` shape class of the small UNet at 256² (``--artifact``'s
-``model_config.json``, each class weighted by its count in one UNet call)
-and each batch size, in float32 compute: one random input quantized, both
-versions' outputs against the plain version bit for bit, then each call's
-device time replayed from a CUDA graph (CUDA events, ``--iters`` replays)
-in the order old, new, new, old. One JSON line a batch size: each class's
-four times and plan, and the sums over a UNet call. With ``--sweep`` each
-class is also timed under every other launch the current source takes
-(dense: each tile; depthwise: bands of 1 to 16 rows),
-each launch's output checked bit for bit first: what ``plan_dense`` and
-``plan_depthwise`` choose from.
+sizes. A source with other signatures is refused. Each entry is timed
+from a CUDA graph replayed ``--iters`` times (CUDA events), in the order
+old, new, new, old, after both outputs are held to the plain version bit
+for bit:
+
+- ``quantize``: the activation quantize (the same C signature in every
+  version) at each distinct input of one small-UNet call at 256²
+  (``--artifact``'s ``model_config.json``, each weighted by its count in
+  the call): N(0, 2²) values, through ReLU6 where the QConv's input is
+  bound (about half of them zeros, as when served); float32 and bf16; one
+  JSON line a batch size and dtype, with the bound;
+- ``weight``: the weight pass of the call's 83 QConvs (``--artifact``'s
+  own weights from ``artifacts_torch/`` where they are there): the plain
+  chain (``qconv.quantize_weight`` and the layout, as the int8 path ran it
+  before ``qconv_kernel.quantize_weight``) against the kernel's 83
+  launches, each captured whole in one graph, in the order plain, kernel,
+  kernel, plain; one JSON line;
+- ``conv``: at every ``QConv`` shape class and batch size, in float32
+  compute, one random input quantized and both versions' dense or
+  depthwise outputs; one JSON line a batch size: each class's four times
+  and plan, and the sums over a UNet call. With ``--sweep`` each class is
+  also timed under every other launch the current source takes (dense:
+  each tile; depthwise: bands of 1 to 16 rows), each launch's output
+  checked bit for bit first: what ``plan_dense`` and ``plan_depthwise``
+  choose from.
 
 Needs a CUDA device; prints the card and its power limit first.
 """
@@ -48,8 +62,10 @@ from cv_diffusion_tpu_torch.export.quantization import (  # noqa: E402
 from cv_diffusion_tpu_torch.ops import cuda_build  # noqa: E402
 from cv_diffusion_tpu_torch.ops import qconv as tq  # noqa: E402
 from cv_diffusion_tpu_torch.ops import qconv_kernel as qk  # noqa: E402
+from cv_diffusion_tpu_torch.weights import load_state_dict_npz  # noqa: E402
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+HBM_BYTES_PER_S = 3.35e12     # H100 SXM device memory
 
 
 # the parameters of the dense and depthwise entries without a launch plan
@@ -59,8 +75,18 @@ DEPTHWISE_ARGS = ("xq", "wq", "amax", "s_w", "bias", "out", "N", "H", "W", "C", 
                   "OH", "OW")
 
 
+def declare_quantize(lib) -> None:
+    """The activation quantize's C signature, the same in every version."""
+    ptr, i32 = ctypes.c_void_p, ctypes.c_int
+    for dt in ("f32", "bf16"):
+        fn = getattr(lib, f"qconv_quantize_{dt}")
+        fn.argtypes = [ptr] * 3 + [i32] * 4 + [ptr]
+        fn.restype = i32
+
+
 def declare_unplanned(lib) -> None:
     """The ``__dp4a`` kernels' C signatures (no launch-plan arguments)."""
+    declare_quantize(lib)
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
     for dt in ("f32", "bf16"):
         fn = getattr(lib, f"qconv_dense_{dt}")
@@ -69,6 +95,27 @@ def declare_unplanned(lib) -> None:
         fn = getattr(lib, f"qconv_depthwise_{dt}")
         fn.argtypes = [ptr] * 6 + [i32] * (len(DEPTHWISE_ARGS) - 6) + [ptr]
         fn.restype = i32
+
+
+def declare_planned(lib) -> None:
+    """The C signatures with a launch plan (a dense tile; a depthwise band),
+    the current ones but the weight pass's entry, which earlier versions
+    lack."""
+    declare_quantize(lib)
+    ptr, i32 = ctypes.c_void_p, ctypes.c_int
+    for dt in ("f32", "bf16"):
+        fn = getattr(lib, f"qconv_dense_{dt}")
+        fn.argtypes = [ptr] * 6 + [i32] * (len(DENSE_ARGS) - 6 + 1) + [ptr]
+        fn.restype = i32
+        fn = getattr(lib, f"qconv_depthwise_{dt}")
+        fn.argtypes = [ptr] * 6 + [i32] * (len(DEPTHWISE_ARGS) - 6 + 2) + [ptr]
+        fn.restype = i32
+    lib.qconv_dense_smem_bytes.argtypes = [i32, i32]
+    lib.qconv_dense_smem_bytes.restype = i32
+    lib.qconv_depthwise_smem_bytes.argtypes = [i32] * 3
+    lib.qconv_depthwise_smem_bytes.restype = i32
+    lib.qconv_error_string.argtypes = [i32]
+    lib.qconv_error_string.restype = ctypes.c_char_p
 
 
 def parameters(source: str, entry: str) -> tuple:
@@ -89,7 +136,7 @@ def load_old(path: str):
         return cuda_build.load(path, declare_unplanned), False
     if (dense, depthwise) == (DENSE_ARGS + ("tile", "stream"),
                               DEPTHWISE_ARGS + ("rows", "cols", "stream")):
-        return cuda_build.load(path, qk._declare), True
+        return cuda_build.load(path, declare_planned), True
     raise SystemExit(f"{path}: qconv_dense_f32{dense}, qconv_depthwise_f32{depthwise}: "
                      "signatures this runner does not know")
 
@@ -117,16 +164,20 @@ def graph_ms(fn, iters: int) -> float:
     return start.elapsed_time(end) / iters
 
 
-def shape_classes(cfg, dev):
-    """{(depthwise, Cin, Cout, kernel, stride, H, W, bias): count} of one
-    UNet call at the config's size, in call order."""
+def shape_classes(cfg, dev, weights=None):
+    """({(depthwise, Cin, Cout, kernel, stride, H, W, bias): count} of one
+    UNet call at the config's size, in call order; (module, H, W) of each
+    QConv call, in call order, with ``weights`` loaded where given)."""
     model, _ = act_quant_model(cfg, dev)
-    classes = {}
+    if weights is not None:
+        model.load_state_dict(weights, strict=True)
+    classes, calls = {}, []
 
     def hook(mod, args):
         key = (mod.depthwise, mod.in_channels, mod.out_channels, mod.kernel_size[0],
                mod.stride[0], args[0].shape[2], args[0].shape[3], mod.bias is not None)
         classes[key] = classes.get(key, 0) + 1
+        calls.append((mod, args[0].shape[2], args[0].shape[3]))
 
     for m in qconv_modules(model).values():
         m.act_quant = False          # the float path: only the shapes are wanted
@@ -135,7 +186,88 @@ def shape_classes(cfg, dev):
     with torch.inference_mode():
         model.unet(torch.zeros(1, cfg.unet.in_channels, size, size, device=dev),
                    torch.tensor([739], dtype=torch.int32, device=dev))
-    return classes
+    return classes, calls
+
+
+def run_quantize(lib, x, amax):
+    """One launch of ``lib``'s activation quantize on ``x``'s device."""
+    n, c, h, w = x.shape
+    out = torch.empty((n, h, w, tq.padded_channels(c)), dtype=torch.int8, device=x.device)
+    err = getattr(lib, f"qconv_quantize_{'f32' if x.dtype == torch.float32 else 'bf16'}")(
+        x.data_ptr(), amax.data_ptr(), out.data_ptr(), n, c, h * w, out.shape[-1],
+        torch.cuda.current_stream().cuda_stream)
+    assert err == 0, err
+    return out
+
+
+def quantize_ab(old, new, calls, batches, iters, gen, dev) -> None:
+    """The activation quantize, old against new, at each distinct input of
+    a UNet call's QConvs: N(0, 2²) values, through ReLU6 where the QConv's
+    input is bound (``act_bound``: about half of them zeros, as served);
+    one JSON line a batch size and dtype."""
+    inputs = {}
+    for mod, h, w in calls:
+        key = (mod.in_channels, h, w, mod.act_bound is not None)
+        inputs[key] = inputs.get(key, 0) + 1
+    for b in batches:
+        for dt in (torch.float32, torch.bfloat16):
+            rows, sums = [], {"old_ms": 0.0, "new_ms": 0.0, "bound_ms": 0.0}
+            for (cin, h, w, relu6), count in inputs.items():
+                x = torch.randn((b, cin, h, w), generator=gen, device=dev) * 2
+                x = (x.clamp(0, 6) if relu6 else x).to(dt)
+                amax = x.float().abs().amax() * 0.75
+                want = tq.quantize_plain(x, amax)
+                got_old, got_new = run_quantize(old, x, amax), run_quantize(new, x, amax)
+                torch.cuda.synchronize()
+                if not (torch.equal(got_old, want) and torch.equal(got_new, want)):
+                    raise AssertionError(f"quantize {(b, cin, h, w)} {dt}: new or old differs "
+                                         "from the plain version")
+                times = [graph_ms(fn, iters) for fn in (
+                    lambda: run_quantize(old, x, amax), lambda: run_quantize(new, x, amax),
+                    lambda: run_quantize(new, x, amax), lambda: run_quantize(old, x, amax))]
+                old_ms, new_ms = (times[0] + times[3]) / 2, (times[1] + times[2]) / 2
+                # the float input read once, its int8 values (real channels) written once
+                bound = x.numel() * (x.element_size() + 1) / HBM_BYTES_PER_S * 1e3
+                sums["old_ms"] += count * old_ms
+                sums["new_ms"] += count * new_ms
+                sums["bound_ms"] += count * bound
+                rows.append(dict(cin=cin, hw=[h, w], relu6=relu6, count=count,
+                                 old_new_new_old_ms=times,
+                                 old_ms=old_ms, new_ms=new_ms, bound_ms=bound,
+                                 speedup=old_ms / new_ms))
+            print(json.dumps({"entry": "quantize", "batch": b, "dtype": str(dt)[6:],
+                              "per_unet_call": sums, "speedup": sums["old_ms"] / sums["new_ms"],
+                              "share_of_bound_old": sums["bound_ms"] / sums["old_ms"],
+                              "share_of_bound_new": sums["bound_ms"] / sums["new_ms"],
+                              "classes": rows}), flush=True)
+
+
+def weight_ab(calls, iters) -> None:
+    """One UNet call's weight pass: the plain chain against the kernel, each
+    the 83 QConvs' passes captured in one graph; one JSON line."""
+    def plain():
+        return [(tq.depthwise_weight_layout if m.depthwise else tq.dense_weight_layout)(wq)
+                for m in mods for wq in (tq.quantize_weight(m.weight)[0],)]
+
+    def kernel():
+        return [qk.quantize_weight(m.weight, m.depthwise)[0] for m in mods]
+
+    mods = [m for m, _, _ in calls]
+    with torch.inference_mode():
+        for m in mods:
+            wq, want_s = tq.quantize_weight(m.weight)
+            want_l = (tq.depthwise_weight_layout if m.depthwise else tq.dense_weight_layout)(wq)
+            got_l, got_s = qk.quantize_weight(m.weight, m.depthwise)
+            torch.cuda.synchronize()
+            if not (torch.equal(got_l, want_l) and torch.equal(got_s, want_s)):
+                raise AssertionError(f"weight pass {tuple(m.weight.shape)}: kernel != plain")
+        times = [graph_ms(fn, iters) for fn in (plain, kernel, kernel, plain)]
+    params = sum(m.weight.numel() for m in mods)
+    real = sum(m.weight.numel() + m.out_channels * 4 for m in mods)
+    print(json.dumps({"entry": "weight_pass", "qconvs": len(mods), "parameters": params,
+                      "plain_kernel_kernel_plain_ms": times,
+                      "plain_ms": (times[0] + times[3]) / 2, "kernel_ms": (times[1] + times[2]) / 2,
+                      "bound_ms": (4 * params + real) / HBM_BYTES_PER_S * 1e3}), flush=True)
 
 
 def sweep(lib, dw, xq, wl, cout, amax, s_w, bvec, s, k, dt, want, iters) -> dict:
@@ -173,6 +305,8 @@ def main() -> int:
     parser.add_argument("--artifact", default="vreg1b_gt03_ema")
     parser.add_argument("--batches", type=int, nargs="+", default=[1, 8])
     parser.add_argument("--iters", type=int, default=50)
+    parser.add_argument("--entries", nargs="+", default=["quantize", "weight", "conv"],
+                        choices=["quantize", "weight", "conv"])
     parser.add_argument("--sweep", action="store_true",
                         help="also time every tile (dense) and band (depthwise)")
     args = parser.parse_args()
@@ -195,10 +329,16 @@ def main() -> int:
                       "new": new_built.path}), flush=True)
 
     cfg = load_model_config(os.path.join(ROOT, "artifacts", args.artifact, "model_config.json"))
-    classes = shape_classes(cfg, dev)
+    npz = os.path.join(ROOT, "artifacts_torch", f"{args.artifact}.npz")
+    weights = load_state_dict_npz(npz, dev) if os.path.exists(npz) else None
+    classes, calls = shape_classes(cfg, dev, weights)
     gen = torch.Generator(device=dev).manual_seed(16)
+    if "quantize" in args.entries:
+        quantize_ab(old, new, calls, args.batches, args.iters, gen, dev)
+    if "weight" in args.entries:
+        weight_ab(calls, args.iters)
     dt = torch.float32
-    for b in args.batches:
+    for b in (args.batches if "conv" in args.entries else ()):
         rows, sums = [], {"old_ms": 0.0, "new_ms": 0.0, "dense_old_ms": 0.0, "dense_new_ms": 0.0,
                           "depthwise_old_ms": 0.0, "depthwise_new_ms": 0.0}
         for (dw, cin, cout, k, s, h, w, bias), count in classes.items():
