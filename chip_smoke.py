@@ -217,6 +217,40 @@ Phases, one JSON line each on stdout (warnings and build logs go to stderr):
    loader, peak, attention launches); the train CLI with ``--qat_act`` (2
    steps, exit 0).
 
+22. flash  -- the three flash-attention kernels (``csrc/flash_attention.cu``,
+   built with the others in phase 2; the ``build`` line has each instance's
+   registers and spills): forward, dK/dV and dQ against their plain
+   versions (f32 forward 2e-5, backward 5e-4; bf16 4 bf16 ulps of each
+   reference's largest magnitude, at most 2e-2, ``flash_limit``; reruns
+   bit for bit; the plans as the library reports them) at ``mid_attn``'s
+   shape (batch 1 and 8), 512²'s mid (N = 4096), N = 1, 5, 100, 127, 128,
+   200, 1000 and D = 64 and 128, f32 and bf16; at the timed shapes host and
+   graph ms of each kernel, the plain versions and
+   ``scaled_dot_product_attention`` (forward; forward + autograd.grad less
+   the forward, both captured in CUDA graphs as the kernels are), each
+   kernel's bound (``FLASH_WORK``); and the
+   forward's peak memory against the plain version's at [8, 4096, 4, 32]
+   (``flash_memory``).
+23. softmax_serve -- a seeded small@256 with ``use_linear_attention=False``
+   (the student's config otherwise) served through the CUDA graphs at batch
+   1 and 8, f32 and bf16 compute: latency, images/s, peak memory, graph vs
+   eager (≤ 1 LSB), one forward flash launch a UNet call in a replay and no
+   linear-attention launch (counts set to 0 before each dtype), the kernel
+   on ``mid_attn``'s own q, k, v; the card's f32 sampler against the CPU
+   port's at 256² (``softmax_serve_check``).
+24. softmax_train -- that model trained at batch 8, f32 and ``use_amp`` (2
+   warm-up and 3 timed steps): ms a step, peak, one launch of each flash
+   kernel a step; ``mid_attn``'s gradients through the kernels against the
+   plain autograd attention, the backward kernels on the step's own inputs,
+   two identical steps bit for bit with deterministic algorithms on
+   (``softmax_train_check``).
+25. split_skip -- the student with ``split_skip`` on its own weights against
+   itself concatenating: the sampler on the same noise (5e-3), the served
+   uint8 outputs (≤ 1 LSB), latency, batch-8 images/s, peak memory and an
+   eager batch-8 sampler's peak beside the concat path's, and one train
+   step's loss and gradients against the concat model's (the train phase's
+   step bounds).
+
 Then the ``kernels`` line, the ``nvidia-smi`` line, and last
 ``{"ok": true, "device": {...}}``. Any failed check raises, and the script
 exits non-zero without that last line. It needs one CUDA device and the
@@ -259,6 +293,7 @@ EVAL_TOL = {"psnr": 0.1, "ssim": 2e-3, "mae": 1e-3, "ms_ssim": 2e-3, "gmsd": 2e-
 EVAL_U8_TOL = 1
 EVAL_CPU_REL_TOL = 1e-5
 IRBS_PER_UNET_CALL = 22       # small UNet: 8 encoder, 2 middle, 12 decoder
+FLASH_KERNELS = ("flash_attention_fwd", "flash_attention_bwd_dkv", "flash_attention_bwd_dq")
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM device memory
 F32_FLOPS_PER_S = 67e12       # H100 SXM float32 outside the tensor cores
 TF32_FLOPS_PER_S = 495e12     # H100 SXM dense TF32 on the tensor cores ...
@@ -400,7 +435,7 @@ def ptxas_report(log: str) -> dict:
         m = re.search(r"Compiling entry function '(\w+)'", line)
         if m:
             mangled = m.group(1)
-            t = re.search(r"\d+((?:irb|linear|dense|depthwise|quantize)_\w+?)(?:I(.*?E)E|E)",
+            t = re.search(r"\d+((?:irb|linear|dense|depthwise|quantize|flash)_\w+?)(?:I(.*?E)E|E)",
                           mangled)
             args = re.findall(r"13__nv_bfloat16|f|L[bi]\d+E", (t and t.group(2)) or "")
             names = {"f": "float", "13__nv_bfloat16": "bf16", "Lb0E": "false", "Lb1E": "true"}
@@ -1883,6 +1918,7 @@ def int8_act_phase(dev, qk, cuda_ms, graph_ms, cfg, weights, images, batch_image
                              replays={b: g.replays for b, g in sorted(pipe.graphs.items())})
         if label == "int8_act":
             want_replay = {"linear_attention": 1, "fused_irb_v2": 0, "fused_irb_v1": 0,
+                           **dict.fromkeys(FLASH_KERNELS, 0),
                            "qconv_quantize": QCONVS_PER_UNET_CALL,
                            "qconv_quantize_weight": QCONVS_PER_UNET_CALL,
                            "qconv_dense": QCONVS_PER_UNET_CALL - DEPTHWISE_PER_UNET_CALL,
@@ -2070,6 +2106,568 @@ def qat_phase(dev, lak, cfg, weights, n_attn) -> dict:
     return fields
 
 
+# Softmax attention (phases 22-25): the flash-attention kernels, a seeded
+# small@256 with use_linear_attention=False served and trained, and the
+# student with split_skip.
+FLASH_TOL = (2e-5, 5e-4)      # float32 forward, backward: absolute
+FLASH_BF16_ULPS = 4           # bf16: bf16 ulps of the reference's largest magnitude,
+FLASH_BF16_MAX = 2e-2         # and never above the linear-attention kernels' bf16 gate
+FLASH_TIMED = ((1, 1024, 4, 32), (8, 1024, 4, 32), (1, 4096, 4, 32))
+FLASH_EDGES = tuple((2, n, 2, 32) for n in (1, 5, 100, 127, 128, 200, 1000)) + (
+    (1, 256, 2, 64), (2, 300, 3, 64), (1, 256, 2, 128), (1, 1000, 1, 128))
+FLASH_MEM_SHAPE = (8, 4096, 4, 32)      # 512²'s mid at batch 8
+# (products of 2·B·H·N²·D FLOP, [B, N, H, D] tensors moved, [B, H, N] float32
+# rows moved): the forward q·kᵀ and P·v over q, k, v, o; dK/dV also dO·vᵀ,
+# Pᵀ·dO and dSᵀ·q over q, k, v, dO, dk, dv and lse, di; dQ q·kᵀ, dO·vᵀ and
+# dS·k over q, k, v, dO, dq and lse, di
+FLASH_WORK = {"forward": (2, 4, 0), "dkv": (4, 6, 2), "dq": (3, 5, 2)}
+SOFTMAX_STEPS = (2, 3)                  # warm-up and timed train steps a run
+SOFTMAX_SIZE = 256                      # the image side of phases 23-25
+
+
+def flash_limit(ref, dtype_name: str, backward: bool = False) -> float:
+    """The gate of one flash output against its plain version ``ref``:
+    float32's absolute limit; in bf16, ``FLASH_BF16_ULPS`` bf16 ulps of
+    max |ref| (an ulp of x is 2^(⌊log2 |x|⌋ − 7)), between float32's limit
+    and ``FLASH_BF16_MAX``. A typical |out| or |grad| at N = 1024 is
+    0.03-0.05, so an absolute bf16 gate of 2e-2 alone would pass a kernel
+    that dropped a key tile."""
+    absolute = FLASH_TOL[int(backward)]
+    if dtype_name == "float32":
+        return absolute
+    peak = float(ref.float().abs().max())
+    ulp = 2.0 ** (math.floor(math.log2(peak)) - 7) if peak > 0 else 0.0
+    return min(FLASH_BF16_MAX, max(absolute, FLASH_BF16_ULPS * ulp))
+
+
+def flash_bound(shape, dtype_name, kernel):
+    """(bound ms, bound by, bytes, FLOP) of one call: its products at the
+    card's rate for the inputs' type (float32 on the CUDA cores, bf16 on the
+    tensor cores) against its bytes at 3.35 TB/s."""
+    b, n, h, d = shape
+    products, tensors, rows = FLASH_WORK[kernel]
+    flops = products * 2 * b * h * n * n * d
+    moved = tensors * b * n * h * d * (4 if dtype_name == "float32" else 2) + rows * 4 * b * h * n
+    rate = F32_FLOPS_PER_S if dtype_name == "float32" else BF16_FLOPS_PER_S
+    t_bytes, t_ops = moved / HBM_BYTES_PER_S, flops / rate
+    return (max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations",
+            moved, flops)
+
+
+def flash_kernel_phase(dev, fk, cuda_build, cuda_ms, graph_ms) -> dict:
+    """Phase 22: the three flash-attention kernels against their plain
+    versions, forward and backward, f32 and bf16, at mid_attn's shapes,
+    512²'s mid, the edge shapes and D = 64 and 128; times, bounds and
+    ``scaled_dot_product_attention``'s time at the timed shapes; the peak
+    memory of the forward against the plain version at 512²'s mid, batch 8."""
+    import torch
+    import torch.nn.functional as F
+    from cv_diffusion_tpu_torch.ops.attention import (
+        row_dot, softmax_attention_backward_rows, softmax_attention_plain)
+
+    t0 = time.perf_counter()
+    lib = cuda_build.load(fk.SOURCE, fk._declare)
+    tile = lib.flash_attention_tile_rows()
+    gen = torch.Generator(device=dev).manual_seed(5)
+    err = lambda a, b: float((a.float() - b.float()).abs().max())   # noqa: E731
+    rows = {}
+    for shape in FLASH_TIMED + FLASH_EDGES:
+        for dtype in (torch.float32, torch.bfloat16):
+            name = str(dtype).replace("torch.", "")
+            q, k, v, do = (torch.randn(shape, generator=gen, device=dev).to(dtype)
+                           for _ in range(4))
+            scale = shape[-1] ** -0.5
+            out, lse = fk.flash_attention_forward(q, k, v, scale, with_lse=True)
+            again = fk.flash_attention_forward(q, k, v, scale, with_lse=True)
+            ref, ref_lse = softmax_attention_plain(q, k, v, scale, return_lse=True)
+            di = row_dot(out, do)
+            grads = (fk.flash_attention_backward_dq(q, k, v, do, lse, di, scale),
+                     *fk.flash_attention_backward_dkv(q, k, v, do, lse, di, scale))
+            grads2 = (fk.flash_attention_backward_dq(q, k, v, do, lse, di, scale),
+                      *fk.flash_attention_backward_dkv(q, k, v, do, lse, di, scale))
+            ref_grads = softmax_attention_backward_rows(q, k, v, do, lse, di, scale)
+            torch.cuda.synchronize()
+            require(out.dtype == dtype and out.shape == q.shape and lse.shape == ref_lse.shape,
+                    f"flash {shape} {name}: output {out.dtype} {tuple(out.shape)}")
+            require(all(bool(torch.isfinite(t).all()) for t in (out, lse) + grads),
+                    f"flash {shape} {name}: a non-finite output")
+            require(all(torch.equal(a, b) for a, b in zip((out,) + grads, (again[0],) + grads2))
+                    and torch.equal(lse, again[1]), f"flash {shape} {name}: reruns differ")
+            fwd_err, lse_err = err(out, ref), err(lse, ref_lse)
+            bwd = {g: err(a, r) for g, a, r in zip(("dq", "dk", "dv"), grads, ref_grads)}
+            tol_f = flash_limit(ref, name)
+            tol_b = {g: flash_limit(r, name, backward=True) for g, r in zip(("dq", "dk", "dv"), ref_grads)}
+            require(fwd_err <= tol_f and lse_err <= FLASH_TOL[0] * 10,
+                    f"flash forward {shape} {name}: {fwd_err} (limit {tol_f}), lse {lse_err}")
+            require(all(bwd[g] <= tol_b[g] for g in bwd),
+                    f"flash backward {shape} {name}: {bwd}, limits {tol_b}")
+            row = dict(kernel="flash_attention", shape=list(shape), dtype=name,
+                       max_err=fwd_err, lse_max_err=lse_err, bwd_max_err=bwd,
+                       tol=tol_f, bwd_tol=tol_b, ref_max=float(ref.float().abs().max()),
+                       ref_grad_max={g: float(r.float().abs().max())
+                                     for g, r in zip(("dq", "dk", "dv"), ref_grads)},
+                       plans={kk: dict(tile_rows=tile, grid=[-(-shape[1] // tile), shape[2], shape[0]],
+                                       smem_bytes=lib.flash_attention_smem_bytes(shape[-1], i))
+                              for i, kk in enumerate(fk.KERNELS)})
+            if shape in FLASH_TIMED:
+                iters = 30 if shape[1] >= 4096 else 200
+                qt, kt, vt, dot = (t.transpose(1, 2) for t in (q, k, v, do))
+                lib_out = F.scaled_dot_product_attention(qt, kt, vt, scale=scale)
+                qg, kg, vg = (t.detach().requires_grad_() for t in (qt, kt, vt))
+
+                def lib_fwd_bwd():
+                    o = F.scaled_dot_product_attention(qg, kg, vg, scale=scale)
+                    return torch.autograd.grad(o, (qg, kg, vg), dot)
+
+                lib_grads = lib_fwd_bwd()
+                fns = {
+                    "fwd": lambda: fk.flash_attention_forward(q, k, v, scale),
+                    "fwd_lse": lambda: fk.flash_attention_forward(q, k, v, scale, with_lse=True),
+                    "dkv": lambda: fk.flash_attention_backward_dkv(q, k, v, do, lse, di, scale),
+                    "dq": lambda: fk.flash_attention_backward_dq(q, k, v, do, lse, di, scale),
+                    "bwd": lambda: (fk.flash_attention_backward_dkv(q, k, v, do, lse, row_dot(out, do), scale),
+                                    fk.flash_attention_backward_dq(q, k, v, do, lse, di, scale)),
+                    "plain_fwd": lambda: softmax_attention_plain(q, k, v, scale),
+                    "plain_bwd": lambda: softmax_attention_backward_rows(q, k, v, do, lse, di, scale),
+                    "library_fwd": lambda: F.scaled_dot_product_attention(qt, kt, vt, scale=scale),
+                    "library_fwd_bwd": lib_fwd_bwd}
+                ms = {key: cuda_ms(fn, iters, 5) for key, fn in fns.items()}
+                graph = {key: graph_ms(fns[key], iters, 5)
+                         for key in ("fwd", "dkv", "dq", "bwd", "plain_fwd", "plain_bwd",
+                                     "library_fwd", "library_fwd_bwd")}
+                row.update(
+                    ms=ms, graph_ms=graph,
+                    library_ms=dict(fwd=graph["library_fwd"],
+                                    bwd=graph["library_fwd_bwd"] - graph["library_fwd"]),
+                    library_eager_ms=dict(fwd=ms["library_fwd"],
+                                          bwd=ms["library_fwd_bwd"] - ms["library_fwd"]),
+                    library="torch.nn.functional.scaled_dot_product_attention on [B, H, N, D] "
+                            "views, captured in a CUDA graph as the kernels' graph_ms; its "
+                            "backward: forward + autograd.grad, less its forward (TF32 off)",
+                    library_max_err=err(lib_out.transpose(1, 2), ref),
+                    library_bwd_max_err=max(err(a.transpose(1, 2), r)
+                                            for a, r in zip(lib_grads, ref_grads)),
+                    bound={kk: dict(zip(("ms", "by", "bytes", "flops"), flash_bound(shape, name, kk)))
+                           for kk in fk.KERNELS})
+            rows[(shape, name)] = row
+            emit("kernel", **row)
+            del q, k, v, do, out, lse, again, ref, ref_lse, di, grads, grads2, ref_grads
+
+    # the forward's memory against the plain version's at 512²'s mid, batch 8
+    q, k, v = (torch.randn(FLASH_MEM_SHAPE, generator=gen, device=dev) for _ in range(3))
+    scale = FLASH_MEM_SHAPE[-1] ** -0.5
+    mem = {}
+    for label, fn in (("kernel", lambda: fk.flash_attention_forward(q, k, v, scale)[0]),
+                      ("kernel_with_lse", lambda: fk.flash_attention_forward(q, k, v, scale, True)),
+                      ("plain", lambda: softmax_attention_plain(q, k, v, scale)),
+                      ("library", lambda: F.scaled_dot_product_attention(
+                          q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2), scale=scale))):
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        res = fn()
+        torch.cuda.synchronize()
+        mem[label] = torch.cuda.max_memory_allocated() - base
+        del res
+    scores = FLASH_MEM_SHAPE[0] * FLASH_MEM_SHAPE[2] * FLASH_MEM_SHAPE[1] ** 2 * 4
+    require(mem["kernel"] < scores / 8 < mem["plain"],
+            f"flash memory at {FLASH_MEM_SHAPE}: {mem}, scores {scores} bytes")
+    emit("flash_memory", shape=list(FLASH_MEM_SHAPE), dtype="float32",
+         peak_bytes_beyond_inputs=mem, scores_bytes=scores)
+    del q, k, v
+    torch.cuda.empty_cache()
+    emit("flash_kernel_done", cases=len(rows), seconds=time.perf_counter() - t0)
+    return rows
+
+
+def softmax_config(dtype="float32", **unet):
+    """The student's model config (small@256, concat, v-prediction, ReLU6)
+    with softmax attention, in ``dtype`` compute."""
+    from cv_diffusion_tpu_torch.config import load_model_config
+    cfg = load_model_config(os.path.join(ROOT, "artifacts", STUDENT, "model_config.json"))
+    return dataclasses.replace(cfg, unet=dataclasses.replace(
+        cfg.unet, use_linear_attention=False, dtype=dtype, **unet))
+
+
+def flash_counts(fk) -> dict:
+    return {"flash_attention_fwd": fk.flash_attention_forward.launches,
+            "flash_attention_bwd_dkv": fk.flash_attention_backward_dkv.launches,
+            "flash_attention_bwd_dq": fk.flash_attention_backward_dq.launches}
+
+
+def softmax_serve_phase(dev, fk, images, batch_images, reset_launches, all_launches) -> dict:
+    """Phase 23: a seeded small@256 with softmax attention served through
+    the CUDA graphs at batch 1 and 8, float32 and bf16 compute: latency,
+    images/s, peak memory, graph against eager (≤ 1 LSB), one forward flash
+    launch a UNet call in a replay and no linear-attention launch, the
+    kernel on mid_attn's own q, k, v; the card's float32 sampler against the
+    CPU port's on the same weights and noise."""
+    import numpy as np
+    import torch
+    from cv_diffusion_tpu_torch.export.serving import (GRAPH_WARMUP, ServingConfig,
+                                                       ServingPipeline)
+    from cv_diffusion_tpu_torch.models.blocks import SoftmaxAttention
+    from cv_diffusion_tpu_torch.models.diffusion import create_model, enhance, with_dtype
+    from cv_diffusion_tpu_torch.config import load_timesteps
+    from cv_diffusion_tpu_torch.ops.attention import softmax_attention_plain
+    from cv_diffusion_tpu_torch.weights import init_weights
+
+    t0 = time.perf_counter()
+    cfg = softmax_config()
+    grid = load_timesteps(os.path.join(ROOT, "artifacts", STUDENT, "student_timesteps.json"))
+    weights = init_weights(cfg, seed=0, device=dev)
+    model, schedule = create_model(cfg, device=dev)
+    model.load_state_dict(weights, strict=True)
+    n_attn = sum(isinstance(m, SoftmaxAttention) for m in model.modules())
+    require(n_attn == 1, f"{n_attn} softmax attention blocks in small@256, not 1 (mid_attn)")
+    serving = ServingConfig(image_size=SOFTMAX_SIZE, num_inference_steps=len(grid), timesteps=grid,
+                            batch_size=8)
+    out = {"launches": dict.fromkeys(FLASH_KERNELS, 0), "launches_in_replays": 0}
+    for dtype in ("float32", "bfloat16"):
+        m = model if dtype == "float32" else with_dtype(model, "bfloat16")
+        pipe = ServingPipeline(m, schedule, serving, device=dev)
+        reset_launches()
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        for i, img in enumerate(images):                  # captures batch 1
+            pipe(img, seed=i)
+        pipe.batch(batch_images, seed=1)                   # captures batch 8
+        lat = []
+        for i in range(10):
+            torch.cuda.synchronize()
+            a = time.perf_counter()
+            res = pipe(images[2], seed=i)
+            lat.append((time.perf_counter() - a) * 1e3)
+        require(res.shape == images[2].shape and res.dtype == np.uint8, "softmax serve output")
+        a = time.perf_counter()
+        outs = pipe.batch(batch_images * REPS, seed=400)
+        pipelined = time.perf_counter() - a
+        require(len(outs) == 8 * REPS and all(o.shape == i.shape for o, i in
+                                              zip(outs, batch_images * REPS)), "softmax batch")
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated()
+        lsb = {}
+        for b in (1, 8):
+            canvas = torch.cat([pipe.pre(im)[0] for im in (images[:1] if b == 1 else batch_images)])
+            graph_out = pipe._run(canvas, pipe._generator(7))
+            eager_out = pipe.run_eager(canvas, pipe._generator(7))
+            lsb[b] = int((graph_out.int() - eager_out.int()).abs().max())
+        require(all(v <= GRAPH_LSB_TOL for v in lsb.values()),
+                f"softmax {dtype}: graph vs eager {lsb} LSB")
+        counts = all_launches()
+        per_replay = {b: g.launches for b, g in sorted(pipe.graphs.items())}
+        want = dict.fromkeys(counts, 0)
+        want["flash_attention_fwd"] = len(grid) * n_attn
+        require(all(r == want for r in per_replay.values()),
+                f"softmax {dtype}: launches a replay {per_replay}, not {want}")
+        replays = {b: g.replays for b, g in sorted(pipe.graphs.items())}
+        eager_calls = 2         # the two eager samplers above
+        direct = ((GRAPH_WARMUP + 1) * len(pipe.graphs) + eager_calls) * len(grid) * n_attn
+        require(counts["flash_attention_fwd"] == direct and counts["linear_attention"] == 0
+                and counts["flash_attention_bwd_dkv"] == counts["flash_attention_bwd_dq"] == 0,
+                f"softmax {dtype}: wrapper launches {counts}, forward {direct} expected")
+        for key in FLASH_KERNELS:
+            out["launches"][key] += counts[key]
+        out["launches_in_replays"] += sum(replays.values()) * len(grid) * n_attn
+        # the kernel on mid_attn's own q, k, v of an eager request
+        captured = {}
+        hook = m.unet.mid_attn.attn.register_forward_pre_hook(
+            lambda mod, args: captured.__setitem__("qkv", [x.detach().clone() for x in args]))
+        pipe.run_eager(pipe.pre(images[0])[0], pipe._generator(3))
+        hook.remove()
+        q, k, v = captured["qkv"]
+        scale = m.unet.mid_attn.attn.scale
+        mid_err = float((fk.flash_attention_forward(q, k, v, scale)[0].float()
+                         - softmax_attention_plain(q, k, v, scale).float()).abs().max())
+        require(tuple(q.shape) == (1, (SOFTMAX_SIZE // 8) ** 2, 4, 32) and q.dtype == getattr(torch, dtype),
+                f"softmax {dtype}: mid_attn q {q.dtype} {tuple(q.shape)}")
+        mid_tol = flash_limit(softmax_attention_plain(q, k, v, scale), dtype)
+        require(mid_err <= mid_tol, f"softmax {dtype}: mid_attn kernel vs plain {mid_err} (limit {mid_tol})")
+        row = dict(config=f"small@{SOFTMAX_SIZE} softmax attention, {STUDENT}'s config, seed 0",
+                   dtype=dtype,
+                   grid=list(grid), image=list(images[2].shape),
+                   latency_ms_mean=float(np.mean(lat)), latency_ms_p50=float(np.median(lat)),
+                   batch=8, images_per_s=REPS * 8 / pipelined, peak_mem_bytes=peak,
+                   graph_vs_eager_lsb=lsb, launches=counts, launches_a_replay=per_replay,
+                   replays=replays, mid_attn_max_err=mid_err, mid_attn_tol=mid_tol,
+                   mid_attn_shape=list(q.shape))
+        out[dtype] = row
+        emit("softmax_serve", **row)
+        del pipe, m
+        torch.cuda.empty_cache()
+
+    # the card's sampler against the CPU port's: same weights and noise
+    rng = np.random.default_rng(11)
+    side = (1, SOFTMAX_SIZE, SOFTMAX_SIZE, 3)
+    low = torch.from_numpy(rng.uniform(-1, 1, side).astype(np.float32))
+    init = torch.from_numpy(rng.standard_normal(side).astype(np.float32))
+    noise = torch.from_numpy(rng.standard_normal((len(grid),) + side).astype(np.float32))
+    cpu_model, cpu_sched = create_model(cfg, device="cpu")
+    cpu_model.load_state_dict({k: t.cpu() for k, t in weights.items()}, strict=True)
+    got = enhance(model, schedule, low, timesteps=grid, init_noise=init, step_noise=noise,
+                  device=dev).cpu()
+    want = enhance(cpu_model, cpu_sched, low, timesteps=grid, init_noise=init,
+                   step_noise=noise, device="cpu")
+    require(bool(torch.isfinite(got).all()), "softmax: non-finite sampler output")
+    vs_cpu = float((got - want).abs().max())
+    require(vs_cpu <= SAMPLER_TOL, f"softmax: card vs CPU sampler {vs_cpu}")
+    emit("softmax_serve_check", sampler_vs_cpu_max_abs_err=vs_cpu, sampler_tol=SAMPLER_TOL,
+         size=SOFTMAX_SIZE, launches=out["launches"], launches_in_replays=out["launches_in_replays"],
+         seconds=time.perf_counter() - t0)
+    out["sampler_vs_cpu"] = vs_cpu
+    del model, cpu_model
+    torch.cuda.empty_cache()
+    return out
+
+
+def softmax_batches(n: int, seed: int = 0) -> list:
+    """``n`` synthetic batches of 8 at ``SOFTMAX_SIZE``², made in bulk (set-up)."""
+    import numpy as np
+    from cv_diffusion_tpu_torch.data.dataset import DataLoader, SyntheticLowLightDataset
+    side = SOFTMAX_SIZE + 32
+    images = np.random.default_rng(seed).integers(0, 256, (8, side, side, 3), dtype=np.uint8)
+    loader = DataLoader(SyntheticLowLightDataset(images, image_size=SOFTMAX_SIZE, seed=seed), 8,
+                        shuffle=True, drop_last=True, seed=seed)
+    return [b for _ in range(n) for b in loader]
+
+
+def softmax_train_phase(dev, fk, reset_launches) -> dict:
+    """Phase 24: the softmax model trained at batch 8, float32 and
+    ``use_amp``: ms a step, peak memory, one launch of each backward kernel
+    (and two forward: the step's and none else) a step; the attention
+    block's gradients through the kernels against the plain autograd
+    attention; the backward kernels on the step's own inputs against their
+    plain versions; two identical steps bit for bit (deterministic
+    algorithms on)."""
+    import torch
+    from cv_diffusion_tpu_torch.config import TrainConfig
+    from cv_diffusion_tpu_torch.models.diffusion import create_model
+    from cv_diffusion_tpu_torch.ops.attention import (row_dot, softmax_attention_backward_rows,
+                                                      softmax_attention_plain)
+    from cv_diffusion_tpu_torch.training.train_state import create_train_state, make_train_step
+    from cv_diffusion_tpu_torch.weights import init_weights
+
+    t0 = time.perf_counter()
+    warm_n, timed_n = SOFTMAX_STEPS
+    batches = softmax_batches(warm_n + timed_n)
+    out = {"launches": dict.fromkeys(FLASH_KERNELS, 0)}
+    weights = init_weights(softmax_config(), seed=0, device=dev)
+
+    def fresh(dtype, use_amp):
+        cfg = softmax_config(dtype)
+        model, schedule = create_model(cfg, device=dev)
+        model.load_state_dict(weights, strict=True)
+        tc = TrainConfig(unet_variant="small", image_size=SOFTMAX_SIZE, batch_size=8, use_amp=use_amp,
+                         epochs=1, warmup_epochs=0, prediction_type="v_prediction", seed=0)
+        return model, create_train_state(model, tc), make_train_step(model, schedule, tc)
+
+    for dtype, use_amp in (("float32", False), ("bfloat16", True)):
+        model, state, step = fresh(dtype, use_amp)
+        reset_launches()
+        for batch in batches[:warm_n]:
+            state, metrics = step(state, batch)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        a = time.perf_counter()
+        for batch in batches[warm_n:]:
+            state, metrics = step(state, batch)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - a) * 1e3 / timed_n
+        peak = torch.cuda.max_memory_allocated()
+        counts = flash_counts(fk)
+        steps = warm_n + timed_n
+        require(counts == dict.fromkeys(FLASH_KERNELS, steps),
+                f"softmax train {dtype}: launches {counts} in {steps} steps")
+        require(bool(torch.isfinite(metrics["loss"]) & torch.isfinite(metrics["grad_norm"])),
+                f"softmax train {dtype}: loss {metrics['loss']}")
+        qkv_grad = float(model.unet.mid_attn.to_qkv.weight.grad.abs().max())
+        require(qkv_grad > 0, f"softmax train {dtype}: mid_attn.to_qkv has a zero gradient")
+        for key in FLASH_KERNELS:
+            out["launches"][key] += counts[key]
+        row = dict(config=f"small@{SOFTMAX_SIZE} softmax attention v-prediction, {dtype} compute",
+                   use_amp=use_amp, batch=8, warmup_steps=warm_n, timed_steps=timed_n,
+                   ms_per_step=ms, images_per_s=8 * 1e3 / ms, peak_mem_bytes=peak,
+                   launches=counts, launches_per_step={k: v / steps for k, v in counts.items()},
+                   loss=float(metrics["loss"]), mid_attn_to_qkv_grad_max_abs=qkv_grad)
+        out[dtype] = row
+        emit("softmax_train", **row)
+        del model, state, step
+        torch.cuda.empty_cache()
+
+    # one float32 step through the kernels against the same step with the
+    # attention plain: the attention block's gradients; the backward
+    # kernels on the step's own q, k, v and upstream gradient
+    seen = {}
+
+    def keep_qkv(module, args):      # the backward's q, k, v ...
+        seen["qkv"] = [x.detach() for x in args]
+
+    def keep_do(module, args, o):    # ... and its upstream gradient
+        o.register_hook(lambda g: seen.__setitem__("do", g.detach().contiguous()))
+
+    def one_step(plain: bool):
+        model, state, step = fresh("float32", False)
+        attn = model.unet.mid_attn.attn
+        hooks = [attn.register_forward_pre_hook(keep_qkv), attn.register_forward_hook(keep_do)]
+        original = fk.softmax_attention_trainable
+        if plain:
+            fk.softmax_attention_trainable = softmax_attention_plain
+        try:
+            state, m = step(state, batches[0])
+        finally:
+            fk.softmax_attention_trainable = original
+            for h in hooks:
+                h.remove()
+        return {n: p.grad.detach().clone() for n, p in model.unet.mid_attn.named_parameters()}
+
+    with_kernels = one_step(False)
+    q, k, v = seen["qkv"]
+    do = seen["do"]
+    with_plain = one_step(True)
+    block_rel = {n: float((with_kernels[n] - g).abs().max()) / (float(g.abs().max()) + 1e-30)
+                 for n, g in with_plain.items()}
+    norm_rel = (sum(float((with_kernels[n] - g).double().square().sum()) for n, g in with_plain.items())
+                / sum(float(g.double().square().sum()) for g in with_plain.values())) ** 0.5
+    require(max(block_rel.values()) <= STEP_GRAD_TOL and norm_rel <= STEP_GRAD_NORM_TOL,
+            f"softmax train: mid_attn gradients kernel vs plain {block_rel}, norm {norm_rel}")
+    scale = 32 ** -0.5
+    o, lse = fk.flash_attention_forward(q, k, v, scale, with_lse=True)
+    di = row_dot(o, do)
+    got = (fk.flash_attention_backward_dq(q, k, v, do, lse, di, scale),
+           *fk.flash_attention_backward_dkv(q, k, v, do, lse, di, scale))
+    step_bwd_err = max(float((a - r).abs().max()) for a, r in zip(
+        got, softmax_attention_backward_rows(q, k, v, do, lse, di, scale)))
+    require(tuple(q.shape) == (8, (SOFTMAX_SIZE // 8) ** 2, 4, 32) and step_bwd_err <= FLASH_TOL[1],
+            f"softmax train: backward kernels on the step's {tuple(q.shape)} inputs: {step_bwd_err}")
+    del q, k, v, do, o, lse, di, got
+
+    # two identical steps, bit for bit, with deterministic algorithms
+    torch.backends.cudnn.deterministic = True
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        twice = []
+        for _ in range(2):
+            model, state, step = fresh("float32", False)
+            state, m = step(state, batches[1])
+            twice.append((float(m["loss"]), {n: p.grad.detach().clone()
+                                             for n, p in model.named_parameters()}))
+            del model, state, step
+    finally:
+        torch.backends.cudnn.deterministic = False
+        torch.use_deterministic_algorithms(False)
+    same = twice[0][0] == twice[1][0] and all(torch.equal(g, twice[1][1][n])
+                                              for n, g in twice[0][1].items())
+    require(same, "softmax train: two identical steps differ")
+    emit("softmax_train_check", mid_attn_grad_kernel_vs_plain_rel=block_rel,
+         mid_attn_grad_norm_rel=norm_rel,
+         grad_tol=dict(tensor_rel=STEP_GRAD_TOL, norm_rel=STEP_GRAD_NORM_TOL),
+         backward_on_step_inputs_max_abs_err=step_bwd_err, identical_steps_bit_for_bit=same,
+         launches=out["launches"], seconds=time.perf_counter() - t0)
+    out.update(step_bwd_err=step_bwd_err, block_rel=block_rel)
+    del twice
+    torch.cuda.empty_cache()
+    return out
+
+
+def split_skip_phase(dev, images, batch_images) -> dict:
+    """Phase 25: the student with ``split_skip`` on its own weights against
+    itself concatenating: the sampler on the same noise (≤ 5e-3) and the
+    uint8 outputs through the graphs (≤ 1 LSB); batch-8 latency, images/s
+    and peak memory beside the concat path's; one train step's gradients
+    against the concat model's."""
+    import numpy as np
+    import torch
+    from cv_diffusion_tpu_torch.config import TrainConfig
+    from cv_diffusion_tpu_torch.export.serving import ServingPipeline
+    from cv_diffusion_tpu_torch.models.diffusion import create_model, enhance
+    from cv_diffusion_tpu_torch.training.train_state import create_train_state, make_train_step
+
+    t0 = time.perf_counter()
+    concat = ServingPipeline.from_artifact(STUDENT, dev, batch_size=8)
+    cfg = concat.model.config
+    split_cfg = dataclasses.replace(cfg, unet=dataclasses.replace(cfg.unet, split_skip=True))
+    model, schedule = create_model(split_cfg, device=dev)
+    model.load_state_dict(concat.model.state_dict(), strict=True)
+    split = ServingPipeline(model, schedule, concat.config, device=dev)
+    grid = concat.grid
+    rng = np.random.default_rng(21)
+    side = (8, SOFTMAX_SIZE, SOFTMAX_SIZE, 3)
+    low = torch.from_numpy(rng.uniform(-1, 1, side).astype(np.float32))
+    init = torch.from_numpy(rng.standard_normal(side).astype(np.float32))
+    noise = torch.from_numpy(rng.standard_normal((len(grid),) + side).astype(np.float32))
+    outs = {label: enhance(p.model, p.schedule, low, timesteps=grid, init_noise=init,
+                           step_noise=noise, device=dev).cpu()
+            for label, p in (("concat", concat), ("split", split))}
+    sampler_err = float((outs["split"] - outs["concat"]).abs().max())
+    require(sampler_err <= SAMPLER_TOL, f"split_skip vs concat sampler: {sampler_err}")
+    rows = {}
+    for label, pipe in (("concat", concat), ("split", split)):
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        u8 = [pipe(img, seed=i) for i, img in enumerate(images)]
+        pipe.batch(batch_images, seed=1)
+        lat = []
+        for i in range(10):
+            torch.cuda.synchronize()
+            a = time.perf_counter()
+            pipe(images[2], seed=i)
+            lat.append((time.perf_counter() - a) * 1e3)
+        a = time.perf_counter()
+        batched = pipe.batch(batch_images * REPS, seed=400)
+        pipelined = time.perf_counter() - a
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated()
+        # one eager batch of 8 alone: what the sampler holds at its peak
+        canvas = torch.cat([pipe.pre(im)[0] for im in batch_images])
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        pipe.run_eager(canvas, pipe._generator(5))
+        torch.cuda.synchronize()
+        eager_peak = torch.cuda.max_memory_allocated() - base
+        rows[label] = dict(latency_ms_mean=float(np.mean(lat)), latency_ms_p50=float(np.median(lat)),
+                           image=list(images[2].shape), batch=8,
+                           images_per_s=REPS * 8 / pipelined, peak_mem_bytes=peak,
+                           eager_batch8_peak_bytes_beyond_inputs=eager_peak,
+                           u8=u8, batched=batched)
+    lsb = max(int(np.abs(a.astype(int) - b.astype(int)).max())
+              for a, b in zip(rows["split"]["u8"] + rows["split"]["batched"],
+                              rows["concat"]["u8"] + rows["concat"]["batched"]))
+    require(lsb <= GRAPH_LSB_TOL, f"split_skip vs concat served: {lsb} LSB")
+    for r in rows.values():
+        del r["u8"], r["batched"]
+    del split, concat
+    torch.cuda.empty_cache()
+
+    # one float32 train step, split against concat: same weights and batch
+    batch = softmax_batches(1, seed=3)[0]
+    weights = {k: t.clone() for k, t in model.state_dict().items()}
+    steps = {}
+    for label, c in (("concat", cfg), ("split", split_cfg)):
+        m, sch = create_model(c, device=dev)
+        m.load_state_dict(weights, strict=True)
+        tc = TrainConfig(unet_variant="small", image_size=SOFTMAX_SIZE, batch_size=8, use_amp=False,
+                         epochs=1, warmup_epochs=0, prediction_type="v_prediction", seed=0)
+        state = create_train_state(m, tc)
+        state, metrics = make_train_step(m, sch, tc)(state, batch)
+        steps[label] = (float(metrics["loss"]),
+                        {n: p.grad.detach().clone() for n, p in m.named_parameters()},
+                        {n: p.detach().clone() for n, p in m.named_parameters()})
+        del m, state
+    step_vs_concat = step_diffs(steps["split"], steps["concat"])
+    require(within(step_vs_concat), f"split_skip vs concat train step: {step_vs_concat}")
+    del steps, model
+    torch.cuda.empty_cache()
+    emit("split_skip", student=STUDENT, grid=list(grid), sampler_vs_concat_max_abs_err=sampler_err,
+         sampler_tol=SAMPLER_TOL, served_vs_concat_lsb=lsb, **rows,
+         train_step_vs_concat=step_vs_concat, seconds=time.perf_counter() - t0)
+    return dict(rows, sampler_err=sampler_err, lsb=lsb, step=step_vs_concat)
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--profile", action="store_true",
@@ -2108,6 +2706,7 @@ def main() -> int:
     from cv_diffusion_tpu_torch.models.diffusion import create_model, enhance, with_dtype
     from cv_diffusion_tpu_torch.models import blocks as tblocks
     from cv_diffusion_tpu_torch.ops import fused_irb_kernel as fik
+    from cv_diffusion_tpu_torch.ops import flash_attention_kernel as fk
     from cv_diffusion_tpu_torch.ops import linear_attention_kernel as lak
     from cv_diffusion_tpu_torch.ops import qconv_kernel as qk
     from cv_diffusion_tpu_torch.ops.attention import (
@@ -2125,10 +2724,18 @@ def main() -> int:
     qconv_kernels = ("qconv_quantize", "qconv_quantize_weight", "qconv_dense",
                      "qconv_depthwise")
 
+    def linear_path_launches():
+        """The wrappers' launch counts on a linear-attention path, where the
+        flash-attention kernels must not have launched."""
+        counts = all_launches()
+        require(not any(counts[k] for k in FLASH_KERNELS),
+                f"flash-attention kernels launched on a linear-attention path: {counts}")
+        return {k: v for k, v in counts.items() if k not in FLASH_KERNELS}
+
     def kernel_launches():
         """The float paths' kernels' launch counts; on a float path the int8
         kernels must not have launched."""
-        counts = all_launches()
+        counts = linear_path_launches()
         require(not any(counts[k] for k in qconv_kernels),
                 f"int8 kernels launched on a float path: {counts}")
         return {k: v for k, v in counts.items() if k not in qconv_kernels}
@@ -2149,13 +2756,14 @@ def main() -> int:
         return module.build(), time.perf_counter() - start
 
     t0 = time.perf_counter()
-    wrappers = (("linear_attention", lak), ("fused_irb (v2, v1)", fik), ("qconv (int8)", qk))
+    wrappers = (("linear_attention", lak), ("fused_irb (v2, v1)", fik), ("qconv (int8)", qk),
+                ("flash_attention", fk))
     with ThreadPoolExecutor(len(wrappers)) as pool:
         builds = list(pool.map(timed_build, (m for _, m in wrappers)))
     for (name, module), (built, seconds) in zip(wrappers, builds):
         print(built.log, file=sys.stderr)
         fields = {}
-        if module is lak:      # registers and spills of each instance
+        if module in (lak, fk):      # registers and spills of each instance
             fields["kernels"] = ptxas_report(built.log)
         if module is qk:
             fields = qconv_build_report(built, qk)
@@ -2686,6 +3294,9 @@ def main() -> int:
 
     def reset_launches():
         lak.linear_attention_kernel.launches = 0
+        fk.flash_attention_forward.launches = 0
+        fk.flash_attention_backward_dkv.launches = 0
+        fk.flash_attention_backward_dq.launches = 0
         fik.fused_irb_v2.launches = 0
         fik.fused_irb_v1.launches = 0
         qk.quantize.launches = qk.quantize_weight.launches = 0
@@ -2699,7 +3310,7 @@ def main() -> int:
         launches, launches inside replays, replays by batch size)."""
         counts = kernel_launches()
         for b, g in pipe.graphs.items():
-            require(g.launches == dict(want, **dict.fromkeys(qconv_kernels, 0)),
+            require(g.launches == dict(want, **dict.fromkeys(qconv_kernels + FLASH_KERNELS, 0)),
                     f"{label}: the batch-{b} graph launches {g.launches} a replay, not {want}")
         direct = {k: ((GRAPH_WARMUP + 1) * len(pipe.graphs) + eager_calls) * v
                   for k, v in want.items()}
@@ -4093,9 +4704,16 @@ def main() -> int:
     student_w = load_state_dict_npz(os.path.join(ROOT, "artifacts_torch", f"{STUDENT}.npz"), dev)
     int8 = int8_kernel_phase(dev, qk, cuda_ms, graph_ms, cfg, student_w)
     int8_act = int8_act_phase(dev, qk, cuda_ms, graph_ms, cfg, student_w, images,
-                              batch_images, reset_launches, all_launches)
+                              batch_images, reset_launches, linear_path_launches)
     qat_phase(dev, lak, cfg, student_w, n_attn)
     del student_w
+
+    # 22-25. softmax attention and split_skip --------------------------------
+    flash_rows = flash_kernel_phase(dev, fk, cuda_build, cuda_ms, graph_ms)
+    softmax_serve = softmax_serve_phase(dev, fk, images, batch_images, reset_launches,
+                                        all_launches)
+    softmax_train = softmax_train_phase(dev, fk, reset_launches)
+    split_skip_phase(dev, images, batch_images)
 
     # kernels line, nvidia-smi line, last line -----------------------------
     main_row = timings[((1, 1024, 4, 32), "float32")]
@@ -4333,6 +4951,59 @@ def main() -> int:
             "ms_b8": r8["ms"], "graph_ms_b8": r8["graph_ms"], "plain_ms_b8": r8["plain_ms"],
             "bound_ms_b8": r8["bound_ms"], "bound_by_b8": r8["bound_by"],
             "library_ms_b8": r8.get("library_ms"),
+        })
+    # the flash-attention entries: launches on the softmax path (serving,
+    # both dtypes, and training, the counts set to 0 before each run); times
+    # at mid_attn's shape, batch 1 (the forward, served) and 8 (the
+    # backward, trained)
+    stock = "jax/experimental/pallas/ops/tpu/flash_attention.py (JAX 0.9.0)"
+    for name, kernel, where, shape in (
+            ("flash_attention_fwd", "forward", ":589 (_flash_attention_impl, pallas_call :758)",
+             (1, 1024, 4, 32)),
+            ("flash_attention_bwd_dkv", "dkv", ":941 (_flash_attention_bwd_dkv, pallas_call :1121)",
+             (8, 1024, 4, 32)),
+            ("flash_attention_bwd_dq", "dq", ":1287 (_flash_attention_bwd_dq, pallas_call :1456)",
+             (8, 1024, 4, 32))):
+        fwd = kernel == "forward"
+        key = "fwd" if fwd else kernel
+        f32rows = [r for (_, dt), r in flash_rows.items() if dt == "float32"]
+        errs = [r["max_err"] if fwd else (r["bwd_max_err"]["dq"] if kernel == "dq" else
+                                          max(r["bwd_max_err"]["dk"], r["bwd_max_err"]["dv"]))
+                for r in f32rows]
+        errs.append(softmax_serve["float32"]["mid_attn_max_err"] if fwd
+                    else softmax_train["step_bwd_err"])
+
+        def timing(r):
+            return dict(ms=r["ms"][key], graph_ms=r["graph_ms"][key],
+                        plain_ms=r["ms"]["plain_fwd" if fwd else "plain_bwd"],
+                        plain_graph_ms=r["graph_ms"]["plain_fwd" if fwd else "plain_bwd"],
+                        library_ms=r["library_ms"]["fwd" if fwd else "bwd"],
+                        library_eager_ms=r["library_eager_ms"]["fwd" if fwd else "bwd"],
+                        **({} if fwd else {"backward_pair_graph_ms": r["graph_ms"]["bwd"]}),
+                        bound_ms=r["bound"][kernel]["ms"], bound_by=r["bound"][kernel]["by"])
+
+        main_row = flash_rows[(shape, "float32")]
+        launches_train = softmax_train["launches"][name]
+        kernels.append({
+            "name": name,
+            "route": "cuda",
+            "source": "cv_diffusion_tpu_torch/csrc/flash_attention.cu",
+            "replaces": f"{stock}{where}, reached from cv_diffusion_tpu/ops/attention.py:139",
+            "launches": (softmax_serve["launches"][name] if fwd else 0) + launches_train,
+            "launches_softmax_serve": softmax_serve["launches"][name],
+            "launches_softmax_serve_in_replays": softmax_serve["launches_in_replays"] if fwd else 0,
+            "launches_softmax_train": launches_train,
+            "max_abs_err": max(errs),
+            **timing(main_row),
+            "library": "torch.nn.functional.scaled_dot_product_attention, graph-timed" + (
+                "" if fwd else "; its backward (forward + autograd.grad, less its forward) "
+                               "computes dQ, dK and dV together: compare backward_pair_graph_ms "
+                               "(dK/dV, di and dQ)"),
+            "shape": list(shape),
+            "dtype": "float32",
+            "bfloat16": timing(flash_rows[(shape, "bfloat16")]),
+            "by_shape": {f"{list(sh)} {dt}": timing(flash_rows[(sh, dt)])
+                         for sh in FLASH_TIMED for dt in ("float32", "bfloat16")},
         })
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi_line, flush=True)

@@ -26,18 +26,20 @@ class UNetConfig:
 
     ``use_pallas`` is read so that every artifact's file parses, and its
     value is ignored: linear attention always goes through the hand-written
-    CUDA kernel's wrapper, which runs the plain version on the CPU.
-    ``use_pallas_irb`` routes every stride-1 IRB at inference through the
-    fused-IRB kernel's wrapper in the same way, and ``fold_gn`` folds GN2 ⊕
-    FiLM at inference, as in the JAX package. ``dtype`` is the compute
-    dtype (``"float32"`` or ``"bfloat16"``; the parameters are float32
-    either way), and ``remat`` with ``remat_policy`` (``"full"``,
-    ``"conv"``) and ``remat_scope`` (``"all"``, ``"decoder"``)
+    CUDA kernel's wrapper, and softmax attention (``use_linear_attention=
+    False``) through the flash-attention kernels' wrappers, which run the
+    plain versions on the CPU. ``use_pallas_irb`` routes every stride-1 IRB
+    at inference through the fused-IRB kernel's wrapper in the same way,
+    and ``fold_gn`` folds GN2 ⊕ FiLM at inference, as in the JAX package.
+    ``dtype`` is the compute dtype (``"float32"`` or ``"bfloat16"``; the
+    parameters are float32 either way), and ``remat`` with ``remat_policy``
+    (``"full"``, ``"conv"``) and ``remat_scope`` (``"all"``, ``"decoder"``)
     rematerialises blocks in the backward (``models/unet.py``);
     ``act_quant`` (False, True: int8 compute, ``"fake"``: fake-quant for
-    activation-aware QAT) is the convolutions' mode (``ops/qconv.py``). The
-    other execution knob, ``split_skip``, is read likewise, and building a
-    model that asks for it raises ``NotImplementedError``.
+    activation-aware QAT) is the convolutions' mode (``ops/qconv.py``).
+    ``split_skip`` feeds each decoder level's skip to its first IRB beside
+    the upsampled tensor instead of concatenating them, with the same
+    parameters.
     """
 
     in_channels: int = 3

@@ -53,7 +53,8 @@ from ..device import pin_fp32, resolve_device
 from ..models.diffusion import (LowLightDiffusion, create_model, enhance,
                                 sampler_noise)
 from ..models.scheduler import LCMSchedule, lcm_timesteps
-from ..ops import fused_irb_kernel, linear_attention_kernel, qconv_kernel
+from ..ops import (flash_attention_kernel, fused_irb_kernel,
+                   linear_attention_kernel, qconv_kernel)
 from ..weights import load_state_dict_npz, save_state_dict_npz
 from .preprocess import PostProcessor, PreprocessMeta, PreProcessor
 from .quantization import (assert_calibrated, dequantize_int8, load_act_scales,
@@ -90,6 +91,11 @@ class ServingConfig:
 def kernel_launches() -> Dict[str, int]:
     """The hand-written kernels' wrappers' launch counts, by kernel."""
     return {"linear_attention": linear_attention_kernel.linear_attention_kernel.launches,
+            "flash_attention_fwd": flash_attention_kernel.flash_attention_forward.launches,
+            "flash_attention_bwd_dkv":
+                flash_attention_kernel.flash_attention_backward_dkv.launches,
+            "flash_attention_bwd_dq":
+                flash_attention_kernel.flash_attention_backward_dq.launches,
             "fused_irb_v2": fused_irb_kernel.fused_irb_v2.launches,
             "fused_irb_v1": fused_irb_kernel.fused_irb_v1.launches,
             "qconv_quantize": qconv_kernel.quantize.launches,

@@ -28,10 +28,10 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..ops import fused_irb_kernel, upcast
-from ..ops.attention import linear_attention
+from ..ops.attention import linear_attention, softmax_attention
 from ..ops.fused_irb import irb_args
-from ..ops.norms import (gn2_film_affine_gram, gn_num_groups, group_norm,
-                         group_norm_film)
+from ..ops.norms import (concat_group_norm_parts, gn2_film_affine_gram,
+                         gn_num_groups, group_norm, group_norm_film)
 from ..ops.qconv import Conv2d, QConv
 
 
@@ -44,6 +44,16 @@ def dense(x: torch.Tensor, weight: torch.Tensor, bias: Optional[torch.Tensor],
         return F.linear(x, weight, bias)
     y = F.linear(x.to(dtype), weight.to(dtype))
     return y if bias is None else y + bias.to(dtype)
+
+
+def conv1x1(x: torch.Tensor, weight: torch.Tensor,
+            dtype: Optional[torch.dtype]) -> torch.Tensor:
+    """A 1×1 convolution without bias on an explicit weight (a slice of a
+    module's), in the compute dtype ``dtype`` (None: the operands' own), as
+    the JAX package's ``_conv1x1`` on ``kernel.astype(self.dtype)``."""
+    if dtype is not None:
+        x, weight = x.to(dtype), weight.to(dtype)
+    return F.conv2d(x, weight)
 
 
 class DenseConv(Conv2d):
@@ -214,7 +224,18 @@ class InvertedResidualBlock(nn.Module):
     skip :class:`QConv`s of that mode, expand and depthwise with the static
     bound 6 of their ReLU6 inputs when ``quantization_friendly`` (JAX
     ``blocks.py:266-311``); the block then takes the unfused route whatever
-    ``use_pallas_irb`` and ``fold_gn`` say, as JAX does (``:211-212, 260``)."""
+    ``use_pallas_irb`` and ``fold_gn`` say, as JAX does (``:211-212, 260``).
+
+    ``skip_input`` (the decoder's ``split_skip`` entry) is the second part of
+    the block's input, which is then ``cat([x, skip_input], dim=1)``
+    without that concatenation being formed: GN1's statistics come from the
+    two parts (:func:`~..ops.norms.concat_group_norm_parts`), and the expand
+    and the 1×1 residual conv each run as the sum of two convs on their
+    weights' two slices. The block takes that route where JAX does
+    (``blocks.py:177-185``, in training too): stride 1, no ``act_quant``,
+    ``use_pallas_irb`` or ``fold_gn``, and a concatenation of another width
+    than the output; otherwise it concatenates. The parameters are the same
+    either way."""
 
     def __init__(self, in_channels: int, out_channels: int,
                  time_embed_dim: int, expansion_ratio: int = 4,
@@ -228,6 +249,7 @@ class InvertedResidualBlock(nn.Module):
         self.quantization_friendly = quantization_friendly
         self.dropout = dropout
         self.stride = stride
+        self.act_quant = act_quant
         self.use_pallas_irb = use_pallas_irb and not act_quant
         self.fold_gn = fold_gn and not act_quant
         self.use_residual = stride == 1 and in_channels == out_channels
@@ -248,9 +270,22 @@ class InvertedResidualBlock(nn.Module):
                            bias=False, act_quant=act_quant)
                      if in_channels != out_channels else None)
 
+    def splits(self, in_channels: int) -> bool:
+        """Whether a ``skip_input`` runs split (JAX ``split_ok``,
+        ``blocks.py:177-181``) for a block input of ``in_channels`` in all."""
+        return (self.stride == 1 and not self.act_quant
+                and not self.use_pallas_irb and not self.fold_gn
+                and in_channels != self.project.out_channels)
+
     def forward(self, x: torch.Tensor, time_emb: torch.Tensor,
-                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+                generator: Optional[torch.Generator] = None,
+                skip_input: Optional[torch.Tensor] = None) -> torch.Tensor:
+        if skip_input is not None and not self.splits(x.shape[1] + skip_input.shape[1]):
+            x, skip_input = torch.cat([x, skip_input.to(x.dtype)], dim=1), None
         film_scale, film_shift = self.time_mlp(time_emb).chunk(2, dim=-1)
+        if skip_input is not None:
+            return self._split_forward(x, skip_input, film_scale, film_shift,
+                                       generator)
         if self.use_pallas_irb and self.stride == 1 and not self.training:
             if torch.is_grad_enabled() and (
                     x.requires_grad or time_emb.requires_grad
@@ -277,6 +312,16 @@ class InvertedResidualBlock(nn.Module):
             h = group_norm_film(h, self.norm2.weight, self.norm2.bias,
                                 film_scale, film_shift, self.norm2.num_groups,
                                 self.norm2.eps)
+        h = self._tail(h, generator)
+        if self.skip is not None:
+            return h + self.skip(x)
+        if self.use_residual:
+            return h + x
+        return h
+
+    def _tail(self, h: torch.Tensor,
+              generator: Optional[torch.Generator]) -> torch.Tensor:
+        """act → depthwise → SE → project → dropout, after GN2 ⊕ FiLM."""
         h = activation(h, self.quantization_friendly)
         h = self.depthwise(h)
         if self.se is not None:
@@ -284,11 +329,28 @@ class InvertedResidualBlock(nn.Module):
         h = self.project(h)
         if self.dropout > 0 and self.training:
             h = dropout(h, self.dropout, generator)
-        if self.skip is not None:
-            return h + self.skip(x)
-        if self.use_residual:
-            return h + x
         return h
+
+    def _split_forward(self, u: torch.Tensor, s: torch.Tensor,
+                       film_scale: torch.Tensor, film_shift: torch.Tensor,
+                       generator: Optional[torch.Generator]) -> torch.Tensor:
+        """The block on ``cat([u, s], dim=1)`` without the concatenation
+        (JAX ``blocks.py:233-249, 300-306``): each 1×1 conv over it is the
+        sum of the convs of its weight's two slices, in the convs' compute
+        dtype."""
+        cu = u.shape[1]
+        u_hat, s_hat = concat_group_norm_parts(
+            u, s, self.norm1.weight, self.norm1.bias, self.norm1.num_groups,
+            self.norm1.eps)
+        u_hat = activation(u_hat, self.quantization_friendly)
+        s_hat = activation(s_hat, self.quantization_friendly)
+        dt, w = self.expand.compute_dtype, self.expand.weight
+        h = conv1x1(u_hat, w[:, :cu], dt) + conv1x1(s_hat, w[:, cu:], dt)
+        h = group_norm_film(h, self.norm2.weight, self.norm2.bias, film_scale,
+                            film_shift, self.norm2.num_groups, self.norm2.eps)
+        h = self._tail(h, generator)
+        w = self.skip.weight
+        return h + (conv1x1(u, w[:, :cu], dt) + conv1x1(s, w[:, cu:], dt))
 
 
 class LinearAttention(nn.Module):
@@ -301,35 +363,77 @@ class LinearAttention(nn.Module):
         return linear_attention(q, k, v)
 
 
-class LinearAttentionBlock(nn.Module):
-    """GN → 1×1 qkv → φ-linear attention → 1×1 out → GN → +residual; the
-    two 1×1s are :class:`QConv`s of ``act_quant``'s mode."""
+class SoftmaxAttention(nn.Module):
+    """The attention op of :class:`StandardAttentionBlock`: softmax(q·kᵀ·
+    scale)·v on q, k, v [B, N, heads, dim] through the flash-attention
+    kernels (``ops/flash_attention_kernel.py``) at every N. A module of its
+    own, without parameters, so that a forward hook can see its inputs."""
 
-    def __init__(self, channels: int, num_heads: int = 4, dim_head: int = 32,
-                 act_quant=False):
+    def __init__(self, scale: float):
         super().__init__()
-        inner = num_heads * dim_head
+        self.scale = scale
+
+    def forward(self, q: torch.Tensor, k: torch.Tensor,
+                v: torch.Tensor) -> torch.Tensor:
+        return softmax_attention(q, k, v, self.scale)
+
+
+class _AttentionBlock(nn.Module):
+    """GN → 1×1 qkv (a :class:`QConv` of ``act_quant``'s mode) → ``attn`` →
+    ``to_out`` → +residual; a subclass sets ``attn`` and ``to_out``."""
+
+    def __init__(self, channels: int, num_heads: int, dim_head: int,
+                 act_quant):
+        super().__init__()
         self.num_heads = num_heads
         self.dim_head = dim_head
         self.norm = GroupNorm(channels)
-        self.to_qkv = QConv(channels, inner * 3, 1, bias=False,
+        self.to_qkv = QConv(channels, num_heads * dim_head * 3, 1, bias=False,
                             act_quant=act_quant)
-        self.attn = LinearAttention()
-        self.to_out = nn.Sequential(QConv(inner, channels, 1, bias=False,
-                                          act_quant=act_quant),
-                                    GroupNorm(channels))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         b, _, hgt, wid = x.shape
         qkv = self.to_qkv(self.norm(x))
-        # NHWC token order, split as (b, N, 3, heads, dh) like the JAX block;
-        # one copy makes q, k and v each contiguous.
+        # NHWC token order, split as (b, N, 3, heads, dh) like the JAX
+        # blocks; one copy makes q, k and v each contiguous.
         qkv = (qkv.permute(0, 2, 3, 1)
                .reshape(b, hgt * wid, 3, self.num_heads, self.dim_head)
                .permute(2, 0, 1, 3, 4).contiguous())
         out = self.attn(qkv[0], qkv[1], qkv[2])
         out = out.reshape(b, hgt, wid, -1).permute(0, 3, 1, 2)
         return self.to_out(out) + x
+
+
+class LinearAttentionBlock(_AttentionBlock):
+    """GN → 1×1 qkv → φ-linear attention → 1×1 out → GN → +residual; the
+    two 1×1s are :class:`QConv`s of ``act_quant``'s mode."""
+
+    def __init__(self, channels: int, num_heads: int = 4, dim_head: int = 32,
+                 act_quant=False):
+        super().__init__(channels, num_heads, dim_head, act_quant)
+        self.attn = LinearAttention()
+        self.to_out = nn.Sequential(QConv(num_heads * dim_head, channels, 1,
+                                          bias=False, act_quant=act_quant),
+                                    GroupNorm(channels))
+
+
+class StandardAttentionBlock(_AttentionBlock):
+    """GN → 1×1 qkv → softmax attention (scale dim^-½) → 1×1 out →
+    +residual, with no output GroupNorm (JAX ``StandardAttentionBlock``,
+    ``cv_diffusion_tpu/models/blocks.py:353-390``); the two 1×1s are
+    :class:`QConv`s of ``act_quant``'s mode.
+
+    JAX runs the stock Pallas flash kernel with ``use_pallas`` where it
+    tiles (N ≥ 128 and N a multiple of 128) and ``standard_attention``
+    otherwise; both compute this function, and the port's kernels compute it
+    at any N, so the block has no ``use_pallas``."""
+
+    def __init__(self, channels: int, num_heads: int = 4, dim_head: int = 32,
+                 act_quant=False):
+        super().__init__(channels, num_heads, dim_head, act_quant)
+        self.attn = SoftmaxAttention(dim_head ** -0.5)
+        self.to_out = QConv(num_heads * dim_head, channels, 1, bias=False,
+                            act_quant=act_quant)
 
 
 class Downsample(nn.Module):

@@ -1,12 +1,15 @@
 """EfficientUNet — 4-level time-conditioned UNet, NCHW.
 
 Counterpart of ``cv_diffusion_tpu/models/unet.py`` with the same topology:
-per encoder level ``num_res_blocks`` IRBs (each followed by linear attention
-when the level's resolution is in ``attention_resolutions``), the skip pushed
-before the stride-2 downsample; middle IRB → attention → IRB; per decoder
-level an upsample (after the first), the concat ``[h, skip]`` and
-``num_res_blocks + 1`` IRBs; then GN → SiLU → 3×3 conv. At 256² the only
-attention is ``mid_attn``. Module names are the reference torch ones
+per encoder level ``num_res_blocks`` IRBs (each followed by an attention
+block when the level's resolution is in ``attention_resolutions``: linear,
+or softmax with ``use_linear_attention=False``), the skip pushed before the
+stride-2 downsample; middle IRB → attention → IRB; per decoder level an
+upsample (after the first), the concat ``[h, skip]`` and ``num_res_blocks +
+1`` IRBs; then GN → SiLU → 3×3 conv. At 256² the only attention is
+``mid_attn``. With ``split_skip`` the concat is not formed: the skip goes to
+the level's first IRB beside h (``InvertedResidualBlock``'s
+``skip_input``), as ``cv_diffusion_tpu/models/unet.py:153-168``. Module names are the reference torch ones
 (``encoder_blocks.{l}.{i}``, ``downsamplers.{l}.down``, ``time_mlp.1``, …).
 
 ``config.dtype`` is the compute dtype (float32 parameters cast at each use,
@@ -36,32 +39,23 @@ from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
 from ..config import UNetConfig
 from ..ops.qconv import QConv
 from .blocks import (Downsample, GroupNorm, InvertedResidualBlock,
-                     LinearAttentionBlock, TimeEmbedding, Upsample,
-                     compute_dtype, set_compute_dtype, silu)
+                     LinearAttentionBlock, StandardAttentionBlock,
+                     TimeEmbedding, Upsample, compute_dtype,
+                     set_compute_dtype, silu)
 
-_UNPORTED = (
-    ("split_skip", "the split_skip graph rewrite (ROADMAP queue 1 item 7)"),
-)
 ACT_QUANT_MODES = (False, True, "fake")
 REMAT_POLICIES = ("full", "conv")
 REMAT_SCOPES = ("all", "decoder")
 
 
 def check_ported(config: UNetConfig) -> None:
-    """Raise ``NotImplementedError`` for any path the port does not have
-    yet (it never runs another path in its place), and ``ValueError`` for a
-    dtype other than float32 and bfloat16, an ``act_quant`` other than
-    False, True and ``"fake"`` or, with remat, an unknown scope or policy
-    (the JAX package's messages)."""
-    for name, what in _UNPORTED:
-        if getattr(config, name):
-            raise NotImplementedError(f"UNetConfig.{name}: {what} is not ported")
+    """Raise ``ValueError`` for a dtype other than float32 and bfloat16, an
+    ``act_quant`` other than False, True and ``"fake"`` or, with remat, an
+    unknown scope or policy (the JAX package's messages). Every graph path
+    of the JAX UNet is ported."""
     if config.act_quant not in ACT_QUANT_MODES:
         raise ValueError(f"UNetConfig.act_quant={config.act_quant!r}: one of "
                          f"{ACT_QUANT_MODES}")
-    if not config.use_linear_attention:
-        raise NotImplementedError(
-            "standard softmax attention is not ported (ROADMAP queue 1 item 7)")
     compute_dtype(config.dtype)
     if config.remat:
         if config.remat_scope not in REMAT_SCOPES:
@@ -129,9 +123,12 @@ class EfficientUNet(nn.Module):
                 dropout=config.dropout, use_pallas_irb=config.use_pallas_irb,
                 fold_gn=config.fold_gn, act_quant=aq)
 
+        attn_cls = (LinearAttentionBlock if config.use_linear_attention
+                    else StandardAttentionBlock)
+
         def attention(c):
-            return LinearAttentionBlock(c, config.num_attention_heads,
-                                        config.attention_head_dim, act_quant=aq)
+            return attn_cls(c, config.num_attention_heads,
+                            config.attention_head_dim, act_quant=aq)
 
         self.time_mlp = TimeEmbedding(config.base_channels, tdim)
         self.init_conv = QConv(config.in_channels, ch[0], 3, padding=1,
@@ -185,13 +182,17 @@ class EfficientUNet(nn.Module):
         self.remat_decoder = config.remat
 
     def _run(self, blocks, h: torch.Tensor, t_emb: torch.Tensor,
-             generator: Optional[torch.Generator], remat: bool) -> torch.Tensor:
+             generator: Optional[torch.Generator], remat: bool,
+             skip: Optional[torch.Tensor] = None) -> torch.Tensor:
         """The IRBs and attention blocks ``blocks`` in order, each
-        rematerialised when ``remat`` and a gradient is being recorded."""
+        rematerialised when ``remat`` and a gradient is being recorded; the
+        first (an IRB) takes ``skip`` as its ``skip_input`` when given."""
         remat = remat and torch.is_grad_enabled()
         for block in blocks:
             irb = isinstance(block, InvertedResidualBlock)
             args = (h, t_emb, generator) if irb else (h,)
+            if skip is not None:
+                args, skip = args + (skip,), None
             if not remat:
                 h = block(*args)
             else:
@@ -219,8 +220,12 @@ class EfficientUNet(nn.Module):
         for level, blocks in enumerate(self.decoder_blocks):
             if level > 0:
                 h = self.upsamplers[level - 1](h)
-            h = torch.cat([h, skips.pop()], dim=1)
-            h = self._run(blocks, h, t_emb, generator, self.remat_decoder)
+            if self.config.split_skip:
+                h = self._run(blocks, h, t_emb, generator, self.remat_decoder,
+                              skip=skips.pop())
+            else:
+                h = torch.cat([h, skips.pop()], dim=1)
+                h = self._run(blocks, h, t_emb, generator, self.remat_decoder)
 
         h = silu(self.final_norm(h))
         return self.final_conv(h)

@@ -1,16 +1,20 @@
-"""Linear attention over flattened spatial tokens, in plain PyTorch.
+"""Attention over flattened spatial tokens, in plain PyTorch: linear and
+softmax.
 
 Counterpart of ``cv_diffusion_tpu/ops/attention.py``:
 
-    out = φ(Q)·(φ(K)ᵀV) / (φ(Q)·Σφ(K) + eps),   φ = elu + 1
+    linear:  out = φ(Q)·(φ(K)ᵀV) / (φ(Q)·Σφ(K) + eps),   φ = elu + 1
+    softmax: out = softmax(Q·Kᵀ·scale)·V
 
 Token layout is the JAX package's ``[B, N, heads, dim]``.
 :func:`linear_attention_plain` and :func:`linear_attention_backward_plain`
 are the plain versions of the hand-written CUDA kernels in
-:mod:`.linear_attention_kernel`; the CPU tests hold them against the JAX
-package, and ``chip_smoke.py`` holds the kernels against them on the card.
-:func:`linear_attention` is what the model calls: the kernels' autograd
-function.
+:mod:`.linear_attention_kernel`, :func:`softmax_attention_plain` and
+:func:`softmax_attention_backward_rows` those of the flash-attention
+kernels in :mod:`.flash_attention_kernel`; the CPU tests hold them against
+the JAX package, and ``chip_smoke.py`` holds the kernels against them on
+the card. :func:`linear_attention` and :func:`softmax_attention` are what
+the model calls: the kernels' autograd functions.
 """
 
 from __future__ import annotations
@@ -82,3 +86,81 @@ def linear_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     tensors on the CPU and launch or raise for tensors on the card."""
     from .linear_attention_kernel import linear_attention_trainable
     return linear_attention_trainable(q, k, v, eps)
+
+
+def _round_like(p: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
+    """p rounded to ``like``'s dtype where that is narrower (bf16), kept in
+    p's dtype: the stock flash kernel's ``p.astype(v.dtype)`` before a
+    product."""
+    if like.dtype.itemsize >= p.dtype.itemsize:
+        return p
+    return p.to(like.dtype).to(p.dtype)
+
+
+def softmax_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                            scale: float, return_lse: bool = False):
+    """softmax(q·kᵀ·scale)·v, accumulated in at least float32; the output has
+    q's dtype. Counterpart of JAX ``standard_attention``
+    (``cv_diffusion_tpu/ops/attention.py:81-97``) and the plain version of
+    the flash forward kernel in :mod:`.flash_attention_kernel`.
+
+    In bf16 it follows the stock Pallas flash kernel's rounding: the
+    unnormalised probabilities are rounded to v's dtype before P·V
+    (``flash_attention.py:471``); the row sums are taken before that
+    rounding. With ``return_lse`` it also returns each row's log-sum-exp
+    [B, H, N] (float32, float64 for float64 inputs), which the backward
+    recomputes P from.
+
+    q, k, v: [B, N, H, D]. Returns [B, N, H, D] (and lse).
+    """
+    qf, kf, vf = upcast(q), upcast(k), upcast(v)
+    s = torch.einsum("bnhd,bmhd->bhnm", qf, kf) * scale
+    m = s.amax(dim=-1, keepdim=True)
+    p = torch.exp(s - m)
+    l = p.sum(dim=-1, keepdim=True)                           # [B, H, N, 1]
+    o = torch.einsum("bhnm,bmhd->bnhd", _round_like(p, v), vf)
+    out = (o / l.permute(0, 2, 1, 3)).to(q.dtype)
+    if return_lse:
+        return out, (m + torch.log(l)).squeeze(-1)
+    return out
+
+
+def row_dot(o: torch.Tensor, do: torch.Tensor) -> torch.Tensor:
+    """di = Σ_d o ∘ dO in at least float32, [B, H, N]: the one row reduction
+    the stock VJP computes in XLA between its kernels
+    (``flash_attention.py:272-275``)."""
+    return (upcast(o) * upcast(do)).sum(dim=-1).transpose(1, 2).contiguous()
+
+
+def softmax_attention_backward_rows(q: torch.Tensor, k: torch.Tensor,
+                                    v: torch.Tensor, do: torch.Tensor,
+                                    lse: torch.Tensor, di: torch.Tensor,
+                                    scale: float):
+    """(dq, dk, dv) of :func:`softmax_attention_plain` for the upstream
+    gradient ``do``, in closed form from the rows' log-sum-exp ``lse`` and
+    ``di`` = :func:`row_dot` (o, do), both [B, H, N]: P = exp(q·kᵀ·scale −
+    lse), dV = Pᵀ·dO, dS = P ∘ (dO·Vᵀ − di)·scale, dQ = dS·K, dK = dSᵀ·Q.
+    Each result has its input's dtype. The plain version of the dK/dV and dQ
+    kernels, which take the same inputs; the counterpart of the stock flash
+    kernel's VJP (``flash_attention.py:256-322``), with its bf16 roundings:
+    P and dS are rounded to dO's (k's) dtype before their products
+    (``:900``, ``:918``, ``:1258``)."""
+    qf, kf, vf, dof = upcast(q), upcast(k), upcast(v), upcast(do)
+    s = torch.einsum("bnhd,bmhd->bhnm", qf, kf) * scale
+    p = torch.exp(s - lse.to(s.dtype)[..., None])
+    dv = torch.einsum("bhnm,bnhd->bmhd", _round_like(p, do), dof)
+    dp = torch.einsum("bnhd,bmhd->bhnm", dof, vf)
+    ds = (dp - di.to(s.dtype)[..., None]) * p * scale
+    dq = torch.einsum("bhnm,bmhd->bnhd", _round_like(ds, k), kf)
+    dk = torch.einsum("bhnm,bnhd->bmhd", _round_like(ds, do), qf)
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+
+
+def softmax_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                      scale: float) -> torch.Tensor:
+    """O(N²) softmax attention, differentiable, through the hand-written
+    flash-attention kernels (a forward, a dK/dV and a dQ backward), which run
+    their plain versions for tensors on the CPU and launch or raise for
+    tensors on the card."""
+    from .flash_attention_kernel import softmax_attention_trainable
+    return softmax_attention_trainable(q, k, v, scale)

@@ -111,3 +111,45 @@ def gn2_film_affine_gram(xhat: torch.Tensor, wexp: torch.Tensor,
     a = rstd_c * gamma * fs
     shift = (bias.to(flat.dtype)[None] - mean_c * rstd_c * gamma) * fs
     return a, shift + film_shift.to(flat.dtype)
+
+
+def concat_group_norm_parts(u: torch.Tensor, s: torch.Tensor,
+                            weight: torch.Tensor, bias: torch.Tensor,
+                            num_groups: int, eps: float = 1e-5):
+    """GroupNorm of ``cat([u, s], dim=1)`` applied to each part without
+    forming the concatenation.
+
+    Counterpart of ``concat_group_norm_parts`` in the JAX package's
+    ``ops/norms.py:70-121`` (channels on axis 1 here). The group statistics
+    come from per-channel sums and sums of squares of each part, in float32
+    (at least), so a group that straddles the boundary sees both; the
+    variance E[x²] − E[x]² is clamped at 0. Returns (û, ŝ): each part
+    normalised with its slice of the affine, in its own dtype.
+    """
+    cu, cs = u.shape[1], s.shape[1]
+    c = cu + cs
+    if c % num_groups:
+        raise ValueError(f"{c} channels do not split into {num_groups} groups")
+    gs = c // num_groups
+    spatial = tuple(range(2, u.dim()))
+    n = float(gs * u[0, 0].numel())
+    uf, sf = upcast(u), upcast(s)
+    sums = torch.cat([uf.sum(dim=spatial), sf.sum(dim=spatial)], dim=1)   # [B, C]
+    sums2 = torch.cat([uf.square().sum(dim=spatial),
+                       sf.square().sum(dim=spatial)], dim=1)
+    mean = sums.reshape(-1, num_groups, gs).sum(-1) / n                   # [B, G]
+    var = (sums2.reshape(-1, num_groups, gs).sum(-1) / n
+           - mean.square()).clamp_min(0.0)
+    rstd = torch.rsqrt(var + eps)
+    mean_c = mean.repeat_interleave(gs, dim=1)                            # [B, C]
+    rstd_c = rstd.repeat_interleave(gs, dim=1)
+
+    def part(x, xf, lo, hi):
+        shape = (x.shape[0], hi - lo) + (1,) * len(spatial)
+        m = mean_c[:, lo:hi].reshape(shape)
+        r = rstd_c[:, lo:hi].reshape(shape)
+        g = _per_channel(weight[lo:hi], x.dim())
+        b = _per_channel(bias[lo:hi], x.dim())
+        return ((xf - m) * r * g + b).to(x.dtype)
+
+    return part(u, uf, 0, cu), part(s, sf, cu, c)

@@ -86,10 +86,15 @@ def _irb_entries(p: str, b: Tuple[str, ...]) -> List[Entry]:
     return out
 
 
-def _attention_entries(p: str, b: Tuple[str, ...]) -> List[Entry]:
-    return (_gn_entries(f"{p}.norm", b + ("norm",))
-            + [(f"{p}.to_qkv.weight", b + ("to_qkv", "kernel"), _conv, False),
-               (f"{p}.to_out.0.weight", b + ("to_out", "kernel"), _conv, False)]
+def _attention_entries(p: str, b: Tuple[str, ...], linear: bool) -> List[Entry]:
+    """A linear attention block's entries (``to_out`` a conv and a
+    GroupNorm), or a softmax one's (``to_out`` a conv alone), as
+    ``cv_diffusion_tpu/utils/torch_compat.py:119-127``."""
+    out = (_gn_entries(f"{p}.norm", b + ("norm",))
+           + [(f"{p}.to_qkv.weight", b + ("to_qkv", "kernel"), _conv, False)])
+    if not linear:
+        return out + [(f"{p}.to_out.weight", b + ("to_out", "kernel"), _conv, False)]
+    return (out + [(f"{p}.to_out.0.weight", b + ("to_out", "kernel"), _conv, False)]
             + _gn_entries(f"{p}.to_out.1", b + ("out_norm",)))
 
 
@@ -102,9 +107,7 @@ def unet_entries(config: UNetConfig) -> List[Entry]:
     """Every parameter the UNet of ``config`` can have, in state-dict order:
     (torch name, path in the JAX ``EfficientUNet`` params, the conversion of
     the JAX leaf to the torch layout, whether it is optional)."""
-    if not config.use_linear_attention:
-        raise NotImplementedError(
-            "standard softmax attention is not ported (ROADMAP queue 1 item 7)")
+    linear = config.use_linear_attention
     out: List[Entry] = [
         ("time_mlp.1.weight", ("time_mlp", "dense1", "kernel"), _dense, False),
         ("time_mlp.1.bias", ("time_mlp", "dense1", "bias"), _vec, False),
@@ -122,14 +125,14 @@ def unet_entries(config: UNetConfig) -> List[Entry]:
             idx += 1
             if attn_here:
                 out += _attention_entries(f"encoder_blocks.{level}.{idx}",
-                                  (f"enc_attn_{level}_{block}",))
+                                          (f"enc_attn_{level}_{block}",), linear)
                 idx += 1
         if level < len(channels) - 1:
             out += _conv_entries(f"downsamplers.{level}.down", (f"down_{level}", "conv"))
             current_res //= 2
 
     out += _irb_entries("mid_block1", ("mid_block1",))
-    out += _attention_entries("mid_attn", ("mid_attn",))
+    out += _attention_entries("mid_attn", ("mid_attn",), linear)
     out += _irb_entries("mid_block2", ("mid_block2",))
 
     for level in range(len(channels)):
@@ -140,7 +143,7 @@ def unet_entries(config: UNetConfig) -> List[Entry]:
             idx += 1
             if attn_here:
                 out += _attention_entries(f"decoder_blocks.{level}.{idx}",
-                                  (f"dec_attn_{level}_{block}",))
+                                          (f"dec_attn_{level}_{block}",), linear)
                 idx += 1
         if level < len(channels) - 1:
             out += _conv_entries(f"upsamplers.{level}.conv", (f"up_{level}", "conv"))

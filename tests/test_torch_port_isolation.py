@@ -9,7 +9,8 @@ package, and under that block imports every module of the port and
 ``ServingPipeline.from_config`` on the CPU, writes, loads and serves a bf16,
 an int8 and an int8_act (calibrated on one batch) serving package of that
 model, serves the same request with
-``use_pallas_irb`` on, runs ``fused_irb_v1`` on one block, takes one
+``use_pallas_irb`` on, runs one forward of a softmax-attention model with
+``split_skip``, runs ``fused_irb_v1`` on one block, takes one
 train step, serves the request in bf16 compute and takes one ``use_amp``
 step; then loads the committed student's ``.npz`` and serves a request
 through ``ServingPipeline.from_artifact``, makes a small synthetic split and
@@ -108,13 +109,25 @@ _CHILD = textwrap.dedent("""
     # the same request with every IRB through the fused kernel's wrapper
     import dataclasses
     from cv_diffusion_tpu_torch.models.diffusion import create_model
-    fused_cfg = dataclasses.replace(
-        cfg, unet=dataclasses.replace(cfg.unet, use_pallas_irb=True))
+
+    def diffusion_config_of(c, **unet):
+        return dataclasses.replace(c, unet=dataclasses.replace(c.unet, **unet))
+
+    fused_cfg = diffusion_config_of(cfg, use_pallas_irb=True)
     model, schedule = create_model(fused_cfg, device="cpu")
     model.load_state_dict(init_weights(cfg, seed=0, device="cpu"), strict=True)
     fused = ServingPipeline(model, schedule, pipe.config, device="cpu")(img, seed=0)
     assert fused.shape == img.shape and fused.dtype == np.uint8
     assert np.abs(fused.astype(int) - out.astype(int)).max() <= 1
+
+    # softmax attention through the flash kernels' wrappers, with the
+    # split_skip decoder: one CPU forward
+    soft_cfg = diffusion_config_of(cfg, use_linear_attention=False, split_skip=True)
+    soft, _ = create_model(soft_cfg, device="cpu")
+    soft.load_state_dict(init_weights(soft_cfg, seed=0, device="cpu"), strict=True)
+    with torch.no_grad():
+        y = soft.unet(torch.zeros(1, 6, 32, 32), torch.tensor([739]))
+    assert y.shape == (1, 3, 32, 32) and bool(torch.isfinite(y).all())
 
     # fused_irb (v1), whose wrapper no model path calls, on CPU tensors
     import torch
@@ -280,22 +293,14 @@ def test_entry_points_default_to_cuda():
         enhance(model, schedule, torch.zeros(1, 32, 32, 3), timesteps=[739])
 
 
-@pytest.mark.parametrize("field,value", [
-    ("split_skip", True), ("use_linear_attention", False)])
-def test_unported_paths_raise(field, value):
-    from cv_diffusion_tpu_torch.config import diffusion_config
-    from cv_diffusion_tpu_torch.models.diffusion import create_model
-
-    cfg = diffusion_config("tiny", 32, **{field: value})
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        create_model(cfg, device="cpu")
-
-
 @pytest.mark.parametrize("field,value", [("remat", True), ("dtype", "bfloat16"),
-                                         ("act_quant", True), ("act_quant", "fake")])
+                                         ("act_quant", True), ("act_quant", "fake"),
+                                         ("split_skip", True),
+                                         ("use_linear_attention", False)])
 def test_ported_paths_build(field, value):
-    """bf16 compute, remat and int8 / fake-quant activation compute, refused
-    before they were ported, build."""
+    """bf16 compute, remat, int8 / fake-quant activation compute, the
+    split_skip rewrite and softmax attention, refused before they were
+    ported, build."""
     from cv_diffusion_tpu_torch.config import diffusion_config
     from cv_diffusion_tpu_torch.models.diffusion import create_model
 
