@@ -219,16 +219,20 @@ Phases, one JSON line each on stdout (warnings and build logs go to stderr):
 
 22. flash  -- the three flash-attention kernels (``csrc/flash_attention.cu``,
    built with the others in phase 2; the ``build`` line has each instance's
-   registers and spills): forward, dK/dV and dQ against their plain
+   registers and spills, 0 spills required in the six backward instances,
+   and ``HMMA`` by kernel from ``cuobjdump -sass``, required in the
+   library): forward, dK/dV and dQ against their plain
    versions (f32 forward 2e-5, backward 5e-4; bf16 4 bf16 ulps of each
    reference's largest magnitude, at most 2e-2, ``flash_limit``; reruns
-   bit for bit; the plans as the library reports them) at ``mid_attn``'s
+   bit for bit; each kernel's plan from the library's
+   ``flash_attention_plan``) at ``mid_attn``'s
    shape (batch 1 and 8), 512²'s mid (N = 4096), N = 1, 5, 100, 127, 128,
    200, 1000 and D = 64 and 128, f32 and bf16; at the timed shapes host and
    graph ms of each kernel, the plain versions and
    ``scaled_dot_product_attention`` (forward; forward + autograd.grad less
    the forward, both captured in CUDA graphs as the kernels are), each
-   kernel's bound (``FLASH_WORK``); and the
+   kernel's bound (``FLASH_WORK``; the f32 backward also its 3xTF32
+   tensor-core bound); and the
    forward's peak memory against the plain version's at [8, 4096, 4, 32]
    (``flash_memory``).
 23. softmax_serve -- a seeded small@256 with ``use_linear_attention=False``
@@ -2119,8 +2123,8 @@ FLASH_MEM_SHAPE = (8, 4096, 4, 32)      # 512²'s mid at batch 8
 # (products of 2·B·H·N²·D FLOP, [B, N, H, D] tensors moved, [B, H, N] float32
 # rows moved): the forward q·kᵀ and P·v over q, k, v, o; dK/dV also dO·vᵀ,
 # Pᵀ·dO and dSᵀ·q over q, k, v, dO, dk, dv and lse, di; dQ q·kᵀ, dO·vᵀ and
-# dS·k over q, k, v, dO, dq and lse, di
-FLASH_WORK = {"forward": (2, 4, 0), "dkv": (4, 6, 2), "dq": (3, 5, 2)}
+# dS·k over q, k, v, dO, o, dq and lse, di (it forms di from o and dO)
+FLASH_WORK = {"forward": (2, 4, 0), "dkv": (4, 6, 2), "dq": (3, 6, 2)}
 SOFTMAX_STEPS = (2, 3)                  # warm-up and timed train steps a run
 SOFTMAX_SIZE = 256                      # the image side of phases 23-25
 
@@ -2140,18 +2144,43 @@ def flash_limit(ref, dtype_name: str, backward: bool = False) -> float:
     return min(FLASH_BF16_MAX, max(absolute, FLASH_BF16_ULPS * ulp))
 
 
-def flash_bound(shape, dtype_name, kernel):
-    """(bound ms, bound by, bytes, FLOP) of one call: its products at the
-    card's rate for the inputs' type (float32 on the CUDA cores, bf16 on the
-    tensor cores) against its bytes at 3.35 TB/s."""
+def flash_bound(shape, dtype_name, kernel) -> dict:
+    """The bound of one call (``ms``, ``by``, ``bytes``, ``flops``): its
+    products at the card's rate for the inputs' type (float32 on the CUDA
+    cores, bf16 on the tensor cores) against its bytes at 3.35 TB/s; for the
+    f32 backward kernels, which run their products as 3xTF32 on the tensor
+    cores, also ``tensor_ms``: the same FLOP three times over at the TF32
+    rate."""
     b, n, h, d = shape
     products, tensors, rows = FLASH_WORK[kernel]
     flops = products * 2 * b * h * n * n * d
     moved = tensors * b * n * h * d * (4 if dtype_name == "float32" else 2) + rows * 4 * b * h * n
     rate = F32_FLOPS_PER_S if dtype_name == "float32" else BF16_FLOPS_PER_S
     t_bytes, t_ops = moved / HBM_BYTES_PER_S, flops / rate
-    return (max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations",
-            moved, flops)
+    out = dict(ms=max(t_bytes, t_ops) * 1e3, by="bytes" if t_bytes >= t_ops else "operations",
+               bytes=moved, flops=flops)
+    if dtype_name == "float32" and kernel != "forward":
+        out["tensor_ms"] = max(t_bytes, 3 * flops / TF32_FLOPS_PER_S) * 1e3
+    return out
+
+
+def flash_build_report(built) -> dict:
+    """The flash library's ``build`` fields: registers and spills of each
+    instance (0 spills required in the six backward instances) and ``HMMA``
+    instructions by kernel from its SASS (required in the library: the
+    backward's products run on the tensor cores)."""
+    report = ptxas_report(built.log)
+    backward = {k: v for k, v in report.items() if k.startswith("flash_bwd_")}
+    require(len(backward) == 2 * 2 * 3, f"flash: ptxas reports {sorted(backward)}")
+    spilled = {k: v for k, v in backward.items() if v["spill_bytes"]}
+    require(not spilled, f"flash backward kernels spill: {spilled}")
+    fields = {"kernels": report}
+    sass = sass_counts(built.path, ("HMMA",))
+    fields["sass"] = sass
+    if sass is not None:
+        require(sum(v["HMMA"] for v in sass.values()) > 0,
+                f"no HMMA in the flash library's SASS: {sass}")
+    return fields
 
 
 def flash_kernel_phase(dev, fk, cuda_build, cuda_ms, graph_ms) -> dict:
@@ -2167,7 +2196,6 @@ def flash_kernel_phase(dev, fk, cuda_build, cuda_ms, graph_ms) -> dict:
 
     t0 = time.perf_counter()
     lib = cuda_build.load(fk.SOURCE, fk._declare)
-    tile = lib.flash_attention_tile_rows()
     gen = torch.Generator(device=dev).manual_seed(5)
     err = lambda a, b: float((a.float() - b.float()).abs().max())   # noqa: E731
     rows = {}
@@ -2180,11 +2208,11 @@ def flash_kernel_phase(dev, fk, cuda_build, cuda_ms, graph_ms) -> dict:
             out, lse = fk.flash_attention_forward(q, k, v, scale, with_lse=True)
             again = fk.flash_attention_forward(q, k, v, scale, with_lse=True)
             ref, ref_lse = softmax_attention_plain(q, k, v, scale, return_lse=True)
+            dq, di_k = fk.flash_attention_backward_dq(q, k, v, do, lse, out, scale)
+            grads = (dq, *fk.flash_attention_backward_dkv(q, k, v, do, lse, di_k, scale))
+            dq2, di_k2 = fk.flash_attention_backward_dq(q, k, v, do, lse, out, scale)
+            grads2 = (dq2, *fk.flash_attention_backward_dkv(q, k, v, do, lse, di_k2, scale))
             di = row_dot(out, do)
-            grads = (fk.flash_attention_backward_dq(q, k, v, do, lse, di, scale),
-                     *fk.flash_attention_backward_dkv(q, k, v, do, lse, di, scale))
-            grads2 = (fk.flash_attention_backward_dq(q, k, v, do, lse, di, scale),
-                      *fk.flash_attention_backward_dkv(q, k, v, do, lse, di, scale))
             ref_grads = softmax_attention_backward_rows(q, k, v, do, lse, di, scale)
             torch.cuda.synchronize()
             require(out.dtype == dtype and out.shape == q.shape and lse.shape == ref_lse.shape,
@@ -2192,8 +2220,11 @@ def flash_kernel_phase(dev, fk, cuda_build, cuda_ms, graph_ms) -> dict:
             require(all(bool(torch.isfinite(t).all()) for t in (out, lse) + grads),
                     f"flash {shape} {name}: a non-finite output")
             require(all(torch.equal(a, b) for a, b in zip((out,) + grads, (again[0],) + grads2))
-                    and torch.equal(lse, again[1]), f"flash {shape} {name}: reruns differ")
-            fwd_err, lse_err = err(out, ref), err(lse, ref_lse)
+                    and torch.equal(lse, again[1]) and torch.equal(di_k, di_k2),
+                    f"flash {shape} {name}: reruns differ")
+            fwd_err, lse_err, di_err = err(out, ref), err(lse, ref_lse), err(di_k, di)
+            require(di_err <= FLASH_TOL[0] * 10,
+                    f"flash dQ kernel's di {shape} {name}: {di_err} from row_dot's")
             bwd = {g: err(a, r) for g, a, r in zip(("dq", "dk", "dv"), grads, ref_grads)}
             tol_f = flash_limit(ref, name)
             tol_b = {g: flash_limit(r, name, backward=True) for g, r in zip(("dq", "dk", "dv"), ref_grads)}
@@ -2202,13 +2233,12 @@ def flash_kernel_phase(dev, fk, cuda_build, cuda_ms, graph_ms) -> dict:
             require(all(bwd[g] <= tol_b[g] for g in bwd),
                     f"flash backward {shape} {name}: {bwd}, limits {tol_b}")
             row = dict(kernel="flash_attention", shape=list(shape), dtype=name,
-                       max_err=fwd_err, lse_max_err=lse_err, bwd_max_err=bwd,
+                       max_err=fwd_err, lse_max_err=lse_err, di_max_err=di_err, bwd_max_err=bwd,
                        tol=tol_f, bwd_tol=tol_b, ref_max=float(ref.float().abs().max()),
                        ref_grad_max={g: float(r.float().abs().max())
                                      for g, r in zip(("dq", "dk", "dv"), ref_grads)},
-                       plans={kk: dict(tile_rows=tile, grid=[-(-shape[1] // tile), shape[2], shape[0]],
-                                       smem_bytes=lib.flash_attention_smem_bytes(shape[-1], i))
-                              for i, kk in enumerate(fk.KERNELS)})
+                       plans={kk: dict(fk.plan(lib, kk, shape, dtype)._asdict())
+                              for kk in fk.KERNELS})
             if shape in FLASH_TIMED:
                 iters = 30 if shape[1] >= 4096 else 200
                 qt, kt, vt, dot = (t.transpose(1, 2) for t in (q, k, v, do))
@@ -2224,9 +2254,10 @@ def flash_kernel_phase(dev, fk, cuda_build, cuda_ms, graph_ms) -> dict:
                     "fwd": lambda: fk.flash_attention_forward(q, k, v, scale),
                     "fwd_lse": lambda: fk.flash_attention_forward(q, k, v, scale, with_lse=True),
                     "dkv": lambda: fk.flash_attention_backward_dkv(q, k, v, do, lse, di, scale),
-                    "dq": lambda: fk.flash_attention_backward_dq(q, k, v, do, lse, di, scale),
-                    "bwd": lambda: (fk.flash_attention_backward_dkv(q, k, v, do, lse, row_dot(out, do), scale),
-                                    fk.flash_attention_backward_dq(q, k, v, do, lse, di, scale)),
+                    "dq": lambda: fk.flash_attention_backward_dq(q, k, v, do, lse, out, scale),
+                    "bwd": lambda: fk.flash_attention_backward_dkv(
+                        q, k, v, do, lse, fk.flash_attention_backward_dq(q, k, v, do, lse, out, scale)[1],
+                        scale),
                     "plain_fwd": lambda: softmax_attention_plain(q, k, v, scale),
                     "plain_bwd": lambda: softmax_attention_backward_rows(q, k, v, do, lse, di, scale),
                     "library_fwd": lambda: F.scaled_dot_product_attention(qt, kt, vt, scale=scale),
@@ -2247,11 +2278,10 @@ def flash_kernel_phase(dev, fk, cuda_build, cuda_ms, graph_ms) -> dict:
                     library_max_err=err(lib_out.transpose(1, 2), ref),
                     library_bwd_max_err=max(err(a.transpose(1, 2), r)
                                             for a, r in zip(lib_grads, ref_grads)),
-                    bound={kk: dict(zip(("ms", "by", "bytes", "flops"), flash_bound(shape, name, kk)))
-                           for kk in fk.KERNELS})
+                    bound={kk: flash_bound(shape, name, kk) for kk in fk.KERNELS})
             rows[(shape, name)] = row
             emit("kernel", **row)
-            del q, k, v, do, out, lse, again, ref, ref_lse, di, grads, grads2, ref_grads
+            del q, k, v, do, out, lse, again, ref, ref_lse, di, di_k, di_k2, dq, dq2, grads, grads2, ref_grads
 
     # the forward's memory against the plain version's at 512²'s mid, batch 8
     q, k, v = (torch.randn(FLASH_MEM_SHAPE, generator=gen, device=dev) for _ in range(3))
@@ -2534,14 +2564,13 @@ def softmax_train_phase(dev, fk, reset_launches) -> dict:
             f"softmax train: mid_attn gradients kernel vs plain {block_rel}, norm {norm_rel}")
     scale = 32 ** -0.5
     o, lse = fk.flash_attention_forward(q, k, v, scale, with_lse=True)
-    di = row_dot(o, do)
-    got = (fk.flash_attention_backward_dq(q, k, v, do, lse, di, scale),
-           *fk.flash_attention_backward_dkv(q, k, v, do, lse, di, scale))
+    dq, di = fk.flash_attention_backward_dq(q, k, v, do, lse, o, scale)
+    got = (dq, *fk.flash_attention_backward_dkv(q, k, v, do, lse, di, scale))
     step_bwd_err = max(float((a - r).abs().max()) for a, r in zip(
-        got, softmax_attention_backward_rows(q, k, v, do, lse, di, scale)))
+        got, softmax_attention_backward_rows(q, k, v, do, lse, row_dot(o, do), scale)))
     require(tuple(q.shape) == (8, (SOFTMAX_SIZE // 8) ** 2, 4, 32) and step_bwd_err <= FLASH_TOL[1],
             f"softmax train: backward kernels on the step's {tuple(q.shape)} inputs: {step_bwd_err}")
-    del q, k, v, do, o, lse, di, got
+    del q, k, v, do, o, lse, dq, di, got
 
     # two identical steps, bit for bit, with deterministic algorithms
     torch.backends.cudnn.deterministic = True
@@ -2763,8 +2792,10 @@ def main() -> int:
     for (name, module), (built, seconds) in zip(wrappers, builds):
         print(built.log, file=sys.stderr)
         fields = {}
-        if module in (lak, fk):      # registers and spills of each instance
+        if module is lak:      # registers and spills of each instance
             fields["kernels"] = ptxas_report(built.log)
+        if module is fk:
+            fields = flash_build_report(built)
         if module is qk:
             fields = qconv_build_report(built, qk)
         if module is fik:      # registers and spills of each fused-IRB kernel
@@ -4980,7 +5011,9 @@ def main() -> int:
                         library_ms=r["library_ms"]["fwd" if fwd else "bwd"],
                         library_eager_ms=r["library_eager_ms"]["fwd" if fwd else "bwd"],
                         **({} if fwd else {"backward_pair_graph_ms": r["graph_ms"]["bwd"]}),
-                        bound_ms=r["bound"][kernel]["ms"], bound_by=r["bound"][kernel]["by"])
+                        bound_ms=r["bound"][kernel]["ms"], bound_by=r["bound"][kernel]["by"],
+                        **({"tensor_bound_ms": r["bound"][kernel]["tensor_ms"]}
+                           if "tensor_ms" in r["bound"][kernel] else {}))
 
         main_row = flash_rows[(shape, "float32")]
         launches_train = softmax_train["launches"][name]
@@ -4998,7 +5031,7 @@ def main() -> int:
             "library": "torch.nn.functional.scaled_dot_product_attention, graph-timed" + (
                 "" if fwd else "; its backward (forward + autograd.grad, less its forward) "
                                "computes dQ, dK and dV together: compare backward_pair_graph_ms "
-                               "(dK/dV, di and dQ)"),
+                               "(dQ, which forms di, then dK/dV)"),
             "shape": list(shape),
             "dtype": "float32",
             "bfloat16": timing(flash_rows[(shape, "bfloat16")]),

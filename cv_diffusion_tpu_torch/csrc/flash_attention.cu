@@ -25,46 +25,78 @@
 // the blocks of a grid run in parallel and in no order, so here that walk is
 // a loop inside one block, and the carried state stays in registers.
 //
-// What bounds them on an H100. At the small UNet's mid_attn shape
-// [B, 1024, 4, 32] in f32 the two products are 4 * B * H * N^2 * D = 0.537
-// GFLOP an image (8.0 us at 67 TFLOP/s on the CUDA cores) against 2.1 MB of
-// q, k, v and out (0.63 us at 3.35 TB/s): bound by operations, as attention
-// is at any N above ~100 at D = 32. The backward does five such products
-// (q k^T, dO v^T, P^T dO, dS^T q, dS k; the dQ kernel recomputes the first
-// two), also bound by operations.
+// What bounds them on an H100. At mid_attn's shape [B, 1024, 4, 32] the
+// forward's two products are 4 * B * H * N^2 * D = 0.537 GFLOP an image
+// against 2.1 MB of q, k, v and out in f32 (half that in bf16): bound by
+// operations in both dtypes, as attention is at any N above ~100 at D = 32.
+// The backward does seven such products in its two kernels (dK/dV: k q^T,
+// v dO^T, P^T dO, dS^T q; dQ: q k^T, dO v^T, dS k; the dQ kernel recomputes
+// the first two rather than write [N, N] scores): 1.88 GFLOP an image, also
+// bound by operations, 1.9 us on the tensor cores in bf16 (989 TFLOP/s) and
+// 11.4 us in f32 as 3xTF32 (three TF32 products at 495 TFLOP/s each).
 //
-// The design, simple first. Every kernel is a grid of (N / 64 tiles) x H x B
-// blocks of 256 threads; a tile is 64 rows. Operands are staged in shared
-// memory as f32 (16-byte loads from device memory; rows past N are zeros),
-// with a pitch of D + 1 floats so that the micro-tile reads below fall in
-// distinct banks. A thread owns a 4 x 4 micro tile of each 64 x 64 score
-// tile (rows 4 * rg + i, columns cg + 16 * j for its row group rg and column
-// group cg, 16 of each) and a 4 x D/16 tile of each 64 x D accumulator
-// (columns cg + 16 * j), both computed with FMAs on the CUDA cores; the 16
-// threads of a row group are one half-warp, so a row's max and sum are
-// butterfly shuffles within it (each lane ends with the same value).
+// The forward, simple first: a grid of (N / 64 tiles) x H x B blocks of 256
+// threads; a tile is 64 rows. Operands are staged in shared memory as f32
+// (16-byte loads from device memory; rows past N are zeros), with a pitch of
+// D + 1 floats so that the micro-tile reads below fall in distinct banks. A
+// thread owns a 4 x 4 micro tile of each 64 x 64 score tile (rows 4 * rg + i,
+// columns cg + 16 * j for its row group rg and column group cg, 16 of each)
+// and a 4 x D/16 tile of the 64 x D accumulator (columns cg + 16 * j), both
+// computed with FMAs on the CUDA cores; the 16 threads of a row group are one
+// half-warp, so a row's max and sum are butterfly shuffles within it (each
+// lane ends with the same value). One block per query tile: q staged once;
+// per key tile k and v staged, the scores S = q k^T * scale (keys past N are
+// -inf), the row max m, P = exp(S - m_new) written to shared memory (rounded
+// to bf16 in the bf16 entry before P v, as the stock kernel's
+// p.astype(v.dtype); the row sum l is taken before that rounding), the
+// accumulator rescaled by exp(m_old - m_new) and P v added. At the end
+// out = acc / l and, when asked, the f32 log-sum-exp m + log(l) [B, H, N].
+// expf (not __expf) keeps the f32 forward within 2e-5 of the plain version.
 //
-//   forward (one block per query tile): q staged once; per key tile k and v
-//     staged, the scores S = q k^T * scale (keys past N are -inf), the row
-//     max m, P = exp(S - m_new) written to shared memory (rounded to bf16 in
-//     the bf16 entry before P v, as the stock kernel's p.astype(v.dtype);
-//     the row sum l is taken before that rounding), the accumulator
-//     rescaled by exp(m_old - m_new) and P v added. At the end out = acc / l
-//     and, when asked, the f32 log-sum-exp m + log(l) [B, H, N].
-//   dK/dV (one block per key tile): k and v staged once; per query tile q,
-//     dO, lse and di = sum(o * dO) (one row reduction outside the kernels,
-//     as the stock VJP computes it in XLA) staged, P = exp(S - lse),
-//     dP = dO v^T, dS = (dP - di) * P * scale, P and dS written to shared
-//     memory (each rounded to bf16 in the bf16 entry), dV += P^T dO,
-//     dK += dS^T q.
-//   dQ (one block per query tile): q, dO, lse, di staged once; per key tile
-//     P and dS again, dQ += dS k.
+// The backward, on the tensor cores. Each warp owns 16 rows of S, the M of a
+// warp-level mma.sync: keys in dK/dV, which computes S^T = k q^T and
+// dP^T = v dO^T with the keys as rows, and queries in dQ (S = q k^T,
+// dP = dO v^T). It walks the other side 16 columns (a chunk) at a time. A
+// chunk's two products leave S and dP in accumulator fragments;
+// P = exp2(S * scale * log2(e) - lse * log2(e)) and dS = (dP - di) * P * scale
+// are formed in those registers and packed straight into the A fragments of
+// the next products (dV += P^T dO and dK += dS^T q; dQ += dS k): no P or dS
+// tile in shared memory and no barrier between a chunk's halves. The dQ
+// kernel runs first: it owns the query rows, so it also forms each row's
+// di = sum(o * dO) (the stock VJP's one row reduction, which it computes in
+// XLA between its kernels) and writes it [B, H, N] for dK/dV.
+//   bf16: mma.sync m16n8k16, bf16 in, f32 accumulate, B fragments by ldmatrix
+//     (.trans where the product runs along the staged rows); P and dS are
+//     rounded to bf16 (cvt.rn, to nearest even) as they are packed, as the
+//     stock kernel casts them before its dots.
+//   f32: mma.sync m16n8k8 in TF32, as 3xTF32: every operand, P and dS too,
+//     is split into big = tf32(x) and small = x - big cut to TF32, and
+//     small.big + big.small + big.big accumulate in f32, within a small
+//     factor of an f32 product (a single TF32 pass is not float32). A lane's
+//     accumulator columns (2t, 2t + 1) are not a TF32 A fragment's (t, t + 4),
+//     but the order of k within a product is free: a lane's P and dS go in as
+//     they lie, and its B fragment reads the matching rows 2t and 2t + 1 of
+//     dO or q, so no shuffle is needed.
+// Staging: the block's own rows (k, v in dK/dV; q, dO in dQ) once, then the
+// other side's tiles of 64 rows (32 in f32 at D = 128) through a ring of two
+// stages of 16-byte cp.async in the type they arrive in, so that the next
+// tile loads while this one is used; rows past N are zero-filled, and dK/dV
+// stages each query tile's lse and di beside it (+inf and 0 past N, so such
+// a query's P is 0). Staged rows are padded by 16 bytes, so the 8 rows an
+// ldmatrix reads (bf16) and a quad's scalar loads (f32) fall in distinct
+// banks. A warp keeps its own rows' A fragments in registers where they fit
+// (bf16 at D <= 64, f32 at D = 32), else reads them a step at a time.
+// The plan (flash_attention_plan): rows a block (16 to 128, a warp each 16
+// rows) and split (1, 2 or 4 warps on the same 16 rows, each taking every
+// split-th chunk), chosen to fill an H100's 132 SMs: the most rows that
+// still give 128 blocks (fewer, larger blocks read the other side from L2
+// fewer times), then the least split that gives eight warps an SM. A split
+// block sums its warps' partial dK, dV or dQ through shared memory in warp
+// order. (scripts/torch_port_flash_ab.py --sweep times every plan.)
 //
-// No atomics and a fixed order of every sum, so reruns are bit-identical;
-// no scratch in device memory: a launch writes only its outputs, so the
-// forward captures into a CUDA graph. expf (not __expf) keeps the f32
-// forward within 2e-5 of the plain version. The products on the tensor cores
-// (wgmma from TMA-staged tiles) are later work.
+// No atomics and a fixed order of every sum (each mma's, each chunk's, each
+// split's), so reruns are bit-identical; no scratch in device memory: a
+// launch writes only its outputs, so every kernel captures into a CUDA graph.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -86,13 +118,9 @@ __host__ __device__ constexpr int pitch() { return D + 1; }
 template <int D>
 __host__ __device__ constexpr int staged_floats() { return kTile * pitch<D>(); }
 
-// Shared memory of each kernel, in floats.
+// Shared memory of the forward, in floats.
 template <int D>
 constexpr int fwd_floats() { return 3 * staged_floats<D>() + kTile * kSPitch; }
-template <int D>
-constexpr int dkv_floats() { return 4 * staged_floats<D>() + 2 * kTile * kSPitch + 2 * kTile; }
-template <int D>
-constexpr int dq_floats() { return 4 * staged_floats<D>() + kTile * kSPitch + 2 * kTile; }
 
 __device__ __forceinline__ float to_float(float x) { return x; }
 __device__ __forceinline__ float to_float(__nv_bfloat16 x) { return __bfloat162float(x); }
@@ -150,19 +178,6 @@ __device__ __forceinline__ void stage(float* dst, const T* __restrict__ x, int b
   }
 }
 
-// The row statistics of rows [row0, row0 + kTile): lse (+inf past N, so that
-// P = exp(S - lse) is 0 there) and di (0 past N), from [B, H, N] f32.
-__device__ __forceinline__ void stage_rows(float* slse, float* sdi, const float* __restrict__ lse,
-                                           const float* __restrict__ di, int b, int h, int row0,
-                                           int N, int H) {
-  for (int i = threadIdx.x; i < kTile; i += kThreads) {
-    const int n = row0 + i;
-    const long long at = (static_cast<long long>(b) * H + h) * N + n;
-    slse[i] = n < N ? lse[at] : INFINITY;
-    sdi[i] = n < N ? di[at] : 0.0f;
-  }
-}
-
 // s[i][j] = a[4 rg + i] . b[cg + 16 j] over D, both staged with pitch D + 1.
 template <int D>
 __device__ __forceinline__ void dot_tile(float (&s)[kRows][kCols], const float* a, const float* b,
@@ -185,10 +200,9 @@ __device__ __forceinline__ void dot_tile(float (&s)[kRows][kCols], const float* 
   }
 }
 
-// acc[i][c] += sum_j w(4 rg + i, j) x[j][cg + 16 c] over the kTile staged rows
-// of x, with w(r, j) = p[r][j], or p[j][r] when Transposed (p a staged score
-// tile, pitch kSPitch).
-template <int D, bool Transposed>
+// acc[i][c] += sum_j p[4 rg + i][j] x[j][cg + 16 c] over the kTile staged
+// rows of x (p a staged score tile, pitch kSPitch).
+template <int D>
 __device__ __forceinline__ void accumulate(float (&acc)[kRows][D / kGroups], const float* p,
                                            const float* x, int rg, int cg) {
 #pragma unroll 4
@@ -196,7 +210,7 @@ __device__ __forceinline__ void accumulate(float (&acc)[kRows][D / kGroups], con
     float w[kRows], xv[D / kGroups];
 #pragma unroll
     for (int i = 0; i < kRows; ++i)
-      w[i] = Transposed ? p[j * kSPitch + kRows * rg + i] : p[(kRows * rg + i) * kSPitch + j];
+      w[i] = p[(kRows * rg + i) * kSPitch + j];
 #pragma unroll
     for (int c = 0; c < D / kGroups; ++c) xv[c] = x[j * pitch<D>() + cg + kGroups * c];
 #pragma unroll
@@ -279,7 +293,7 @@ __global__ void __launch_bounds__(kThreads)
       for (int c = 0; c < D / kGroups; ++c) acc[i][c] *= alpha;
     }
     __syncthreads();
-    accumulate<D, false>(acc, sp, sv, rg, cg);
+    accumulate<D>(acc, sp, sv, rg, cg);
   }
 
 #pragma unroll
@@ -293,107 +307,545 @@ __global__ void __launch_bounds__(kThreads)
   store<T, D>(out, acc, b, h, q0, N, H, rg, cg);
 }
 
-// P = exp(S - lse) (0 for keys past N; rows past N have lse = +inf) and
-// dS = (dP - di) * P * scale, each rounded to T, into the staged tiles sp
-// (when given) and sds at the thread's micro tile.
+// ---------------------------------------------------------------------------
+// The backward on the tensor cores.
+
+constexpr int kWarpRows = 16;    // rows of S a warp owns: mma's M
+constexpr int kChunk = 16;       // columns of S a warp forms at a time
+constexpr int kMaxWarps = 8;
+constexpr int kBwdThreads = 32 * kMaxWarps;  // with one block an SM: up to 255 registers
+constexpr int kSMs = 132;        // an H100 SXM's
+constexpr int kMinBlocks = 128;  // the plan's least grid, where N allows
+constexpr int kSmemMax = 232448;  // shared memory a block may use on sm_90
+constexpr float kLog2e = 1.4426950408889634f;
+
+// Elements of a staged row: D and 16 bytes of pad.
+template <typename T, int D>
+__host__ __device__ constexpr int bpitch() { return D + 16 / static_cast<int>(sizeof(T)); }
+
+// Rows of a staged tile of the other side (queries in dK/dV, keys in dQ).
+template <typename T, int D>
+__host__ __device__ constexpr int bcols() { return sizeof(T) == 4 && D == 128 ? 32 : 64; }
+
+// Whether a warp keeps the A fragments of its own rows in registers.
+template <typename T, int D>
+__host__ __device__ constexpr bool held() { return sizeof(T) * D <= 128; }
+
+// One mma step: its depth K, the registers of a lane's A fragment (f32: big
+// then small) and of its B fragment of one 8-column block.
+template <typename T> struct Mma;
+template <> struct Mma<__nv_bfloat16> { static constexpr int K = 16, A = 4, B = 2; };
+template <> struct Mma<float> { static constexpr int K = 8, A = 8, B = 4; };
+
+// Inline PTX: every instruction the backward uses beyond plain C++.
+
+// Two floats rounded to bf16 (to nearest even) and packed, lo in the low half.
+__device__ __forceinline__ uint32_t bf16x2_rn(float lo, float hi) {
+  uint32_t r;
+  asm("cvt.rn.bf16x2.f32 %0, %1, %2;\n" : "=r"(r) : "f"(hi), "f"(lo));
+  return r;
+}
+
+// d += a (16 x 8, row) . b (8 x 8, col), TF32 in, float32 accumulate.
+__device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t* a, const uint32_t* b) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+// d += a (16 x 16, row) . b (16 x 8, col), bf16 in, float32 accumulate.
+__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t* a, const uint32_t* b) {
+  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+// Four 8 x 16-byte matrices from shared memory: lanes 8q .. 8q + 7 give the
+// rows of matrix q, and each lane receives, of matrix q, the 4 bytes
+// 4 * (lane % 4) .. + 3 of its row lane / 4 in r[q]; with .trans, the 2-byte
+// elements (2 (lane % 4), lane / 4) and (2 (lane % 4) + 1, lane / 4).
+__device__ __forceinline__ void ldmatrix_x4(uint32_t* r, const void* row) {
+  const unsigned a = static_cast<unsigned>(__cvta_generic_to_shared(row));
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(a));
+}
+__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t* r, const void* row) {
+  const unsigned a = static_cast<unsigned>(__cvta_generic_to_shared(row));
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(a));
+}
+
+// Asynchronous copies from device to shared memory (cp.async); with valid
+// false the destination is zero-filled and nothing is read.
+__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool valid) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d), "l"(src),
+               "r"(valid ? 16 : 0));
+}
+__device__ __forceinline__ void cp_async4(void* dst, const void* src) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(d), "l"(src));
+}
+__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
+template <int N> __device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+
+// End of inline PTX.
+
+// big = tf32(v), to nearest with ties away from zero (what cvt.rna.tf32.f32
+// computes for finite v), small = v - big (exact in f32) cut to TF32 toward
+// zero; big + small is within 2^-21 of v, relatively.
+__device__ __forceinline__ void split_tf32(float v, uint32_t& big, uint32_t& small) {
+  big = (__float_as_uint(v) + 0x1000u) & 0xffffe000u;
+  small = __float_as_uint(v - __uint_as_float(big)) & 0xffffe000u;
+}
+
+// d += a . b: one bf16 product, or 3xTF32's three (a and b hold big, then
+// small).
 template <typename T>
-__device__ __forceinline__ void probabilities(float* sp, float* sds, const float (&s)[kRows][kCols],
-                                              const float (&dp)[kRows][kCols], const float* slse,
-                                              const float* sdi, int k0, int N, float scale, int rg,
-                                              int cg) {
-#pragma unroll
-  for (int i = 0; i < kRows; ++i) {
-    const int r = kRows * rg + i;
-#pragma unroll
-    for (int j = 0; j < kCols; ++j) {
-      const int c = cg + kGroups * j;
-      const float p = k0 + c < N ? expf(s[i][j] * scale - slse[r]) : 0.0f;
-      const float ds = (dp[i][j] - sdi[r]) * p * scale;
-      if (sp != nullptr) sp[r * kSPitch + c] = round_to<T>(p);
-      sds[r * kSPitch + c] = round_to<T>(ds);
+__device__ __forceinline__ void mma(float (&d)[4], const uint32_t* a, const uint32_t* b) {
+  if constexpr (sizeof(T) == 2) {
+    mma_bf16(d, a, b);
+  } else {
+    mma_tf32(d, a + 4, b);
+    mma_tf32(d, a, b + 2);
+    mma_tf32(d, a, b);
+  }
+}
+
+// Rows [row0, row0 + rows) of head h of batch element b of x [B, N, H, D]
+// into dst (pitch bpitch) by 16-byte cp.async, in x's own type; rows past N
+// are zero-filled.
+template <typename T, int D>
+__device__ __forceinline__ void stage_async(T* dst, const T* __restrict__ x, int b, int h,
+                                            int row0, int rows, int N, int H) {
+  constexpr int E = 16 / static_cast<int>(sizeof(T)), V = D / E;
+  for (int i = threadIdx.x; i < rows * V; i += blockDim.x) {
+    const int r = i / V, c = (i % V) * E, n = row0 + r;
+    cp_async16(dst + r * bpitch<T, D>() + c, x + offset(b, n < N ? n : 0, h, N, H, D) + c, n < N);
+  }
+}
+
+// lse and di of rows [row0, row0 + rows) from [B, H, N] f32; past N +inf
+// (so that P = exp2(S - lse) is 0 there) and 0, stored directly.
+__device__ __forceinline__ void stage_rows_async(float* slse, float* sdi,
+                                                 const float* __restrict__ lse,
+                                                 const float* __restrict__ di, int b, int h,
+                                                 int row0, int rows, int N, int H) {
+  for (int i = threadIdx.x; i < rows; i += blockDim.x) {
+    const int n = row0 + i;
+    const long long at = (static_cast<long long>(b) * H + h) * N + n;
+    if (n < N) {
+      cp_async4(slse + i, lse + at);
+      cp_async4(sdi + i, di + at);
+    } else {
+      slse[i] = INFINITY;
+      sdi[i] = 0.0f;
     }
   }
 }
 
+// big and small of four values into a TF32 A fragment f[0..3], f[4..7].
+__device__ __forceinline__ void split4(uint32_t* f, float v0, float v1, float v2, float v3) {
+  split_tf32(v0, f[0], f[4]);
+  split_tf32(v1, f[1], f[5]);
+  split_tf32(v2, f[2], f[6]);
+  split_tf32(v3, f[3], f[7]);
+}
+
+// This lane's A fragment of step ks of the 16 staged rows r0 .. r0 + 15 of
+// tile (the rows of the product, the staged columns its depth).
 template <typename T, int D>
-__global__ void __launch_bounds__(kThreads)
+__device__ __forceinline__ void load_a(uint32_t* f, const T* tile, int r0, int ks, int lane) {
+  constexpr int P = bpitch<T, D>();
+  if constexpr (sizeof(T) == 2) {
+    ldmatrix_x4(f, tile + (r0 + (lane & 15)) * P + ks * 16 + (lane >> 4) * 8);
+  } else {
+    const float* x = tile + (r0 + (lane >> 2)) * P + ks * 8 + (lane & 3);
+    split4(f, x[0], x[8 * P], x[4], x[8 * P + 4]);
+  }
+}
+
+// This lane's B fragments of step ks for the 8-column blocks j and j + 8 of
+// a product whose columns are the staged rows j .. j + 15 (f[0 .. B) and
+// f[B .. 2B)).
+template <typename T, int D>
+__device__ __forceinline__ void load_b(uint32_t* f, const T* tile, int j, int ks, int lane) {
+  constexpr int P = bpitch<T, D>();
+  if constexpr (sizeof(T) == 2) {
+    ldmatrix_x4(f, tile + (j + (lane & 7) + ((lane >> 4) << 3)) * P + ks * 16 +
+                       ((lane >> 3) & 1) * 8);
+  } else {
+    const float* x = tile + (j + (lane >> 2)) * P + ks * 8 + (lane & 3);
+    split_tf32(x[0], f[0], f[2]);
+    split_tf32(x[4], f[1], f[3]);
+    split_tf32(x[8 * P], f[4], f[6]);
+    split_tf32(x[8 * P + 4], f[5], f[7]);
+  }
+}
+
+// This lane's B fragments for the output columns n0 .. n0 + 7 and
+// n0 + 8 .. n0 + 15 of a product whose depth runs along the staged rows
+// j .. j + 15: bf16 one k16 step (ldmatrix .trans); f32 the k8 step kk over
+// rows j + 8 kk .., its k = t and t + 4 being rows 2t and 2t + 1 (the order
+// in which an accumulator fragment holds its columns).
+template <typename T, int D>
+__device__ __forceinline__ void load_bt(uint32_t* f, const T* tile, int j, int kk, int n0,
+                                        int lane) {
+  constexpr int P = bpitch<T, D>();
+  if constexpr (sizeof(T) == 2) {
+    ldmatrix_x4_trans(f, tile + (j + (lane & 7) + (((lane >> 3) & 1) << 3)) * P + n0 +
+                             (lane >> 4) * 8);
+  } else {
+    const float* x = tile + (j + 8 * kk + 2 * (lane & 3)) * P + n0 + (lane >> 2);
+    split_tf32(x[0], f[0], f[2]);
+    split_tf32(x[P], f[1], f[3]);
+    split_tf32(x[8], f[4], f[6]);
+    split_tf32(x[P + 8], f[5], f[7]);
+  }
+}
+
+// A warp's A fragments of its own 16 staged rows: kept in registers where
+// held<T, D>(), else read from the tile a step at a time.
+template <typename T, int D>
+struct RowFrags {
+  static constexpr int K = Mma<T>::K, A = Mma<T>::A;
+  uint32_t f[held<T, D>() ? D / K : 1][A];
+  const T* tile;
+  int r0;
+
+  __device__ __forceinline__ void load(const T* t, int r, int lane) {
+    tile = t;
+    r0 = r;
+    if constexpr (held<T, D>()) {
+#pragma unroll
+      for (int ks = 0; ks < D / K; ++ks) load_a<T, D>(f[ks], t, r, ks, lane);
+    }
+  }
+  __device__ __forceinline__ const uint32_t* step(int ks, uint32_t* buf, int lane) const {
+    if constexpr (held<T, D>()) return f[ks];
+    load_a<T, D>(buf, tile, r0, ks, lane);
+    return buf;
+  }
+};
+
+// s = (own rows) . (staged rows j .. j + 15)^T over D: a 16 x 16 chunk of S
+// (or dP) as two accumulator fragments, s[nb][i] at row g + 8 (i / 2), column
+// j + 8 nb + 2t + i % 2 for lane 4g + t.
+template <typename T, int D>
+__device__ __forceinline__ void scores(float (&s)[2][4], const RowFrags<T, D>& a, const T* tile,
+                                       int j, int lane) {
+  constexpr int K = Mma<T>::K, B = Mma<T>::B;
+#pragma unroll
+  for (int nb = 0; nb < 2; ++nb)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) s[nb][i] = 0.0f;
+#pragma unroll
+  for (int ks = 0; ks < D / K; ++ks) {
+    uint32_t buf[Mma<T>::A], b[2 * B];
+    const uint32_t* af = a.step(ks, buf, lane);
+    load_b<T, D>(b, tile, j, ks, lane);
+    mma<T>(s[0], af, b);
+    mma<T>(s[1], af, b + B);
+  }
+}
+
+// acc += w . x[j .. j + 15]: w the 16 x 16 chunk of P or dS a lane holds as
+// scores() leaves it, rounded to bf16 (bf16 entry) or split (f32) on the way
+// into the A fragment; x the staged rows j .. j + 15, all D columns. bf16
+// accumulates in acc; f32 sums the chunk apart and adds it to acc.
+template <typename T, int D>
+__device__ __forceinline__ void accumulate_chunk(float (&acc)[D / 8][4], const float (&w)[2][4],
+                                                 const T* tile, int j, int lane) {
+  if constexpr (sizeof(T) == 2) {
+    const uint32_t a[4] = {bf16x2_rn(w[0][0], w[0][1]), bf16x2_rn(w[0][2], w[0][3]),
+                           bf16x2_rn(w[1][0], w[1][1]), bf16x2_rn(w[1][2], w[1][3])};
+#pragma unroll
+    for (int n = 0; n < D / 16; ++n) {
+      uint32_t b[4];
+      load_bt<T, D>(b, tile, j, 0, 16 * n, lane);
+      mma_bf16(acc[2 * n], a, b);
+      mma_bf16(acc[2 * n + 1], a, b + 2);
+    }
+  } else {
+    // the chunk's six TF32 products from zero, then one f32 add: the tensor
+    // cores' own additions into a long-running accumulator lose more
+    uint32_t a[2][8];
+#pragma unroll
+    for (int kk = 0; kk < 2; ++kk) split4(a[kk], w[kk][0], w[kk][2], w[kk][1], w[kk][3]);
+#pragma unroll
+    for (int n = 0; n < D / 16; ++n) {
+      float part[2][4] = {};
+#pragma unroll
+      for (int kk = 0; kk < 2; ++kk) {
+        uint32_t b[8];
+        load_bt<T, D>(b, tile, j, kk, 16 * n, lane);
+        mma<T>(part[0], a[kk], b);
+        mma<T>(part[1], a[kk], b + 4);
+      }
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        acc[2 * n][i] += part[0][i];
+        acc[2 * n + 1][i] += part[1][i];
+      }
+    }
+  }
+}
+
+template <int D>
+__device__ __forceinline__ void zero_frags(float (&acc)[D / 8][4]) {
+#pragma unroll
+  for (int a = 0; a < D / 8; ++a)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) acc[a][i] = 0.0f;
+}
+
+// A split block's partial sums: parts 1 .. split - 1 of each row group put
+// theirs in shared memory (one slot a warp, a lane's values 32 floats apart),
+// part 0 adds them in part order.
+template <int D>
+__device__ __forceinline__ void put_frags(float* slot, const float (&acc)[D / 8][4], int lane) {
+#pragma unroll
+  for (int a = 0; a < D / 8; ++a)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) slot[(4 * a + i) * 32 + lane] = acc[a][i];
+}
+template <int D>
+__device__ __forceinline__ void add_frags(float (&acc)[D / 8][4], const float* slot, int lane) {
+#pragma unroll
+  for (int a = 0; a < D / 8; ++a)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) acc[a][i] += slot[(4 * a + i) * 32 + lane];
+}
+
+__device__ __forceinline__ void store2(float* p, float x, float y) {
+  *reinterpret_cast<float2*>(p) = make_float2(x, y);
+}
+__device__ __forceinline__ void store2(__nv_bfloat16* p, float x, float y) {
+  *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(x, y);
+}
+
+// Rows row0 .. row0 + 15 of y (those below N) from a warp's fragments.
+template <typename T, int D>
+__device__ __forceinline__ void store_frags(T* __restrict__ y, const float (&acc)[D / 8][4],
+                                            int b, int h, int row0, int N, int H, int lane) {
+#pragma unroll
+  for (int half = 0; half < 2; ++half) {
+    const int n = row0 + (lane >> 2) + 8 * half;
+    if (n >= N) continue;
+    T* row = y + offset(b, n, h, N, H, D) + 2 * (lane & 3);
+#pragma unroll
+    for (int a = 0; a < D / 8; ++a) store2(row + 8 * a, acc[a][2 * half], acc[a][2 * half + 1]);
+  }
+}
+
+// Floats of a warp's slot for the split sum, for `accs` accumulators.
+template <int D>
+__host__ __device__ constexpr int slot_floats(int accs) { return accs * 16 * D; }
+
+// dK/dV: one block per `rows` keys (blockDim.x / 32 / split row groups of
+// 16), the queries in tiles of bcols.
+template <typename T, int D>
+__global__ void __launch_bounds__(kBwdThreads, 1)
     flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
                          const T* __restrict__ v, const T* __restrict__ dout,
                          const float* __restrict__ lse, const float* __restrict__ di,
-                         T* __restrict__ dk, T* __restrict__ dv, int N, int H, float scale) {
+                         T* __restrict__ dk, T* __restrict__ dv, int N, int H, float scale,
+                         int split) {
+  constexpr int P = bpitch<T, D>(), BC = bcols<T, D>();
   extern __shared__ float smem[];
-  float* sk = smem;
-  float* sv = sk + staged_floats<D>();
-  float* sq = sv + staged_floats<D>();
-  float* sdo = sq + staged_floats<D>();
-  float* sp = sdo + staged_floats<D>();
-  float* sds = sp + kTile * kSPitch;
-  float* slse = sds + kTile * kSPitch;
-  float* sdi = slse + kTile;
-  const int k0 = blockIdx.x * kTile, h = blockIdx.y, b = blockIdx.z;
-  const int rg = threadIdx.x / kGroups, cg = threadIdx.x % kGroups;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int groups = blockDim.x / 32 / split, rows = kWarpRows * groups;
+  const int rg = warp / split, part = warp % split;
+  const int k0 = blockIdx.x * rows, h = blockIdx.y, b = blockIdx.z;
+  T* sk = reinterpret_cast<T*>(smem);
+  T* sv = sk + rows * P;
+  T* sq = sv + rows * P;  // [stage][q, dO][BC rows]
+  float* srow = reinterpret_cast<float*>(sq + 4 * BC * P);  // [stage][lse, di][BC]
 
-  stage<T, D>(sk, k, b, h, k0, N, H);
-  stage<T, D>(sv, v, b, h, k0, N, H);
-  float adk[kRows][D / kGroups], adv[kRows][D / kGroups];
-  zero<D>(adk);
-  zero<D>(adv);
+  const int tiles = (N + BC - 1) / BC;
+  stage_async<T, D>(sk, k, b, h, k0, rows, N, H);
+  stage_async<T, D>(sv, v, b, h, k0, rows, N, H);
+  stage_async<T, D>(sq, q, b, h, 0, BC, N, H);
+  stage_async<T, D>(sq + BC * P, dout, b, h, 0, BC, N, H);
+  stage_rows_async(srow, srow + BC, lse, di, b, h, 0, BC, N, H);
+  cp_async_commit();
 
-  for (int q0 = 0; q0 < N; q0 += kTile) {
-    __syncthreads();  // every thread is done with the last tile's q, dO, P and dS
-    stage<T, D>(sq, q, b, h, q0, N, H);
-    stage<T, D>(sdo, dout, b, h, q0, N, H);
-    stage_rows(slse, sdi, lse, di, b, h, q0, N, H);
-    __syncthreads();
-    // rows: the tile's queries; columns: this block's keys
-    float s[kRows][kCols], dp[kRows][kCols];
-    dot_tile<D>(s, sq, sk, rg, cg);
-    dot_tile<D>(dp, sdo, sv, rg, cg);
-    probabilities<T>(sp, sds, s, dp, slse, sdi, k0, N, scale, rg, cg);
-    __syncthreads();
-    accumulate<D, true>(adv, sp, sdo, rg, cg);  // dV[key] += sum_q P[q][key] dO[q]
-    accumulate<D, true>(adk, sds, sq, rg, cg);  // dK[key] += sum_q dS[q][key] q[q]
+  RowFrags<T, D> fk, fv;
+  float adk[D / 8][4], adv[D / 8][4];
+  zero_frags<D>(adk);
+  zero_frags<D>(adv);
+  const float c = scale * kLog2e;
+  const int t4 = lane & 3;
+  for (int t = 0; t < tiles; ++t) {
+    const int q0 = t * BC, cur = t & 1;
+    if (t + 1 < tiles) {
+      T* nq = sq + 2 * BC * P * (cur ^ 1);
+      float* nrow = srow + 2 * BC * (cur ^ 1);
+      stage_async<T, D>(nq, q, b, h, q0 + BC, BC, N, H);
+      stage_async<T, D>(nq + BC * P, dout, b, h, q0 + BC, BC, N, H);
+      stage_rows_async(nrow, nrow + BC, lse, di, b, h, q0 + BC, BC, N, H);
+    }
+    cp_async_commit();
+    cp_async_wait<1>();
+    __syncthreads();  // this tile (and, first, the block's k and v) is in
+    if (t == 0) {
+      fk.load(sk, kWarpRows * rg, lane);
+      fv.load(sv, kWarpRows * rg, lane);
+    }
+    const T* tq = sq + 2 * BC * P * cur;
+    const T* tdo = tq + BC * P;
+    const float* tl = srow + 2 * BC * cur;
+    const float* tdi = tl + BC;
+    for (int j = kChunk * part; j < BC && q0 + j < N; j += kChunk * split) {
+      // rows: this warp's keys; columns: queries j .. j + 15 of the tile
+      float s[2][4], dp[2][4];
+      scores<T, D>(s, fk, tq, j, lane);
+      scores<T, D>(dp, fv, tdo, j, lane);
+#pragma unroll
+      for (int nb = 0; nb < 2; ++nb)
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const int col = j + 8 * nb + 2 * t4 + (i & 1);
+          const float p = exp2f(fmaf(s[nb][i], c, -tl[col] * kLog2e));
+          dp[nb][i] = (dp[nb][i] - tdi[col]) * p * scale;
+          s[nb][i] = p;
+        }
+      accumulate_chunk<T, D>(adv, s, tdo, j, lane);   // dV[key] += sum_q P[q][key] dO[q]
+      accumulate_chunk<T, D>(adk, dp, tq, j, lane);   // dK[key] += sum_q dS[q][key] q[q]
+    }
+    __syncthreads();  // every warp is done with this stage before it is refilled
   }
-  store<T, D>(dk, adk, b, h, k0, N, H, rg, cg);
-  store<T, D>(dv, adv, b, h, k0, N, H, rg, cg);
+  if (split > 1) {    // everything staged has been used
+    if (part > 0) {
+      float* slot = smem + ((part - 1) * groups + rg) * slot_floats<D>(2);
+      put_frags<D>(slot, adk, lane);
+      put_frags<D>(slot + slot_floats<D>(1), adv, lane);
+    }
+    __syncthreads();
+    for (int p = 1; part == 0 && p < split; ++p) {
+      const float* from = smem + ((p - 1) * groups + rg) * slot_floats<D>(2);
+      add_frags<D>(adk, from, lane);
+      add_frags<D>(adv, from + slot_floats<D>(1), lane);
+    }
+  }
+  if (part == 0) {
+    store_frags<T, D>(dk, adk, b, h, k0 + kWarpRows * rg, N, H, lane);
+    store_frags<T, D>(dv, adv, b, h, k0 + kWarpRows * rg, N, H, lane);
+  }
 }
 
+// di = sum_d o[n][d] dO[n][d] of row n (0 past N) in f32: each lane of a
+// quad sums a quarter of the row in order (16-byte loads), then two
+// butterfly shuffles; the quad's four lanes end with the same value.
 template <typename T, int D>
-__global__ void __launch_bounds__(kThreads)
+__device__ __forceinline__ float out_dot(const T* __restrict__ o, const T* __restrict__ dout,
+                                         int b, int n, int h, int N, int H, int lane) {
+  constexpr int E = 16 / static_cast<int>(sizeof(T)), Q = D / 4;
+  float acc = 0.0f;
+  if (n < N) {
+    const long long at = offset(b, n, h, N, H, D) + (lane & 3) * Q;
+#pragma unroll 1
+    for (int c = 0; c < Q; c += E) {  // one vector pair at a time: few registers
+      const uint4 ov = *reinterpret_cast<const uint4*>(o + at + c);
+      const uint4 dv = *reinterpret_cast<const uint4*>(dout + at + c);
+      const T* oe = reinterpret_cast<const T*>(&ov);
+      const T* de = reinterpret_cast<const T*>(&dv);
+#pragma unroll
+      for (int e = 0; e < E; ++e) acc = fmaf(to_float(oe[e]), to_float(de[e]), acc);
+    }
+  }
+  acc += __shfl_xor_sync(0xffffffffu, acc, 1);
+  return acc + __shfl_xor_sync(0xffffffffu, acc, 2);
+}
+
+// dQ: one block per `rows` queries, the keys in tiles of bcols; it also
+// forms di of its rows from o and dO and writes it for dK/dV.
+template <typename T, int D>
+__global__ void __launch_bounds__(kBwdThreads, 1)
     flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
                         const T* __restrict__ v, const T* __restrict__ dout,
-                        const float* __restrict__ lse, const float* __restrict__ di,
-                        T* __restrict__ dq, int N, int H, float scale) {
+                        const T* __restrict__ o, const float* __restrict__ lse,
+                        float* __restrict__ di, T* __restrict__ dq, int N, int H, float scale,
+                        int split) {
+  constexpr int P = bpitch<T, D>(), BC = bcols<T, D>();
   extern __shared__ float smem[];
-  float* sq = smem;
-  float* sdo = sq + staged_floats<D>();
-  float* sk = sdo + staged_floats<D>();
-  float* sv = sk + staged_floats<D>();
-  float* sds = sv + staged_floats<D>();
-  float* slse = sds + kTile * kSPitch;
-  float* sdi = slse + kTile;
-  const int q0 = blockIdx.x * kTile, h = blockIdx.y, b = blockIdx.z;
-  const int rg = threadIdx.x / kGroups, cg = threadIdx.x % kGroups;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int groups = blockDim.x / 32 / split, rows = kWarpRows * groups;
+  const int rg = warp / split, part = warp % split;
+  const int q0 = blockIdx.x * rows, h = blockIdx.y, b = blockIdx.z;
+  T* sq = reinterpret_cast<T*>(smem);
+  T* sdo = sq + rows * P;
+  T* sk = sdo + rows * P;  // [stage][k, v][BC rows]
 
-  stage<T, D>(sq, q, b, h, q0, N, H);
-  stage<T, D>(sdo, dout, b, h, q0, N, H);
-  stage_rows(slse, sdi, lse, di, b, h, q0, N, H);
-  float adq[kRows][D / kGroups];
-  zero<D>(adq);
+  const int tiles = (N + BC - 1) / BC;
+  stage_async<T, D>(sq, q, b, h, q0, rows, N, H);
+  stage_async<T, D>(sdo, dout, b, h, q0, rows, N, H);
+  stage_async<T, D>(sk, k, b, h, 0, BC, N, H);
+  stage_async<T, D>(sk + BC * P, v, b, h, 0, BC, N, H);
+  cp_async_commit();
 
-  for (int k0 = 0; k0 < N; k0 += kTile) {
-    __syncthreads();  // every thread is done with the last tile's k, v and dS
-    stage<T, D>(sk, k, b, h, k0, N, H);
-    stage<T, D>(sv, v, b, h, k0, N, H);
-    __syncthreads();
-    float s[kRows][kCols], dp[kRows][kCols];
-    dot_tile<D>(s, sq, sk, rg, cg);
-    dot_tile<D>(dp, sdo, sv, rg, cg);
-    probabilities<T>(nullptr, sds, s, dp, slse, sdi, k0, N, scale, rg, cg);
-    __syncthreads();
-    accumulate<D, false>(adq, sds, sk, rg, cg);  // dQ[q] += sum_key dS[q][key] k[key]
+  // the lane's rows g and g + 8: lse * log2(e) once a row (+inf past N) and di
+  float lrow[2], drow[2];
+#pragma unroll
+  for (int half = 0; half < 2; ++half) {
+    const int n = q0 + kWarpRows * rg + (lane >> 2) + 8 * half;
+    const long long at = (static_cast<long long>(b) * H + h) * N + n;
+    lrow[half] = n < N ? lse[at] * kLog2e : INFINITY;
+    drow[half] = out_dot<T, D>(o, dout, b, n, h, N, H, lane);
+    if (part == 0 && (lane & 3) == 0 && n < N) di[at] = drow[half];
   }
-  store<T, D>(dq, adq, b, h, q0, N, H, rg, cg);
+
+  RowFrags<T, D> fq, fdo;
+  float adq[D / 8][4];
+  zero_frags<D>(adq);
+  const float c = scale * kLog2e;
+  const int t4 = lane & 3;
+  for (int t = 0; t < tiles; ++t) {
+    const int k0 = t * BC, cur = t & 1;
+    if (t + 1 < tiles) {
+      T* nk = sk + 2 * BC * P * (cur ^ 1);
+      stage_async<T, D>(nk, k, b, h, k0 + BC, BC, N, H);
+      stage_async<T, D>(nk + BC * P, v, b, h, k0 + BC, BC, N, H);
+    }
+    cp_async_commit();
+    cp_async_wait<1>();
+    __syncthreads();  // this tile (and, first, the block's q and dO) is in
+    if (t == 0) {
+      fq.load(sq, kWarpRows * rg, lane);
+      fdo.load(sdo, kWarpRows * rg, lane);
+    }
+    const T* tk = sk + 2 * BC * P * cur;
+    const T* tv = tk + BC * P;
+    for (int j = kChunk * part; j < BC && k0 + j < N; j += kChunk * split) {
+      // rows: this warp's queries; columns: keys j .. j + 15 of the tile
+      float s[2][4], dp[2][4];
+      scores<T, D>(s, fq, tk, j, lane);
+      scores<T, D>(dp, fdo, tv, j, lane);
+#pragma unroll
+      for (int nb = 0; nb < 2; ++nb)
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const bool key = k0 + j + 8 * nb + 2 * t4 + (i & 1) < N;
+          const float p = key ? exp2f(fmaf(s[nb][i], c, -lrow[i >> 1])) : 0.0f;
+          dp[nb][i] = (dp[nb][i] - drow[i >> 1]) * p * scale;
+        }
+      accumulate_chunk<T, D>(adq, dp, tk, j, lane);   // dQ[q] += sum_key dS[q][key] k[key]
+    }
+    __syncthreads();  // every warp is done with this stage before it is refilled
+  }
+  if (split > 1) {
+    if (part > 0) put_frags<D>(smem + ((part - 1) * groups + rg) * slot_floats<D>(1), adq, lane);
+    __syncthreads();
+    for (int p = 1; part == 0 && p < split; ++p)
+      add_frags<D>(adq, smem + ((p - 1) * groups + rg) * slot_floats<D>(1), lane);
+  }
+  if (part == 0) store_frags<T, D>(dq, adq, b, h, q0 + kWarpRows * rg, N, H, lane);
 }
 
 // Shared memory above 48 KB must be allowed per kernel and device before the
@@ -416,6 +868,77 @@ dim3 grid(int B, int N, int H) { return dim3((N + kTile - 1) / kTile, H, B); }
 
 bool misaligned(const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 != 0; }
 
+// A launch: rows of the block's own side, warps on each 16 of them (split),
+// rows of a staged tile of the other side (cols), warps, grid, dynamic
+// shared memory in bytes.
+struct Plan {
+  int rows, split, cols, warps, smem;
+  dim3 grid;
+};
+
+enum Kernel { kForward = 0, kDkv = 1, kDq = 2 };
+
+template <typename T, int D>
+int bwd_smem(int kernel, int rows, int split) {
+  constexpr int P = bpitch<T, D>(), BC = bcols<T, D>();
+  const int staged = (2 * rows + 4 * BC) * P * static_cast<int>(sizeof(T)) +
+                     (kernel == kDkv ? 4 * BC * 4 : 0);
+  const int reduced = (split - 1) * (rows / kWarpRows) *
+                      slot_floats<D>(kernel == kDkv ? 2 : 1) * 4;
+  return staged > reduced ? staged : reduced;
+}
+
+// The plan of one call; rows = split = 0 asks for the default. False for a
+// plan the kernel does not take (rows not 16, 32, 64 or 128; split not 1,
+// 2 or 4, or above a staged tile's chunks; more than 8 warps; more shared
+// memory than a block has).
+template <typename T, int D>
+bool plan_d(int kernel, int B, int N, int H, int rows, int split, Plan* p) {
+  if (kernel == kForward) {
+    if ((rows != 0 && rows != kTile) || (split != 0 && split != 1)) return false;
+    *p = {kTile, 1, kTile, kThreads / 32, 4 * fwd_floats<D>(), grid(B, N, H)};
+    return true;
+  }
+  const auto blocks = [&](int r) { return static_cast<long long>((N + r - 1) / r) * H * B; };
+  if (rows == 0) {  // the most rows that still give a block to nearly every SM
+    rows = kWarpRows;
+    for (int r = 128; r > kWarpRows; r /= 2) {
+      if (blocks(r) >= kMinBlocks) {
+        rows = r;
+        break;
+      }
+    }
+  }
+  const int groups = rows / kWarpRows, chunks = bcols<T, D>() / kChunk;
+  if (split == 0) {  // then the least split that gives eight warps an SM
+    split = 1;
+    while (split * 2 * groups <= kMaxWarps && split * 2 <= chunks &&
+           blocks(rows) * groups * split < 8 * kSMs) {
+      split *= 2;
+    }
+  }
+  if ((rows != 16 && rows != 32 && rows != 64 && rows != 128) ||
+      (split != 1 && split != 2 && split != 4) || split > chunks ||
+      groups * split > kMaxWarps) {
+    return false;
+  }
+  const int smem = bwd_smem<T, D>(kernel, rows, split);
+  if (smem > kSmemMax) return false;
+  *p = {rows, split, bcols<T, D>(), groups * split, smem,
+        dim3((N + rows - 1) / rows, H, B)};
+  return true;
+}
+
+template <typename T>
+bool plan_t(int kernel, int B, int N, int H, int D, int rows, int split, Plan* p) {
+  switch (D) {
+    case 32: return plan_d<T, 32>(kernel, B, N, H, rows, split, p);
+    case 64: return plan_d<T, 64>(kernel, B, N, H, rows, split, p);
+    case 128: return plan_d<T, 128>(kernel, B, N, H, rows, split, p);
+    default: return false;
+  }
+}
+
 template <typename T, int D>
 cudaError_t forward_d(const void* q, const void* k, const void* v, void* out, float* lse, int B,
                       int N, int H, float scale, cudaStream_t stream) {
@@ -428,30 +951,29 @@ cudaError_t forward_d(const void* q, const void* k, const void* v, void* out, fl
   return cudaGetLastError();
 }
 
+// One backward launch: dK/dV into out0, out1, or dQ into out0 and di (from
+// o).
 template <typename T, int D>
-cudaError_t dkv_d(const void* q, const void* k, const void* v, const void* dout,
-                  const float* lse, const float* di, void* dk, void* dv, int B, int N, int H,
-                  float scale, cudaStream_t stream) {
-  constexpr int smem = 4 * dkv_floats<D>();
-  const cudaError_t err = allow_smem<flash_bwd_dkv_kernel<T, D>>(smem);
-  if (err != cudaSuccess) return err;
-  flash_bwd_dkv_kernel<T, D><<<grid(B, N, H), kThreads, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<const T*>(dout), lse, di, static_cast<T*>(dk), static_cast<T*>(dv), N, H,
-      scale);
-  return cudaGetLastError();
-}
-
-template <typename T, int D>
-cudaError_t dq_d(const void* q, const void* k, const void* v, const void* dout, const float* lse,
-                 const float* di, void* dq, int B, int N, int H, float scale,
-                 cudaStream_t stream) {
-  constexpr int smem = 4 * dq_floats<D>();
-  const cudaError_t err = allow_smem<flash_bwd_dq_kernel<T, D>>(smem);
-  if (err != cudaSuccess) return err;
-  flash_bwd_dq_kernel<T, D><<<grid(B, N, H), kThreads, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<const T*>(dout), lse, di, static_cast<T*>(dq), N, H, scale);
+cudaError_t backward_d(int kernel, const Plan& p, const void* q, const void* k, const void* v,
+                       const void* dout, const void* o, const float* lse, float* di,
+                       void* out0, void* out1, int N, int H, float scale, cudaStream_t stream) {
+  const auto* tq = static_cast<const T*>(q);
+  const auto* tk = static_cast<const T*>(k);
+  const auto* tv = static_cast<const T*>(v);
+  const auto* tdo = static_cast<const T*>(dout);
+  if (kernel == kDkv) {
+    const cudaError_t err = allow_smem<flash_bwd_dkv_kernel<T, D>>(p.smem);
+    if (err != cudaSuccess) return err;
+    flash_bwd_dkv_kernel<T, D><<<p.grid, 32 * p.warps, p.smem, stream>>>(
+        tq, tk, tv, tdo, lse, di, static_cast<T*>(out0), static_cast<T*>(out1), N, H, scale,
+        p.split);
+  } else {
+    const cudaError_t err = allow_smem<flash_bwd_dq_kernel<T, D>>(p.smem);
+    if (err != cudaSuccess) return err;
+    flash_bwd_dq_kernel<T, D><<<p.grid, 32 * p.warps, p.smem, stream>>>(
+        tq, tk, tv, tdo, static_cast<const T*>(o), lse, di, static_cast<T*>(out0), N, H, scale,
+        p.split);
+  }
   return cudaGetLastError();
 }
 
@@ -472,39 +994,30 @@ cudaError_t forward(const void* q, const void* k, const void* v, void* out, void
 }
 
 template <typename T>
-cudaError_t backward_dkv(const void* q, const void* k, const void* v, const void* dout,
-                         const void* lse, const void* di, void* dk, void* dv, int B, int N, int H,
-                         int D, float scale, void* stream) {
+cudaError_t backward(int kernel, int rows, int split, const void* q, const void* k,
+                     const void* v, const void* dout, const void* o, const void* lse, void* di,
+                     void* out0, void* out1, int B, int N, int H, int D, float scale,
+                     void* stream) {
   if (static_cast<long long>(B) * N * H == 0) return cudaSuccess;
-  if (misaligned(q) || misaligned(k) || misaligned(v) || misaligned(dout)) {
+  if (kernel == kDq && o == nullptr) return cudaErrorInvalidValue;
+  if (misaligned(q) || misaligned(k) || misaligned(v) || misaligned(dout) ||
+      (kernel == kDq && misaligned(o))) {
     return cudaErrorMisalignedAddress;
   }
-  auto* l = static_cast<const float*>(lse);
-  auto* d = static_cast<const float*>(di);
-  auto st = static_cast<cudaStream_t>(stream);
-  switch (D) {
-    case 32: return dkv_d<T, 32>(q, k, v, dout, l, d, dk, dv, B, N, H, scale, st);
-    case 64: return dkv_d<T, 64>(q, k, v, dout, l, d, dk, dv, B, N, H, scale, st);
-    case 128: return dkv_d<T, 128>(q, k, v, dout, l, d, dk, dv, B, N, H, scale, st);
-    default: return cudaErrorInvalidValue;
-  }
-}
-
-template <typename T>
-cudaError_t backward_dq(const void* q, const void* k, const void* v, const void* dout,
-                        const void* lse, const void* di, void* dq, int B, int N, int H, int D,
-                        float scale, void* stream) {
-  if (static_cast<long long>(B) * N * H == 0) return cudaSuccess;
-  if (misaligned(q) || misaligned(k) || misaligned(v) || misaligned(dout)) {
-    return cudaErrorMisalignedAddress;
+  Plan p;
+  if ((kernel != kDkv && kernel != kDq) || !plan_t<T>(kernel, B, N, H, D, rows, split, &p)) {
+    return cudaErrorInvalidValue;
   }
   auto* l = static_cast<const float*>(lse);
-  auto* d = static_cast<const float*>(di);
+  auto* d = static_cast<float*>(di);
   auto st = static_cast<cudaStream_t>(stream);
   switch (D) {
-    case 32: return dq_d<T, 32>(q, k, v, dout, l, d, dq, B, N, H, scale, st);
-    case 64: return dq_d<T, 64>(q, k, v, dout, l, d, dq, B, N, H, scale, st);
-    case 128: return dq_d<T, 128>(q, k, v, dout, l, d, dq, B, N, H, scale, st);
+    case 32:
+      return backward_d<T, 32>(kernel, p, q, k, v, dout, o, l, d, out0, out1, N, H, scale, st);
+    case 64:
+      return backward_d<T, 64>(kernel, p, q, k, v, dout, o, l, d, out0, out1, N, H, scale, st);
+    case 128:
+      return backward_d<T, 128>(kernel, p, q, k, v, dout, o, l, d, out0, out1, N, H, scale, st);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -529,40 +1042,63 @@ cudaError_t flash_fwd_bf16(const void* q, const void* k, const void* v, void* ou
 cudaError_t flash_bwd_dkv_f32(const void* q, const void* k, const void* v, const void* dout,
                               const void* lse, const void* di, void* dk, void* dv, int B, int N,
                               int H, int D, float scale, void* stream) {
-  return backward_dkv<float>(q, k, v, dout, lse, di, dk, dv, B, N, H, D, scale, stream);
+  return backward<float>(kDkv, 0, 0, q, k, v, dout, nullptr, lse, const_cast<void*>(di), dk, dv,
+                         B, N, H, D, scale, stream);
 }
 
 cudaError_t flash_bwd_dkv_bf16(const void* q, const void* k, const void* v, const void* dout,
                                const void* lse, const void* di, void* dk, void* dv, int B, int N,
                                int H, int D, float scale, void* stream) {
-  return backward_dkv<__nv_bfloat16>(q, k, v, dout, lse, di, dk, dv, B, N, H, D, scale, stream);
+  return backward<__nv_bfloat16>(kDkv, 0, 0, q, k, v, dout, nullptr, lse, const_cast<void*>(di),
+                                 dk, dv, B, N, H, D, scale, stream);
 }
 
+// out [B, N, H, D], the forward's output: di = sum(out * dout, -1) [B, H, N]
+// f32 is formed and written into di, for the dK/dV kernel.
 cudaError_t flash_bwd_dq_f32(const void* q, const void* k, const void* v, const void* dout,
-                             const void* lse, const void* di, void* dq, int B, int N, int H,
-                             int D, float scale, void* stream) {
-  return backward_dq<float>(q, k, v, dout, lse, di, dq, B, N, H, D, scale, stream);
+                             const void* out, const void* lse, void* di, void* dq, int B, int N,
+                             int H, int D, float scale, void* stream) {
+  return backward<float>(kDq, 0, 0, q, k, v, dout, out, lse, di, dq, nullptr, B, N, H, D, scale,
+                         stream);
 }
 
 cudaError_t flash_bwd_dq_bf16(const void* q, const void* k, const void* v, const void* dout,
-                              const void* lse, const void* di, void* dq, int B, int N, int H,
-                              int D, float scale, void* stream) {
-  return backward_dq<__nv_bfloat16>(q, k, v, dout, lse, di, dq, B, N, H, D, scale, stream);
+                              const void* out, const void* lse, void* di, void* dq, int B, int N,
+                              int H, int D, float scale, void* stream) {
+  return backward<__nv_bfloat16>(kDq, 0, 0, q, k, v, dout, out, lse, di, dq, nullptr, B, N, H, D,
+                                 scale, stream);
 }
 
-// Dynamic shared memory of one block in bytes: kernel 0 the forward, 1 dK/dV,
-// 2 dQ; -1 for a head dim without an instance.
-int flash_attention_smem_bytes(int D, int kernel) {
-  switch (D) {
-    case 32: return 4 * (kernel == 0 ? fwd_floats<32>() : kernel == 1 ? dkv_floats<32>() : dq_floats<32>());
-    case 64: return 4 * (kernel == 0 ? fwd_floats<64>() : kernel == 1 ? dkv_floats<64>() : dq_floats<64>());
-    case 128: return 4 * (kernel == 0 ? fwd_floats<128>() : kernel == 1 ? dkv_floats<128>() : dq_floats<128>());
-    default: return -1;
-  }
+// A backward launch under a given plan (kernel 1 dK/dV into out0 and out1,
+// o unused; 2 dQ into out0, di as flash_bwd_dq_*; rows = split = 0 the
+// default): what the plan's choice is timed from.
+cudaError_t flash_bwd_planned(int kernel, int bf16, int rows, int split, const void* q,
+                              const void* k, const void* v, const void* dout, const void* o,
+                              const void* lse, void* di, void* out0, void* out1, int B, int N,
+                              int H, int D, float scale, void* stream) {
+  return bf16 ? backward<__nv_bfloat16>(kernel, rows, split, q, k, v, dout, o, lse, di, out0,
+                                        out1, B, N, H, D, scale, stream)
+              : backward<float>(kernel, rows, split, q, k, v, dout, o, lse, di, out0, out1, B, N,
+                                H, D, scale, stream);
 }
 
-// Rows of a tile (query or key), the same in all three kernels.
-int flash_attention_tile_rows() { return kTile; }
+// The launch of kernel 0 (the forward), 1 (dK/dV) or 2 (dQ) at [B, N, H, D]
+// in f32 or bf16 under rows and split (0 and 0: the default plan), into
+// out[8]: rows a block, split, rows a staged tile, warps, grid x, y, z,
+// dynamic shared memory in bytes. Returns 0, or -1 where the kernel does
+// not take that plan.
+int flash_attention_plan(int kernel, int B, int N, int H, int D, int bf16, int rows, int split,
+                         int* out) {
+  Plan p;
+  if (kernel < kForward || kernel > kDq) return -1;
+  const bool ok = bf16 ? plan_t<__nv_bfloat16>(kernel, B, N, H, D, rows, split, &p)
+                       : plan_t<float>(kernel, B, N, H, D, rows, split, &p);
+  if (!ok) return -1;
+  const int fields[8] = {p.rows, p.split, p.cols, p.warps, static_cast<int>(p.grid.x),
+                         static_cast<int>(p.grid.y), static_cast<int>(p.grid.z), p.smem};
+  for (int i = 0; i < 8; ++i) out[i] = fields[i];
+  return 0;
+}
 
 const char* flash_attention_error_string(cudaError_t err) { return cudaGetErrorString(err); }
 

@@ -18,12 +18,17 @@ tensors on the CPU they run the plain versions (:mod:`.attention`); for
 CUDA tensors they launch the kernel or raise. :class:`SoftmaxAttentionFunction`
 pairs them as one ``torch.autograd.Function`` that saves q, k, v, the
 output and the row log-sum-exp (never the [N, N] probabilities), as the
-stock ``custom_vjp`` saves its residuals.
+stock ``custom_vjp`` saves its residuals. Its backward runs the dQ kernel
+first, which also forms the rows' di = Σ o ∘ dO (the stock VJP's one row
+reduction between its kernels), then the dK/dV kernel on that di. Each
+kernel's launch (rows a block, warps, grid, shared memory) is planned by
+the library itself: :func:`plan`.
 """
 
 from __future__ import annotations
 
 import ctypes
+from typing import NamedTuple
 
 import torch
 
@@ -34,6 +39,19 @@ from .attention import (row_dot, softmax_attention_backward_rows,
 SOURCE = cuda_build.source("flash_attention.cu")
 HEAD_DIMS = (32, 64, 128)
 KERNELS = ("forward", "dkv", "dq")   # the library's kernel index in its plan queries
+
+
+class Plan(NamedTuple):
+    """One kernel's launch as the library plans it (``flash_attention_plan``
+    in the source, where the layout lives): rows of its own side a block,
+    warps on each 16 of them (``split``), rows of a staged tile of the
+    other side, warps a block, the grid and the dynamic shared memory."""
+    rows: int
+    split: int
+    cols: int
+    warps: int
+    grid: tuple
+    smem_bytes: int
 
 
 def build() -> cuda_build.Built:
@@ -54,18 +72,18 @@ def _declare(lib) -> None:
         fn.restype = i32
     for name in ("flash_bwd_dq_f32", "flash_bwd_dq_bf16"):
         fn = getattr(lib, name)
-        fn.argtypes = [ptr] * 7 + [i32] * 4 + [f32, ptr]
+        fn.argtypes = [ptr] * 8 + [i32] * 4 + [f32, ptr]
         fn.restype = i32
-    lib.flash_attention_smem_bytes.argtypes = [i32, i32]
-    lib.flash_attention_smem_bytes.restype = i32
-    lib.flash_attention_tile_rows.argtypes = []
-    lib.flash_attention_tile_rows.restype = i32
+    lib.flash_bwd_planned.argtypes = [i32] * 4 + [ptr] * 9 + [i32] * 4 + [f32, ptr]
+    lib.flash_bwd_planned.restype = i32
+    lib.flash_attention_plan.argtypes = [i32] * 8 + [ctypes.POINTER(ctypes.c_int)]
+    lib.flash_attention_plan.restype = i32
     lib.flash_attention_error_string.argtypes = [i32]
     lib.flash_attention_error_string.restype = ctypes.c_char_p
 
 
 def _check(*ts: torch.Tensor) -> None:
-    """q, k, v (and dO): one shape, dtype and device, as the kernels take
+    """q, k, v (and dO, o): one shape, dtype and device, as the kernels take
     them."""
     q = ts[0]
     if q.dim() != 4 or any(t.shape != q.shape for t in ts):
@@ -99,17 +117,26 @@ def _check_rows(q: torch.Tensor, *rows: torch.Tensor) -> None:
                              f"on {t.device}")
 
 
+def plan(lib, kernel: str, shape, dtype: torch.dtype, rows: int = 0,
+         split: int = 0):
+    """The library's :class:`Plan` of ``kernel`` (one of :data:`KERNELS`) at
+    ``shape`` [B, N, H, D] in ``dtype``; ``rows`` and ``split`` 0 for its
+    default, else that launch. None where the kernel does not take it."""
+    b, n, h, d = shape
+    out = (ctypes.c_int * 8)()
+    if lib.flash_attention_plan(KERNELS.index(kernel), b, n, h, d,
+                                int(dtype == torch.bfloat16), rows, split, out):
+        return None
+    return Plan(out[0], out[1], out[2], out[3], (out[4], out[5], out[6]), out[7])
+
+
 def _raise_on(lib, err: int, kernel: str, q: torch.Tensor) -> None:
-    """Raise the library's error of a launch, with the grid and shared
-    memory the source chose for it."""
+    """Raise the library's error of a launch, with the plan the source chose
+    for it."""
     if err != 0:
-        b, n, h, d = q.shape
-        rows = lib.flash_attention_tile_rows()
-        smem = lib.flash_attention_smem_bytes(d, KERNELS.index(kernel))
         msg = lib.flash_attention_error_string(err).decode()
         raise RuntimeError(f"flash-attention {kernel} kernel launch failed: {msg} "
-                           f"({err}); grid {(-(-n // rows), h, b)} with {smem} "
-                           "bytes of shared memory")
+                           f"({err}); {plan(lib, kernel, q.shape, q.dtype)}")
 
 
 def _entry(lib, name: str, dtype: torch.dtype):
@@ -146,14 +173,15 @@ def _launch_dkv(lib, stream, q, k, v, do, lse, di, scale: float):
     return dk, dv
 
 
-def _launch_dq(lib, stream, q, k, v, do, lse, di, scale: float):
+def _launch_dq(lib, stream, q, k, v, do, lse, out, scale: float):
     b, n, h, d = q.shape
     dq = torch.empty_like(q)
+    di = torch.empty((b, h, n), dtype=torch.float32, device=q.device)
     err = _entry(lib, "flash_bwd_dq", q.dtype)(
-        *(t.data_ptr() for t in (q, k, v, do, lse, di, dq)),
+        *(t.data_ptr() for t in (q, k, v, do, out, lse, di, dq)),
         b, n, h, d, float(scale), stream)
     _raise_on(lib, err, "dq", q)
-    return dq
+    return dq, di
 
 
 def _device(q: torch.Tensor) -> None:
@@ -197,16 +225,20 @@ def flash_attention_backward_dkv(q, k, v, do, lse, di, scale: float):
 flash_attention_backward_dkv.launches = 0
 
 
-def flash_attention_backward_dq(q, k, v, do, lse, di, scale: float):
-    """dq through the dQ kernel, from the same inputs as the dK/dV kernel."""
+def flash_attention_backward_dq(q, k, v, do, lse, out, scale: float):
+    """(dq, di) through the dQ kernel, from q, k, v, dO, the forward's
+    output ``out`` [B, N, H, D] and the rows' lse: the kernel also forms
+    di = :func:`~.attention.row_dot` (out, dO) (float32 [B, H, N]), which
+    the dK/dV kernel takes next."""
     if q.device.type == "cpu":
-        return softmax_attention_backward_rows(q, k, v, do, lse, di, scale)[0]
+        di = row_dot(out, do)
+        return softmax_attention_backward_rows(q, k, v, do, lse, di, scale)[0], di
     _device(q)
-    _check(q, k, v, do)
-    _check_rows(q, lse, di)
-    dq = _on_device(q, _launch_dq, q, k, v, do, lse, di, scale)
+    _check(q, k, v, do, out)
+    _check_rows(q, lse)
+    grads = _on_device(q, _launch_dq, q, k, v, do, lse, out, scale)
     flash_attention_backward_dq.launches += 1
-    return dq
+    return grads
 
 
 flash_attention_backward_dq.launches = 0
@@ -214,9 +246,9 @@ flash_attention_backward_dq.launches = 0
 
 class SoftmaxAttentionFunction(torch.autograd.Function):
     """Softmax attention whose forward is :func:`flash_attention_forward`
-    and whose backward is :func:`flash_attention_backward_dkv` then
-    :func:`flash_attention_backward_dq` (the stock VJP's order); it saves q,
-    k, v, the output and the row log-sum-exp."""
+    and whose backward is :func:`flash_attention_backward_dq` (which also
+    forms di) then :func:`flash_attention_backward_dkv`; it saves q, k, v,
+    the output and the row log-sum-exp."""
 
     @staticmethod
     def forward(ctx, q, k, v, scale):
@@ -230,9 +262,8 @@ class SoftmaxAttentionFunction(torch.autograd.Function):
     def backward(ctx, do):
         q, k, v, out, lse = ctx.saved_tensors
         do = do.contiguous()
-        di = row_dot(out, do)
+        dq, di = flash_attention_backward_dq(q, k, v, do, lse, out, ctx.scale)
         dk, dv = flash_attention_backward_dkv(q, k, v, do, lse, di, ctx.scale)
-        dq = flash_attention_backward_dq(q, k, v, do, lse, di, ctx.scale)
         return dq, dk, dv, None
 
 

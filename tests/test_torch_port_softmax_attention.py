@@ -142,9 +142,11 @@ def test_plain_matches_standard_attention_where_jax_does_not_tile(n):
 
 def test_wrappers_run_the_plain_versions_on_the_cpu():
     """The wrappers' CPU branch: the plain versions exactly, no launch
-    counted, no lse computed without a gradient; the autograd function's
-    gradients pass ``gradcheck`` in float64; every other device is refused
-    before any kernel is built."""
+    counted, no lse computed without a gradient; the dQ wrapper (run first,
+    on the forward's output) returns di equal to ``row_dot`` bit for bit,
+    which the dK/dV wrapper takes; the autograd function's gradients pass
+    ``gradcheck`` in float64; every other device is refused before any
+    kernel is built."""
     q, k, v, do = map(torch.from_numpy, _inputs((2, 70, 3, 32), 7))
     scale = 0.2
     counts = (fk.flash_attention_forward.launches,
@@ -155,9 +157,10 @@ def test_wrappers_run_the_plain_versions_on_the_cpu():
     assert torch.equal(out, want) and torch.equal(lse, want_lse)
     assert lse.shape == (2, 3, 70) and lse.dtype == torch.float32
     assert fk.flash_attention_forward(q, k, v, scale)[1] is None
-    di = (want * do).sum(-1).transpose(1, 2).contiguous()
+    dq, di = fk.flash_attention_backward_dq(q, k, v, do, lse, out, scale)
+    assert torch.equal(di, row_dot(want, do))
+    assert torch.equal(di, (want * do).sum(-1).transpose(1, 2).contiguous())
     dk, dv = fk.flash_attention_backward_dkv(q, k, v, do, lse, di, scale)
-    dq = fk.flash_attention_backward_dq(q, k, v, do, lse, di, scale)
     for a, b in zip((dq, dk, dv),
                     softmax_attention_backward_rows(q, k, v, do, lse, di, scale)):
         assert torch.equal(a, b)
@@ -176,14 +179,38 @@ def test_wrappers_run_the_plain_versions_on_the_cpu():
 def test_source_uses_exact_exp_and_no_atomics():
     """The source computes exp with ``expf``/``exp2f`` (``__expf`` misses
     the float32 gate), accumulates the backward with no atomics (gradients
-    bit for bit run to run), exports the C entry points the wrapper
-    declares, and builds an instance for every head dim the wrapper takes."""
+    bit for bit run to run) on the tensor cores (``mma.sync`` in bf16 and in
+    TF32, B fragments by ``ldmatrix``, staging by ``cp.async``), exports
+    every C entry point the wrapper declares, and builds an instance for
+    every head dim the wrapper takes."""
+    import re
+    import types
+
+    class Declared:
+        def __init__(self):
+            self.names = set()
+
+        def __getattr__(self, name):
+            self.names.add(name)
+            return types.SimpleNamespace()
+
     src = open(fk.SOURCE).read()
     assert "__expf(" not in src and "atomicAdd(" not in src
     assert "expf(" in src or "exp2f(" in src
+    for instruction in ("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32",
+                        "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32",
+                        "ldmatrix.sync.aligned.m8n8.x4.shared.b16",
+                        "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16",
+                        "cp.async.cg.shared.global"):
+        assert instruction in src
+    lib = Declared()
+    fk._declare(lib)
+    exported = src[src.index('extern "C" {'):]
+    for name in lib.names:
+        assert re.search(rf"\b(cudaError_t|int|const char\*) {name}\(", exported), name
     for name in ("flash_fwd", "flash_bwd_dkv", "flash_bwd_dq"):
         for suffix in ("f32", "bf16"):
-            assert f"cudaError_t {name}_{suffix}(" in src
+            assert f"{name}_{suffix}" in lib.names
     for d in fk.HEAD_DIMS:
         assert f"case {d}:" in src
 
