@@ -219,9 +219,9 @@ Phases, one JSON line each on stdout (warnings and build logs go to stderr):
 
 22. flash  -- the three flash-attention kernels (``csrc/flash_attention.cu``,
    built with the others in phase 2; the ``build`` line has each instance's
-   registers and spills, 0 spills required in the six backward instances,
-   and ``HMMA`` by kernel from ``cuobjdump -sass``, required in the
-   library): forward, dK/dV and dQ against their plain
+   registers and spills, 0 spills required in all eighteen instances, and
+   ``HMMA`` by kernel from ``cuobjdump -sass``, required in each forward
+   instance): forward, dK/dV and dQ against their plain
    versions (f32 forward 2e-5, backward 5e-4; bf16 4 bf16 ulps of each
    reference's largest magnitude, at most 2e-2, ``flash_limit``; reruns
    bit for bit; each kernel's plan from the library's
@@ -231,8 +231,8 @@ Phases, one JSON line each on stdout (warnings and build logs go to stderr):
    graph ms of each kernel, the plain versions and
    ``scaled_dot_product_attention`` (forward; forward + autograd.grad less
    the forward, both captured in CUDA graphs as the kernels are), each
-   kernel's bound (``FLASH_WORK``; the f32 backward also its 3xTF32
-   tensor-core bound); and the
+   kernel's bound (``FLASH_WORK``; in f32 also its 3xTF32 tensor-core
+   bound); and the
    forward's peak memory against the plain version's at [8, 4096, 4, 32]
    (``flash_memory``).
 23. softmax_serve -- a seeded small@256 with ``use_linear_attention=False``
@@ -2148,9 +2148,8 @@ def flash_bound(shape, dtype_name, kernel) -> dict:
     """The bound of one call (``ms``, ``by``, ``bytes``, ``flops``): its
     products at the card's rate for the inputs' type (float32 on the CUDA
     cores, bf16 on the tensor cores) against its bytes at 3.35 TB/s; for the
-    f32 backward kernels, which run their products as 3xTF32 on the tensor
-    cores, also ``tensor_ms``: the same FLOP three times over at the TF32
-    rate."""
+    f32 kernels, which run their products as 3xTF32 on the tensor cores,
+    also ``tensor_ms``: the same FLOP three times over at the TF32 rate."""
     b, n, h, d = shape
     products, tensors, rows = FLASH_WORK[kernel]
     flops = products * 2 * b * h * n * n * d
@@ -2159,27 +2158,32 @@ def flash_bound(shape, dtype_name, kernel) -> dict:
     t_bytes, t_ops = moved / HBM_BYTES_PER_S, flops / rate
     out = dict(ms=max(t_bytes, t_ops) * 1e3, by="bytes" if t_bytes >= t_ops else "operations",
                bytes=moved, flops=flops)
-    if dtype_name == "float32" and kernel != "forward":
+    if dtype_name == "float32":
         out["tensor_ms"] = max(t_bytes, 3 * flops / TF32_FLOPS_PER_S) * 1e3
     return out
 
 
 def flash_build_report(built) -> dict:
     """The flash library's ``build`` fields: registers and spills of each
-    instance (0 spills required in the six backward instances) and ``HMMA``
-    instructions by kernel from its SASS (required in the library: the
-    backward's products run on the tensor cores)."""
+    instance (0 spills required in all eighteen: six forward, twelve
+    backward) and ``HMMA`` instructions by kernel from its SASS (required
+    in each forward instance and in the library: every product runs on the
+    tensor cores)."""
     report = ptxas_report(built.log)
-    backward = {k: v for k, v in report.items() if k.startswith("flash_bwd_")}
-    require(len(backward) == 2 * 2 * 3, f"flash: ptxas reports {sorted(backward)}")
-    spilled = {k: v for k, v in backward.items() if v["spill_bytes"]}
-    require(not spilled, f"flash backward kernels spill: {spilled}")
+    flash = {k: v for k, v in report.items() if k.startswith("flash_")}
+    forward = [k for k in flash if k.startswith("flash_fwd_")]
+    require(len(forward) == 2 * 3 and len(flash) == 3 * 2 * 3,
+            f"flash: ptxas reports {sorted(flash)}")
+    spilled = {k: v for k, v in flash.items() if v["spill_bytes"]}
+    require(not spilled, f"flash kernels spill: {spilled}")
     fields = {"kernels": report}
     sass = sass_counts(built.path, ("HMMA",))
     fields["sass"] = sass
     if sass is not None:
         require(sum(v["HMMA"] for v in sass.values()) > 0,
                 f"no HMMA in the flash library's SASS: {sass}")
+        require(all(sass.get(k, {}).get("HMMA", 0) > 0 for k in forward),
+                f"a forward flash instance without HMMA: {sass}")
     return fields
 
 

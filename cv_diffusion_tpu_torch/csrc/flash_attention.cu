@@ -28,71 +28,98 @@
 // What bounds them on an H100. At mid_attn's shape [B, 1024, 4, 32] the
 // forward's two products are 4 * B * H * N^2 * D = 0.537 GFLOP an image
 // against 2.1 MB of q, k, v and out in f32 (half that in bf16): bound by
-// operations in both dtypes, as attention is at any N above ~100 at D = 32.
-// The backward does seven such products in its two kernels (dK/dV: k q^T,
-// v dO^T, P^T dO, dS^T q; dQ: q k^T, dO v^T, dS k; the dQ kernel recomputes
-// the first two rather than write [N, N] scores): 1.88 GFLOP an image, also
-// bound by operations, 1.9 us on the tensor cores in bf16 (989 TFLOP/s) and
-// 11.4 us in f32 as 3xTF32 (three TF32 products at 495 TFLOP/s each).
+// operations in both dtypes, as attention is at any N above ~100 at D = 32:
+// 0.54 us in bf16 on the tensor cores (989 TFLOP/s), 3.3 us in f32 as
+// 3xTF32 (three TF32 products at 495 TFLOP/s each). The backward does seven
+// such products in its two kernels (dK/dV: k q^T, v dO^T, P^T dO, dS^T q;
+// dQ: q k^T, dO v^T, dS k; the dQ kernel recomputes the first two rather
+// than write [N, N] scores): 1.88 GFLOP an image, 1.9 us in bf16 and 11.4 us
+// in f32 as 3xTF32. What holds them above that is latency and issue: a
+// warp's chain of mma.sync, exp2f (the SFU) and repacking per chunk, with
+// few warps an SM at batch 1.
 //
-// The forward, simple first: a grid of (N / 64 tiles) x H x B blocks of 256
-// threads; a tile is 64 rows. Operands are staged in shared memory as f32
-// (16-byte loads from device memory; rows past N are zeros), with a pitch of
-// D + 1 floats so that the micro-tile reads below fall in distinct banks. A
-// thread owns a 4 x 4 micro tile of each 64 x 64 score tile (rows 4 * rg + i,
-// columns cg + 16 * j for its row group rg and column group cg, 16 of each)
-// and a 4 x D/16 tile of the 64 x D accumulator (columns cg + 16 * j), both
-// computed with FMAs on the CUDA cores; the 16 threads of a row group are one
-// half-warp, so a row's max and sum are butterfly shuffles within it (each
-// lane ends with the same value). One block per query tile: q staged once;
-// per key tile k and v staged, the scores S = q k^T * scale (keys past N are
-// -inf), the row max m, P = exp(S - m_new) written to shared memory (rounded
-// to bf16 in the bf16 entry before P v, as the stock kernel's
-// p.astype(v.dtype); the row sum l is taken before that rounding), the
-// accumulator rescaled by exp(m_old - m_new) and P v added. At the end
-// out = acc / l and, when asked, the f32 log-sum-exp m + log(l) [B, H, N].
-// expf (not __expf) keeps the f32 forward within 2e-5 of the plain version.
-//
-// The backward, on the tensor cores. Each warp owns 16 rows of S, the M of a
-// warp-level mma.sync: keys in dK/dV, which computes S^T = k q^T and
-// dP^T = v dO^T with the keys as rows, and queries in dQ (S = q k^T,
-// dP = dO v^T). It walks the other side 16 columns (a chunk) at a time. A
-// chunk's two products leave S and dP in accumulator fragments;
-// P = exp2(S * scale * log2(e) - lse * log2(e)) and dS = (dP - di) * P * scale
-// are formed in those registers and packed straight into the A fragments of
-// the next products (dV += P^T dO and dK += dS^T q; dQ += dS k): no P or dS
-// tile in shared memory and no barrier between a chunk's halves. The dQ
-// kernel runs first: it owns the query rows, so it also forms each row's
-// di = sum(o * dO) (the stock VJP's one row reduction, which it computes in
-// XLA between its kernels) and writes it [B, H, N] for dK/dV.
+// All three kernels run on the tensor cores. Each warp owns 16 rows of S, the
+// M of a warp-level mma.sync: queries in the forward (S = q k^T) and in dQ
+// (S = q k^T, dP = dO v^T), keys in dK/dV, which computes S^T = k q^T and
+// dP^T = v dO^T with the keys as rows. It walks the other side 16 columns
+// (a chunk) at a time. A chunk's products leave S (and dP) in accumulator
+// fragments; P (and dS) are formed in those registers and packed straight
+// into the A fragments of the next products (out += P v; dV += P^T dO and
+// dK += dS^T q; dQ += dS k): no P or dS tile in shared memory and no barrier
+// between a chunk's halves.
 //   bf16: mma.sync m16n8k16, bf16 in, f32 accumulate, B fragments by ldmatrix
 //     (.trans where the product runs along the staged rows); P and dS are
 //     rounded to bf16 (cvt.rn, to nearest even) as they are packed, as the
-//     stock kernel casts them before its dots.
+//     stock kernels cast them before their dots (p.astype(v.dtype)).
 //   f32: mma.sync m16n8k8 in TF32, as 3xTF32: every operand, P and dS too,
 //     is split into big = tf32(x) and small = x - big cut to TF32, and
 //     small.big + big.small + big.big accumulate in f32, within a small
-//     factor of an f32 product (a single TF32 pass is not float32). A lane's
-//     accumulator columns (2t, 2t + 1) are not a TF32 A fragment's (t, t + 4),
-//     but the order of k within a product is free: a lane's P and dS go in as
-//     they lie, and its B fragment reads the matching rows 2t and 2t + 1 of
-//     dO or q, so no shuffle is needed.
-// Staging: the block's own rows (k, v in dK/dV; q, dO in dQ) once, then the
-// other side's tiles of 64 rows (32 in f32 at D = 128) through a ring of two
-// stages of 16-byte cp.async in the type they arrive in, so that the next
-// tile loads while this one is used; rows past N are zero-filled, and dK/dV
-// stages each query tile's lse and di beside it (+inf and 0 past N, so such
-// a query's P is 0). Staged rows are padded by 16 bytes, so the 8 rows an
-// ldmatrix reads (bf16) and a quad's scalar loads (f32) fall in distinct
-// banks. A warp keeps its own rows' A fragments in registers where they fit
-// (bf16 at D <= 64, f32 at D = 32), else reads them a step at a time.
-// The plan (flash_attention_plan): rows a block (16 to 128, a warp each 16
-// rows) and split (1, 2 or 4 warps on the same 16 rows, each taking every
-// split-th chunk), chosen to fill an H100's 132 SMs: the most rows that
-// still give 128 blocks (fewer, larger blocks read the other side from L2
-// fewer times), then the least split that gives eight warps an SM. A split
-// block sums its warps' partial dK, dV or dQ through shared memory in warp
-// order. (scripts/torch_port_flash_ab.py --sweep times every plan.)
+//     factor of an f32 product (a single TF32 pass is not float32). A chunk's
+//     products into a long-running accumulator are summed apart, from zero,
+//     then added in f32. A lane's accumulator columns (2t, 2t + 1) are not a
+//     TF32 A fragment's (t, t + 4), but the order of k within a product is
+//     free: a lane's P and dS go in as they lie, and its B fragment reads the
+//     matching rows 2t and 2t + 1 of v, dO or q, so no shuffle is needed.
+//
+// The forward (the stock `_flash_attention_kernel_single_batch`, :342-481).
+// Its first design ran both products on the CUDA cores (a thread's 4 x 4
+// micro tile of FMAs), staged bf16 widened to f32, passed P through shared
+// memory with three barriers a tile and ran one 64-row block a query tile
+// (64 blocks on 132 SMs at mid_attn, batch 1): bound by issue, not by the
+// card. Here a warp holds its 16 query rows' A fragments and, per chunk of
+// 16 keys: S = q k^T (keys past N -inf, masked in the last chunk only); the
+// chunk's max of the raw scores (a row's max over its quad by two shuffles),
+// scaled once into the running m2 = max * scale * log2(e), so that P =
+// exp2(fma(S, scale * log2(e), -m2)) takes one fused multiply-add and m2 is
+// the scaled scores' max (scale > 0, checked at launch); where a row's m2
+// moved, alpha = exp2(m2_old - m2_new) rescales l and the row's accumulator
+// (a warp vote skips the rescale where no row's max moved: every alpha
+// would be 1); each lane sums its own columns of the unrounded f32 P into
+// its share of the row sum l (the quad's four shares are added once, at the
+// end); acc += P v, P rounded to bf16 on its way in, in the bf16 entry. A
+// max a chunk beat a max over a warp's chunks of a staged tile (S of the
+// whole tile in registers) in five of six timed cases, by up to 17 % (4 %
+// slower in bf16 at mid_attn, batch 8).
+// At the end out = acc / l and, when asked, the f32 log-sum-exp [B, H, N]
+// in natural-log units, lse = m2 * ln(2) + log(l) (m2 converted once),
+// which the backward reads and multiplies by log2(e). exp2f, not __expf:
+// its denormal-safe form (a compare and two predicated multiplies around
+// each MUFU.EX2) is a quarter of the chunk's instructions, and with the
+// rows' max, shuffles and sums it, not the tensor cores, bounds the forward
+// at D = 32.
+//
+// The backward. The dQ kernel runs first: it owns the query rows, so it
+// also forms each row's di = sum(o * dO) (the stock VJP's one row
+// reduction, which it computes in XLA between its kernels) and writes it
+// [B, H, N] for dK/dV. Each forms P = exp2(S * scale * log2(e) -
+// lse * log2(e)) and dS = (dP - di) * P * scale.
+//
+// Staging: the block's own rows (q in the forward; k, v in dK/dV; q, dO in
+// dQ) once, then the other side's tiles through a ring of two stages of
+// 16-byte cp.async in the type they arrive in, so that the next tile loads
+// while this one is used; rows past N are zero-filled, and dK/dV stages each
+// query tile's lse and di beside it (+inf and 0 past N, so such a query's P
+// is 0). The forward stages 128 keys a tile (64 in f32 at D = 128), waits
+// for a tile and then issues the next one's copies after its one barrier a
+// tile (every warp is past the tile before it); the backward stages 64 rows
+// (32 in f32 at D = 128), issues first and takes a second barrier at the
+// tile's end. Staged rows are padded by 16 bytes, so the 8 rows an ldmatrix
+// reads (bf16) and a quad's scalar loads (f32) fall in distinct banks. A
+// warp keeps its own rows' A fragments in registers where they fit (bf16 at
+// D <= 64, f32 at D = 32), else reads them a step at a time.
+// The plan (flash_attention_plan), one rule for all three kernels: rows a
+// block (16 to 128, a warp each 16 rows) and split (1, 2 or 4 warps on the
+// same 16 rows, each taking every split-th chunk of a tile), chosen to fill
+// an H100's 132 SMs: the most rows that still give 128 blocks (fewer, larger
+// blocks read the other side from L2 fewer times), then the least split
+// that gives eight warps an SM. A split block sums its warps' partial dK, dV
+// or dQ through shared memory in warp order; in the forward each part keeps
+// its own (m2, l, acc) and part 0 merges them in warp order: m2 = max m2_p,
+// l = sum l_p 2^(m2_p - m2), acc = sum acc_p 2^(m2_p - m2). A part that saw
+// no key (N below split x 16 columns of a tile) has m2_p = -inf, l_p = 0
+// and acc_p = 0 and adds exactly 0: part 0 always sees key 0, so m2 is
+// finite and no -inf - -inf arises. (scripts/torch_port_flash_ab.py --sweep
+// times every plan.)
 //
 // No atomics and a fixed order of every sum (each mma's, each chunk's, each
 // split's), so reruns are bit-identical; no scratch in device memory: a
@@ -105,219 +132,22 @@
 
 namespace {
 
-constexpr int kTile = 64;              // rows of a query or key tile
-constexpr int kThreads = 256;          // 16 row groups x 16 column groups
-constexpr int kGroups = 16;
-constexpr int kRows = kTile / kGroups;  // rows of a thread's micro tile (4)
-constexpr int kCols = kTile / kGroups;  // score columns of a thread (4)
-constexpr int kSPitch = kTile + 1;      // floats a row of a staged score tile
-
-template <int D>
-__host__ __device__ constexpr int pitch() { return D + 1; }
-
-template <int D>
-__host__ __device__ constexpr int staged_floats() { return kTile * pitch<D>(); }
-
-// Shared memory of the forward, in floats.
-template <int D>
-constexpr int fwd_floats() { return 3 * staged_floats<D>() + kTile * kSPitch; }
-
 __device__ __forceinline__ float to_float(float x) { return x; }
 __device__ __forceinline__ float to_float(__nv_bfloat16 x) { return __bfloat162float(x); }
-
-template <typename T>
-__device__ __forceinline__ T from_float(float x);
-template <>
-__device__ __forceinline__ float from_float<float>(float x) { return x; }
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_float<__nv_bfloat16>(float x) {
-  return __float2bfloat16_rn(x);
-}
-
-// x rounded to T and kept as f32: the stock kernel's cast before a product.
-template <typename T>
-__device__ __forceinline__ float round_to(float x) { return to_float(from_float<T>(x)); }
-
-// Max and sum over the 16 lanes of a half-warp (one row group).
-__device__ __forceinline__ float row_max(float x) {
-#pragma unroll
-  for (int o = 1; o < kGroups; o <<= 1) x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, o));
-  return x;
-}
-
-__device__ __forceinline__ float row_sum(float x) {
-#pragma unroll
-  for (int o = 1; o < kGroups; o <<= 1) x += __shfl_xor_sync(0xffffffffu, x, o);
-  return x;
-}
 
 __device__ __forceinline__ long long offset(int b, int n, int h, int N, int H, int D) {
   return ((static_cast<long long>(b) * N + n) * H + h) * D;
 }
 
-// Stage rows [row0, row0 + kTile) of head h of batch element b of x
-// [B, N, H, D] in shared memory as f32 with pitch D + 1; rows past N are 0.
-template <typename T, int D>
-__device__ __forceinline__ void stage(float* dst, const T* __restrict__ x, int b, int h,
-                                      int row0, int N, int H) {
-  constexpr int E = 16 / static_cast<int>(sizeof(T));  // elements a 16-byte vector
-  constexpr int V = D / E;                              // vectors a row
-  for (int i = threadIdx.x; i < kTile * V; i += kThreads) {
-    const int r = i / V, c = (i % V) * E;
-    const int n = row0 + r;
-    float* out = dst + r * pitch<D>() + c;
-    if (n < N) {
-      const uint4 raw = *reinterpret_cast<const uint4*>(x + offset(b, n, h, N, H, D) + c);
-      const T* e = reinterpret_cast<const T*>(&raw);
-#pragma unroll
-      for (int j = 0; j < E; ++j) out[j] = to_float(e[j]);
-    } else {
-#pragma unroll
-      for (int j = 0; j < E; ++j) out[j] = 0.0f;
-    }
-  }
-}
-
-// s[i][j] = a[4 rg + i] . b[cg + 16 j] over D, both staged with pitch D + 1.
-template <int D>
-__device__ __forceinline__ void dot_tile(float (&s)[kRows][kCols], const float* a, const float* b,
-                                         int rg, int cg) {
-#pragma unroll
-  for (int i = 0; i < kRows; ++i)
-#pragma unroll
-    for (int j = 0; j < kCols; ++j) s[i][j] = 0.0f;
-#pragma unroll 8
-  for (int d = 0; d < D; ++d) {
-    float av[kRows], bv[kCols];
-#pragma unroll
-    for (int i = 0; i < kRows; ++i) av[i] = a[(kRows * rg + i) * pitch<D>() + d];
-#pragma unroll
-    for (int j = 0; j < kCols; ++j) bv[j] = b[(cg + kGroups * j) * pitch<D>() + d];
-#pragma unroll
-    for (int i = 0; i < kRows; ++i)
-#pragma unroll
-      for (int j = 0; j < kCols; ++j) s[i][j] = fmaf(av[i], bv[j], s[i][j]);
-  }
-}
-
-// acc[i][c] += sum_j p[4 rg + i][j] x[j][cg + 16 c] over the kTile staged
-// rows of x (p a staged score tile, pitch kSPitch).
-template <int D>
-__device__ __forceinline__ void accumulate(float (&acc)[kRows][D / kGroups], const float* p,
-                                           const float* x, int rg, int cg) {
-#pragma unroll 4
-  for (int j = 0; j < kTile; ++j) {
-    float w[kRows], xv[D / kGroups];
-#pragma unroll
-    for (int i = 0; i < kRows; ++i)
-      w[i] = p[(kRows * rg + i) * kSPitch + j];
-#pragma unroll
-    for (int c = 0; c < D / kGroups; ++c) xv[c] = x[j * pitch<D>() + cg + kGroups * c];
-#pragma unroll
-    for (int i = 0; i < kRows; ++i)
-#pragma unroll
-      for (int c = 0; c < D / kGroups; ++c) acc[i][c] = fmaf(w[i], xv[c], acc[i][c]);
-  }
-}
-
-template <int D>
-__device__ __forceinline__ void zero(float (&acc)[kRows][D / kGroups]) {
-#pragma unroll
-  for (int i = 0; i < kRows; ++i)
-#pragma unroll
-    for (int c = 0; c < D / kGroups; ++c) acc[i][c] = 0.0f;
-}
-
-// Rows [row0 + 4 rg, row0 + 4 rg + 4) of y, the thread's columns, from acc.
-template <typename T, int D>
-__device__ __forceinline__ void store(T* __restrict__ y, const float (&acc)[kRows][D / kGroups],
-                                      int b, int h, int row0, int N, int H, int rg, int cg) {
-#pragma unroll
-  for (int i = 0; i < kRows; ++i) {
-    const int n = row0 + kRows * rg + i;
-    if (n >= N) continue;
-    T* row = y + offset(b, n, h, N, H, D);
-#pragma unroll
-    for (int c = 0; c < D / kGroups; ++c) row[cg + kGroups * c] = from_float<T>(acc[i][c]);
-  }
-}
-
-template <typename T, int D>
-__global__ void __launch_bounds__(kThreads)
-    flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-                     T* __restrict__ out, float* __restrict__ lse, int N, int H, float scale) {
-  extern __shared__ float smem[];
-  float* sq = smem;
-  float* sk = sq + staged_floats<D>();
-  float* sv = sk + staged_floats<D>();
-  float* sp = sv + staged_floats<D>();
-  const int q0 = blockIdx.x * kTile, h = blockIdx.y, b = blockIdx.z;
-  const int rg = threadIdx.x / kGroups, cg = threadIdx.x % kGroups;
-
-  stage<T, D>(sq, q, b, h, q0, N, H);
-  float m[kRows], l[kRows], acc[kRows][D / kGroups];
-#pragma unroll
-  for (int i = 0; i < kRows; ++i) {
-    m[i] = -INFINITY;
-    l[i] = 0.0f;
-  }
-  zero<D>(acc);
-
-  for (int k0 = 0; k0 < N; k0 += kTile) {
-    __syncthreads();  // every thread is done with the last tile's k, v and P
-    stage<T, D>(sk, k, b, h, k0, N, H);
-    stage<T, D>(sv, v, b, h, k0, N, H);
-    __syncthreads();
-    float s[kRows][kCols];
-    dot_tile<D>(s, sq, sk, rg, cg);
-#pragma unroll
-    for (int i = 0; i < kRows; ++i) {
-      float mx = -INFINITY;
-#pragma unroll
-      for (int j = 0; j < kCols; ++j) {
-        s[i][j] = k0 + cg + kGroups * j < N ? s[i][j] * scale : -INFINITY;
-        mx = fmaxf(mx, s[i][j]);
-      }
-      const float m_new = fmaxf(m[i], row_max(mx));  // finite: a tile has a key
-      const float alpha = expf(m[i] - m_new);        // 0 on the first tile
-      float sum = 0.0f;
-#pragma unroll
-      for (int j = 0; j < kCols; ++j) {
-        const float p = expf(s[i][j] - m_new);
-        sum += p;
-        sp[(kRows * rg + i) * kSPitch + cg + kGroups * j] = round_to<T>(p);
-      }
-      l[i] = alpha * l[i] + row_sum(sum);
-      m[i] = m_new;
-#pragma unroll
-      for (int c = 0; c < D / kGroups; ++c) acc[i][c] *= alpha;
-    }
-    __syncthreads();
-    accumulate<D>(acc, sp, sv, rg, cg);
-  }
-
-#pragma unroll
-  for (int i = 0; i < kRows; ++i) {
-#pragma unroll
-    for (int c = 0; c < D / kGroups; ++c) acc[i][c] /= l[i];
-    const int n = q0 + kRows * rg + i;
-    if (lse != nullptr && cg == 0 && n < N)
-      lse[(static_cast<long long>(b) * H + h) * N + n] = m[i] + logf(l[i]);
-  }
-  store<T, D>(out, acc, b, h, q0, N, H, rg, cg);
-}
-
-// ---------------------------------------------------------------------------
-// The backward on the tensor cores.
-
 constexpr int kWarpRows = 16;    // rows of S a warp owns: mma's M
 constexpr int kChunk = 16;       // columns of S a warp forms at a time
 constexpr int kMaxWarps = 8;
-constexpr int kBwdThreads = 32 * kMaxWarps;  // with one block an SM: up to 255 registers
+constexpr int kThreads = 32 * kMaxWarps;  // with one block an SM: up to 255 registers
 constexpr int kSMs = 132;        // an H100 SXM's
 constexpr int kMinBlocks = 128;  // the plan's least grid, where N allows
 constexpr int kSmemMax = 232448;  // shared memory a block may use on sm_90
 constexpr float kLog2e = 1.4426950408889634f;
+constexpr float kLn2 = 0.6931471805599453f;
 
 // Elements of a staged row: D and 16 bytes of pad.
 template <typename T, int D>
@@ -326,6 +156,10 @@ __host__ __device__ constexpr int bpitch() { return D + 16 / static_cast<int>(si
 // Rows of a staged tile of the other side (queries in dK/dV, keys in dQ).
 template <typename T, int D>
 __host__ __device__ constexpr int bcols() { return sizeof(T) == 4 && D == 128 ? 32 : 64; }
+
+// Rows of a staged key tile of the forward.
+template <typename T, int D>
+__host__ __device__ constexpr int fcols() { return sizeof(T) == 4 && D == 128 ? 64 : 128; }
 
 // Whether a warp keeps the A fragments of its own rows in registers.
 template <typename T, int D>
@@ -337,7 +171,7 @@ template <typename T> struct Mma;
 template <> struct Mma<__nv_bfloat16> { static constexpr int K = 16, A = 4, B = 2; };
 template <> struct Mma<float> { static constexpr int K = 8, A = 8, B = 4; };
 
-// Inline PTX: every instruction the backward uses beyond plain C++.
+// Inline PTX: every instruction the kernels use beyond plain C++.
 
 // Two floats rounded to bf16 (to nearest even) and packed, lo in the low half.
 __device__ __forceinline__ uint32_t bf16x2_rn(float lo, float hi) {
@@ -648,10 +482,172 @@ __device__ __forceinline__ void store_frags(T* __restrict__ y, const float (&acc
 template <int D>
 __host__ __device__ constexpr int slot_floats(int accs) { return accs * 16 * D; }
 
+// Floats of a forward part's slot for the split merge: its accumulator, then
+// its lanes' m2 and l of rows g and g + 8.
+template <int D>
+__host__ __device__ constexpr int fwd_slot_floats() { return slot_floats<D>(1) + 4 * 32; }
+
+// The forward: one block per `rows` queries (blockDim.x / 32 / split row
+// groups of 16), the keys in tiles of fcols. Lane 4g + t of a warp keeps,
+// for its rows g and g + 8, m2 = (the running max of the raw scores) *
+// scale * log2(e) (scale > 0) and its share of l.
+template <typename T, int D>
+__global__ void __launch_bounds__(kThreads, 1)
+    flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
+                     T* __restrict__ out, float* __restrict__ lse, int N, int H, float scale,
+                     int split) {
+  constexpr int P = bpitch<T, D>(), BC = fcols<T, D>();
+  extern __shared__ float smem[];
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int groups = blockDim.x / 32 / split, rows = kWarpRows * groups;
+  const int rg = warp / split, part = warp % split;
+  const int q0 = blockIdx.x * rows, h = blockIdx.y, b = blockIdx.z;
+  T* sq = reinterpret_cast<T*>(smem);
+  T* sk = sq + rows * P;  // [stage][k, v][BC rows]
+
+  const int tiles = (N + BC - 1) / BC;
+  stage_async<T, D>(sq, q, b, h, q0, rows, N, H);
+  stage_async<T, D>(sk, k, b, h, 0, BC, N, H);
+  stage_async<T, D>(sk + BC * P, v, b, h, 0, BC, N, H);
+  cp_async_commit();
+
+  RowFrags<T, D> fq;
+  float acc[D / 8][4];
+  zero_frags<D>(acc);
+  float m2[2] = {-INFINITY, -INFINITY}, l[2] = {0.0f, 0.0f};
+  const float c = scale * kLog2e;
+  const int t4 = lane & 3;
+  for (int t = 0; t < tiles; ++t) {
+    const int k0 = t * BC, cur = t & 1;
+    cp_async_wait<0>();
+    __syncthreads();  // this tile is in, and every warp is done with the other stage
+    if (t == 0) fq.load(sq, kWarpRows * rg, lane);
+    if (t + 1 < tiles) {
+      T* nk = sk + 2 * BC * P * (cur ^ 1);
+      stage_async<T, D>(nk, k, b, h, k0 + BC, BC, N, H);
+      stage_async<T, D>(nk + BC * P, v, b, h, k0 + BC, BC, N, H);
+      cp_async_commit();
+    }
+    const T* tk = sk + 2 * BC * P * cur;
+    const T* tv = tk + BC * P;
+    for (int j = kChunk * part; j < BC && k0 + j < N; j += kChunk * split) {
+      // rows: this warp's queries; columns: keys j .. j + 15 of the tile
+      float s[2][4];
+      scores<T, D>(s, fq, tk, j, lane);
+      if (k0 + j + kChunk > N) {  // the last chunk: its keys past N are -inf
+#pragma unroll
+        for (int nb = 0; nb < 2; ++nb)
+#pragma unroll
+          for (int i = 0; i < 4; ++i)
+            if (k0 + j + 8 * nb + 2 * t4 + (i & 1) >= N) s[nb][i] = -INFINITY;
+      }
+      float mx[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+      for (int nb = 0; nb < 2; ++nb)
+#pragma unroll
+        for (int i = 0; i < 4; ++i) mx[i >> 1] = fmaxf(mx[i >> 1], s[nb][i]);
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {  // finite: the chunk has a key
+        mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+        mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+        mx[r] = fmaxf(m2[r], mx[r] * c);  // the new m2
+      }
+      // alpha = 2^(m2_old - m2_new) rescales l and acc (0 on the first chunk);
+      // where no row of the warp has a new max every alpha is 1: skipped
+      if (__any_sync(0xffffffffu, mx[0] != m2[0] || mx[1] != m2[1])) {
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+          const float alpha = exp2f(m2[r] - mx[r]);
+          l[r] *= alpha;
+#pragma unroll
+          for (int a = 0; a < D / 8; ++a) {
+            acc[a][2 * r] *= alpha;
+            acc[a][2 * r + 1] *= alpha;
+          }
+          m2[r] = mx[r];
+        }
+      }
+#pragma unroll
+      for (int nb = 0; nb < 2; ++nb)
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          s[nb][i] = exp2f(fmaf(s[nb][i], c, -m2[i >> 1]));
+          l[i >> 1] += s[nb][i];
+        }
+      accumulate_chunk<T, D>(acc, s, tv, j, lane);  // out += P v
+    }
+  }
+  if (split > 1) {
+    __syncthreads();  // everything staged has been used
+    if (part > 0) {
+      float* slot = smem + ((part - 1) * groups + rg) * fwd_slot_floats<D>();
+      put_frags<D>(slot, acc, lane);
+      float* ml = slot + slot_floats<D>(1);
+      ml[lane] = m2[0];
+      ml[32 + lane] = m2[1];
+      ml[64 + lane] = l[0];
+      ml[96 + lane] = l[1];
+    }
+    __syncthreads();
+    if (part == 0) {  // m2 = max m2_p; l, acc = sum over p of l_p, acc_p * 2^(m2_p - m2)
+      float mt[2] = {m2[0], m2[1]};
+      for (int p = 1; p < split; ++p) {
+        const float* ml = smem + ((p - 1) * groups + rg) * fwd_slot_floats<D>() + slot_floats<D>(1);
+        mt[0] = fmaxf(mt[0], ml[lane]);
+        mt[1] = fmaxf(mt[1], ml[32 + lane]);
+      }
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const float f = exp2f(m2[r] - mt[r]);
+        l[r] *= f;
+#pragma unroll
+        for (int a = 0; a < D / 8; ++a) {
+          acc[a][2 * r] *= f;
+          acc[a][2 * r + 1] *= f;
+        }
+        m2[r] = mt[r];
+      }
+      // a part that saw no key kept m2 = -inf (its max never moved), l = 0 and
+      // acc = 0: its factor 2^-inf = 0 adds exactly 0 (part 0 saw key 0, so
+      // the max is finite and no -inf - -inf arises)
+      for (int p = 1; p < split; ++p) {
+        const float* from = smem + ((p - 1) * groups + rg) * fwd_slot_floats<D>();
+        const float* ml = from + slot_floats<D>(1);
+        const float f[2] = {exp2f(ml[lane] - m2[0]), exp2f(ml[32 + lane] - m2[1])};
+        l[0] = fmaf(ml[64 + lane], f[0], l[0]);
+        l[1] = fmaf(ml[96 + lane], f[1], l[1]);
+#pragma unroll
+        for (int a = 0; a < D / 8; ++a)
+#pragma unroll
+          for (int i = 0; i < 4; ++i)
+            acc[a][i] = fmaf(from[(4 * a + i) * 32 + lane], f[i >> 1], acc[a][i]);
+      }
+    }
+  }
+  if (part == 0) {
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {  // the quad's four shares of l
+      l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
+      l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
+    }
+#pragma unroll
+    for (int a = 0; a < D / 8; ++a)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) acc[a][i] /= l[i >> 1];
+    store_frags<T, D>(out, acc, b, h, q0 + kWarpRows * rg, N, H, lane);
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int n = q0 + kWarpRows * rg + (lane >> 2) + 8 * r;
+      if (lse != nullptr && t4 == 0 && n < N)
+        lse[(static_cast<long long>(b) * H + h) * N + n] = m2[r] * kLn2 + logf(l[r]);
+    }
+  }
+}
+
 // dK/dV: one block per `rows` keys (blockDim.x / 32 / split row groups of
 // 16), the queries in tiles of bcols.
 template <typename T, int D>
-__global__ void __launch_bounds__(kBwdThreads, 1)
+__global__ void __launch_bounds__(kThreads, 1)
     flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
                          const T* __restrict__ v, const T* __restrict__ dout,
                          const float* __restrict__ lse, const float* __restrict__ di,
@@ -767,7 +763,7 @@ __device__ __forceinline__ float out_dot(const T* __restrict__ o, const T* __res
 // dQ: one block per `rows` queries, the keys in tiles of bcols; it also
 // forms di of its rows from o and dO and writes it for dK/dV.
 template <typename T, int D>
-__global__ void __launch_bounds__(kBwdThreads, 1)
+__global__ void __launch_bounds__(kThreads, 1)
     flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
                         const T* __restrict__ v, const T* __restrict__ dout,
                         const T* __restrict__ o, const float* __restrict__ lse,
@@ -864,8 +860,6 @@ cudaError_t allow_smem(int bytes) {
   return err;
 }
 
-dim3 grid(int B, int N, int H) { return dim3((N + kTile - 1) / kTile, H, B); }
-
 bool misaligned(const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 != 0; }
 
 // A launch: rows of the block's own side, warps on each 16 of them (split),
@@ -879,12 +873,14 @@ struct Plan {
 enum Kernel { kForward = 0, kDkv = 1, kDq = 2 };
 
 template <typename T, int D>
-int bwd_smem(int kernel, int rows, int split) {
-  constexpr int P = bpitch<T, D>(), BC = bcols<T, D>();
-  const int staged = (2 * rows + 4 * BC) * P * static_cast<int>(sizeof(T)) +
+int plan_smem(int kernel, int rows, int split) {
+  constexpr int P = bpitch<T, D>();
+  const bool fwd = kernel == kForward;
+  const int BC = fwd ? fcols<T, D>() : bcols<T, D>();
+  const int staged = ((fwd ? 1 : 2) * rows + 4 * BC) * P * static_cast<int>(sizeof(T)) +
                      (kernel == kDkv ? 4 * BC * 4 : 0);
-  const int reduced = (split - 1) * (rows / kWarpRows) *
-                      slot_floats<D>(kernel == kDkv ? 2 : 1) * 4;
+  const int slot = fwd ? fwd_slot_floats<D>() : slot_floats<D>(kernel == kDkv ? 2 : 1);
+  const int reduced = (split - 1) * (rows / kWarpRows) * slot * 4;
   return staged > reduced ? staged : reduced;
 }
 
@@ -894,11 +890,6 @@ int bwd_smem(int kernel, int rows, int split) {
 // memory than a block has).
 template <typename T, int D>
 bool plan_d(int kernel, int B, int N, int H, int rows, int split, Plan* p) {
-  if (kernel == kForward) {
-    if ((rows != 0 && rows != kTile) || (split != 0 && split != 1)) return false;
-    *p = {kTile, 1, kTile, kThreads / 32, 4 * fwd_floats<D>(), grid(B, N, H)};
-    return true;
-  }
   const auto blocks = [&](int r) { return static_cast<long long>((N + r - 1) / r) * H * B; };
   if (rows == 0) {  // the most rows that still give a block to nearly every SM
     rows = kWarpRows;
@@ -909,10 +900,11 @@ bool plan_d(int kernel, int B, int N, int H, int rows, int split, Plan* p) {
       }
     }
   }
-  const int groups = rows / kWarpRows, chunks = bcols<T, D>() / kChunk;
+  const int cols = kernel == kForward ? fcols<T, D>() : bcols<T, D>();
+  const int groups = rows / kWarpRows, chunks = cols / kChunk;
   if (split == 0) {  // then the least split that gives eight warps an SM
     split = 1;
-    while (split * 2 * groups <= kMaxWarps && split * 2 <= chunks &&
+    while (split < 4 && split * 2 * groups <= kMaxWarps && split * 2 <= chunks &&
            blocks(rows) * groups * split < 8 * kSMs) {
       split *= 2;
     }
@@ -922,10 +914,9 @@ bool plan_d(int kernel, int B, int N, int H, int rows, int split, Plan* p) {
       groups * split > kMaxWarps) {
     return false;
   }
-  const int smem = bwd_smem<T, D>(kernel, rows, split);
+  const int smem = plan_smem<T, D>(kernel, rows, split);
   if (smem > kSmemMax) return false;
-  *p = {rows, split, bcols<T, D>(), groups * split, smem,
-        dim3((N + rows - 1) / rows, H, B)};
+  *p = {rows, split, cols, groups * split, smem, dim3((N + rows - 1) / rows, H, B)};
   return true;
 }
 
@@ -939,15 +930,15 @@ bool plan_t(int kernel, int B, int N, int H, int D, int rows, int split, Plan* p
   }
 }
 
+// One forward launch under plan p.
 template <typename T, int D>
-cudaError_t forward_d(const void* q, const void* k, const void* v, void* out, float* lse, int B,
-                      int N, int H, float scale, cudaStream_t stream) {
-  constexpr int smem = 4 * fwd_floats<D>();
-  const cudaError_t err = allow_smem<flash_fwd_kernel<T, D>>(smem);
+cudaError_t forward_d(const Plan& p, const void* q, const void* k, const void* v, void* out,
+                      float* lse, int N, int H, float scale, cudaStream_t stream) {
+  const cudaError_t err = allow_smem<flash_fwd_kernel<T, D>>(p.smem);
   if (err != cudaSuccess) return err;
-  flash_fwd_kernel<T, D><<<grid(B, N, H), kThreads, smem, stream>>>(
+  flash_fwd_kernel<T, D><<<p.grid, 32 * p.warps, p.smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<T*>(out), lse, N, H, scale);
+      static_cast<T*>(out), lse, N, H, scale, p.split);
   return cudaGetLastError();
 }
 
@@ -978,17 +969,20 @@ cudaError_t backward_d(int kernel, const Plan& p, const void* q, const void* k, 
 }
 
 template <typename T>
-cudaError_t forward(const void* q, const void* k, const void* v, void* out, void* lse, int B,
-                    int N, int H, int D, float scale, void* stream) {
+cudaError_t forward(int rows, int split, const void* q, const void* k, const void* v, void* out,
+                    void* lse, int B, int N, int H, int D, float scale, void* stream) {
   if (static_cast<long long>(B) * N * H == 0) return cudaSuccess;
   if (misaligned(q) || misaligned(k) || misaligned(v) || misaligned(out))
     return cudaErrorMisalignedAddress;
+  Plan p;
+  if (!(scale > 0.0f) || !plan_t<T>(kForward, B, N, H, D, rows, split, &p))
+    return cudaErrorInvalidValue;
   auto* l = static_cast<float*>(lse);
   auto st = static_cast<cudaStream_t>(stream);
   switch (D) {
-    case 32: return forward_d<T, 32>(q, k, v, out, l, B, N, H, scale, st);
-    case 64: return forward_d<T, 64>(q, k, v, out, l, B, N, H, scale, st);
-    case 128: return forward_d<T, 128>(q, k, v, out, l, B, N, H, scale, st);
+    case 32: return forward_d<T, 32>(p, q, k, v, out, l, N, H, scale, st);
+    case 64: return forward_d<T, 64>(p, q, k, v, out, l, N, H, scale, st);
+    case 128: return forward_d<T, 128>(p, q, k, v, out, l, N, H, scale, st);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -1027,15 +1021,15 @@ cudaError_t backward(int kernel, int rows, int split, const void* q, const void*
 extern "C" {
 
 // q, k, v, out [B, N, H, D]; lse [B, H, N] f32, or null when no gradient is
-// wanted.
+// wanted; scale > 0.
 cudaError_t flash_fwd_f32(const void* q, const void* k, const void* v, void* out, void* lse,
                           int B, int N, int H, int D, float scale, void* stream) {
-  return forward<float>(q, k, v, out, lse, B, N, H, D, scale, stream);
+  return forward<float>(0, 0, q, k, v, out, lse, B, N, H, D, scale, stream);
 }
 
 cudaError_t flash_fwd_bf16(const void* q, const void* k, const void* v, void* out, void* lse,
                            int B, int N, int H, int D, float scale, void* stream) {
-  return forward<__nv_bfloat16>(q, k, v, out, lse, B, N, H, D, scale, stream);
+  return forward<__nv_bfloat16>(0, 0, q, k, v, out, lse, B, N, H, D, scale, stream);
 }
 
 // dout, dk, dv [B, N, H, D]; lse and di = sum(out * dout, -1) [B, H, N] f32.
@@ -1067,6 +1061,15 @@ cudaError_t flash_bwd_dq_bf16(const void* q, const void* k, const void* v, const
                               int H, int D, float scale, void* stream) {
   return backward<__nv_bfloat16>(kDq, 0, 0, q, k, v, dout, out, lse, di, dq, nullptr, B, N, H, D,
                                  scale, stream);
+}
+
+// A forward launch under a given plan (rows = split = 0 the default): what
+// the plan's choice is timed from.
+cudaError_t flash_fwd_planned(int bf16, int rows, int split, const void* q, const void* k,
+                              const void* v, void* out, void* lse, int B, int N, int H, int D,
+                              float scale, void* stream) {
+  return bf16 ? forward<__nv_bfloat16>(rows, split, q, k, v, out, lse, B, N, H, D, scale, stream)
+              : forward<float>(rows, split, q, k, v, out, lse, B, N, H, D, scale, stream);
 }
 
 // A backward launch under a given plan (kernel 1 dK/dV into out0 and out1,

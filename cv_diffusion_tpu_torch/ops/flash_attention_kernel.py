@@ -20,9 +20,12 @@ pairs them as one ``torch.autograd.Function`` that saves q, k, v, the
 output and the row log-sum-exp (never the [N, N] probabilities), as the
 stock ``custom_vjp`` saves its residuals. Its backward runs the dQ kernel
 first, which also forms the rows' di = Σ o ∘ dO (the stock VJP's one row
-reduction between its kernels), then the dK/dV kernel on that di. Each
-kernel's launch (rows a block, warps, grid, shared memory) is planned by
-the library itself: :func:`plan`.
+reduction between its kernels), then the dK/dV kernel on that di. All
+three run on the tensor cores. Each kernel's launch (rows a block, warps on
+each 16 rows, grid, shared memory) is planned by the library itself, by one
+rule for the forward and the backward: :func:`plan`; the library's
+``flash_fwd_planned`` and ``flash_bwd_planned`` launch under any plan it
+takes (``scripts/torch_port_flash_ab.py --sweep`` times them).
 """
 
 from __future__ import annotations
@@ -43,9 +46,11 @@ KERNELS = ("forward", "dkv", "dq")   # the library's kernel index in its plan qu
 
 class Plan(NamedTuple):
     """One kernel's launch as the library plans it (``flash_attention_plan``
-    in the source, where the layout lives): rows of its own side a block,
-    warps on each 16 of them (``split``), rows of a staged tile of the
-    other side, warps a block, the grid and the dynamic shared memory."""
+    in the source, where the layout lives), the forward's as the
+    backward's: rows of its own side a block (queries in the forward and
+    dQ, keys in dK/dV), warps on each 16 of them (``split``), rows of a
+    staged tile of the other side, warps a block, the grid and the dynamic
+    shared memory."""
     rows: int
     split: int
     cols: int
@@ -74,6 +79,8 @@ def _declare(lib) -> None:
         fn = getattr(lib, name)
         fn.argtypes = [ptr] * 8 + [i32] * 4 + [f32, ptr]
         fn.restype = i32
+    lib.flash_fwd_planned.argtypes = [i32] * 3 + [ptr] * 5 + [i32] * 4 + [f32, ptr]
+    lib.flash_fwd_planned.restype = i32
     lib.flash_bwd_planned.argtypes = [i32] * 4 + [ptr] * 9 + [i32] * 4 + [f32, ptr]
     lib.flash_bwd_planned.restype = i32
     lib.flash_attention_plan.argtypes = [i32] * 8 + [ctypes.POINTER(ctypes.c_int)]
@@ -200,6 +207,8 @@ def flash_attention_forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         return out, (lse if with_lse else None)
     _device(q)
     _check(q, k, v)
+    if not scale > 0:
+        raise ValueError(f"the forward kernel takes scale > 0; got {scale}")
     res = _on_device(q, _launch_forward, q, k, v, scale, with_lse)
     flash_attention_forward.launches += 1
     return res
