@@ -254,6 +254,22 @@ Phases, one JSON line each on stdout (warnings and build logs go to stderr):
    eager batch-8 sampler's peak beside the concat path's, and one train
    step's loss and gradients against the concat model's (the train phase's
    step bounds).
+26. cli    -- the CLIs a user runs, each through its ``main(argv)`` in this
+   process, with the kernels' launch counts set to 0 just before each:
+   ``make_synthetic_dataset`` (8 + 15 pairs at 256², its val split equal to
+   the eval phase's pairs), ``inference`` on a directory of PNG and BMP
+   crops of two sizes with the student (``--dtype float32``, batch 1 and 4,
+   each within 1 LSB of ``from_artifact``'s pipeline), ``evaluate
+   --data_dir`` on the written val split (per image within 1e-4 of the eval
+   phase's in-memory run, expected bit for bit, and within its bounds
+   against JAX), ``benchmark`` random-init (bf16, batch 1 and 8,
+   ``--profile``: the trace's kernels) and ``--model`` (the student, bf16),
+   ``train --config`` on a YAML that names the written splits (one epoch,
+   the YAML's ``use_amp``), and ``migrate`` of the student's state dict
+   saved with ``torch.save`` (the package's weights equal the student's,
+   one request served from it, and on the student's config within 1 LSB of
+   ``from_artifact``'s): wall seconds and linear-attention launches of each,
+   which must be above 0 for every CLI that serves (the ``cli`` line).
 
 Then the ``kernels`` line, the ``nvidia-smi`` line, and last
 ``{"ok": true, "device": {...}}``. Any failed check raises, and the script
@@ -2701,6 +2717,245 @@ def split_skip_phase(dev, images, batch_images) -> dict:
     return dict(rows, sampler_err=sampler_err, lsb=lsb, step=step_vs_concat)
 
 
+# The cli phase (26): the CLIs a user runs, in this process (their main(argv)).
+# The dataset CLI's splits (--train, --val, --size, --seed): its val split is
+# the eval phase's 15 pairs; the inference CLI's inputs are crops of their low
+# images at two sizes, PNG and BMP; the benchmark CLI's batch sizes and runs
+CLI_SPLIT = dict(train=8, val=15, size=256, seed=0)
+CLI_IMAGE_SIZES = ((192, 256), (256, 256), (192, 256), (256, 256), (192, 256))
+CLI_BENCH = dict(batch_sizes=(1, 8), num_runs=5)
+# the directory evaluation per image against the eval phase's in-memory run
+# of the same weights, inputs and noise in the same batches of 8: expected
+# bit for bit; PSNR in dB, the others in their units
+CLI_EVAL_TOL = 1e-4
+
+
+def write_bmp(path: str, img) -> None:
+    """A 24-bit bottom-up BMP of uint8 RGB ``img`` [H, W, 3]."""
+    import struct
+
+    import numpy as np
+
+    h, w, _ = img.shape
+    stride = (w * 3 + 3) & ~3
+    rows = np.zeros((h, stride), np.uint8)
+    rows[:, :w * 3] = img[::-1, :, ::-1].reshape(h, w * 3)
+    body = rows.tobytes()
+    with open(path, "wb") as f:
+        f.write(struct.pack("<2sIHHI", b"BM", 54 + len(body), 0, 0, 54))
+        f.write(struct.pack("<IiiHHIIiiII", 40, w, h, 1, 24, 0, len(body), 0, 0, 0, 0))
+        f.write(body)
+
+
+def zero_launches() -> None:
+    """Every hand-written kernel wrapper's launch count set to 0."""
+    from cv_diffusion_tpu_torch.ops import flash_attention_kernel as fk
+    from cv_diffusion_tpu_torch.ops import fused_irb_kernel as fik
+    from cv_diffusion_tpu_torch.ops import linear_attention_kernel as lak
+    from cv_diffusion_tpu_torch.ops import qconv_kernel as qk
+
+    for wrapper in (lak.linear_attention_kernel, lak.linear_attention_backward_kernel,
+                    fk.flash_attention_forward, fk.flash_attention_backward_dkv,
+                    fk.flash_attention_backward_dq, fik.fused_irb_v2, fik.fused_irb_v1,
+                    qk.quantize, qk.quantize_weight, qk.int8_conv, qk.int8_depthwise):
+        wrapper.launches = 0
+
+
+def cli_phase(dev, eval_per_image: dict) -> dict:
+    """Phase 26: ``make_synthetic_dataset``, ``inference`` (batch 1 and 4),
+    ``evaluate --data_dir``, ``benchmark`` (random-init with ``--profile``,
+    and ``--model``), ``train --config`` and ``migrate``, each through its
+    ``main(argv)`` on the card at full width, with the wrappers' launch
+    counts set to 0 just before each and read just after; each held to the
+    library path it stands for."""
+    import numpy as np
+    import torch
+    from cv_diffusion_tpu_torch import (benchmark, inference, make_synthetic_dataset,
+                                        migrate, train)
+    from cv_diffusion_tpu_torch import evaluate as ev
+    from cv_diffusion_tpu_torch.config import load_yaml, save_yaml
+    from cv_diffusion_tpu_torch.data import png
+    from cv_diffusion_tpu_torch.export.serving import ServingPipeline, kernel_launches
+    from cv_diffusion_tpu_torch.ops import linear_attention_kernel as lak
+    from cv_diffusion_tpu_torch.weights import load_state_dict_npz
+
+    t_phase = time.perf_counter()
+    with open(os.path.join(ROOT, "artifacts_torch", f"{STUDENT}.eval_ref.json")) as f:
+        eval_ref = json.load(f)
+    root = tempfile.mkdtemp(prefix="chip_smoke_cli_")
+    art = os.path.join(ROOT, "artifacts", STUDENT)
+    rows = {}
+
+    def run(name, dtype, main, argv):
+        """``main(argv)`` timed, its launches counted from 0."""
+        zero_launches()
+        torch.cuda.synchronize()
+        a = time.perf_counter()
+        out = main(argv)
+        torch.cuda.synchronize()
+        counts = kernel_launches()
+        counts["linear_attention_backward"] = lak.linear_attention_backward_kernel.launches
+        rows[name] = dict(dtype=dtype, seconds=time.perf_counter() - a,
+                          launches={k: v for k, v in counts.items() if v})
+        require(not any(v for k, v in counts.items() if not k.startswith("linear_attention")),
+                f"cli {name}: kernels of another path launched: {counts}")
+        if dtype is not None:
+            require(counts["linear_attention"] > 0,
+                    f"cli {name}: served without launching the linear-attention kernel")
+        return out
+
+    # the dataset CLI: its val split is the eval phase's pairs
+    data = os.path.join(root, "data")
+    run("make_synthetic_dataset", None, make_synthetic_dataset.main,
+        ["--out", data] + [f"--{k}={v}" for k, v in CLI_SPLIT.items()])
+    low, high = ev.eval_split(CLI_SPLIT["val"], CLI_SPLIT["size"], CLI_SPLIT["seed"])
+    for sub, want in (("low", low), ("high", high)):
+        got = png.read_images([os.path.join(data, "val", sub, f"{i:05d}.png")
+                               for i in range(CLI_SPLIT["val"])])
+        require(all(np.array_equal(g, w) for g, w in zip(got, want)),
+                f"cli: the dataset CLI's val/{sub} is not the eval split")
+    require(len(os.listdir(os.path.join(data, "train", "high"))) == CLI_SPLIT["train"],
+            "cli: the dataset CLI's train split")
+
+    # the inference CLI at batch 1 and 4, against from_artifact's pipelines
+    src = os.path.join(root, "images")
+    os.makedirs(src)
+    images = []
+    for i, (h, w) in enumerate(CLI_IMAGE_SIZES):
+        img = np.ascontiguousarray(low[i][:h, :w])
+        (write_bmp if i % 2 else png.write_png)(
+            os.path.join(src, f"img{i}.{'bmp' if i % 2 else 'png'}"), img)
+        images.append(img)
+    inference_lsb = {}
+    for batch in (1, 4):
+        out_dir = os.path.join(root, f"enhanced_b{batch}")
+        res = run(f"inference_b{batch}", "float32", inference.main,
+                  ["--input", src, "--output", out_dir, "--model", art, "--dtype", "float32",
+                   "--batch_size", str(batch), "--image_size", str(CLI_SPLIT["size"]),
+                   "--device", dev.type])
+        ref = ServingPipeline.from_artifact(STUDENT, dev, batch_size=batch)
+        want = ref.batch(images) if batch > 1 else [ref(img) for img in images]
+        got = [png.read_image(p) for p in res["outputs"]]
+        require([g.shape for g in got] == [im.shape for im in images],
+                f"cli inference b{batch}: output shapes")
+        inference_lsb[batch] = max(int(np.abs(g.astype(int) - r.astype(int)).max())
+                                   for g, r in zip(got, want))
+        require(inference_lsb[batch] <= GRAPH_LSB_TOL,
+                f"cli inference b{batch}: {inference_lsb[batch]} LSB from from_artifact's")
+        rows[f"inference_b{batch}"]["max_lsb_vs_from_artifact"] = inference_lsb[batch]
+        del ref
+
+    # directory evaluation of the written val split
+    payload = run("evaluate", "float32", ev.main,
+                  ["--data_dir", os.path.join(data, "val"), "--model", art,
+                   "--dtype", "float32", "--batch_size", str(ev.BATCH_SIZE),
+                   "--image_size", str(CLI_SPLIT["size"]), "--device", dev.type,
+                   "--json", os.path.join(root, "eval.json")])
+    per = payload["seeds"][str(CLI_SPLIT["seed"])]
+    calls = -(-CLI_SPLIT["val"] // ev.BATCH_SIZE) * len(payload["timesteps"])
+    require(rows["evaluate"]["launches"].get("linear_attention") == calls,
+            f"cli evaluate: {rows['evaluate']['launches']} for {calls} UNet calls")
+    measured = [k for k in EVAL_TOL if per[k][0] is not None]    # MS-SSIM from 176²
+    vs_eval = {k: max(abs(a - b) for a, b in zip(per[k], eval_per_image[k]))
+               for k in measured}
+    bitwise = sum(all(per[k][i] == eval_per_image[k][i] for k in EVAL_TOL)
+                  for i in range(CLI_SPLIT["val"]))
+    require(max(vs_eval.values()) <= CLI_EVAL_TOL,
+            f"cli evaluate vs the eval phase per image: {vs_eval}")
+    vs_jax = {k: max(abs(a - im[k]) for a, im in zip(per[k], eval_ref["images"]))
+              for k in measured}
+    require(all(vs_jax[k] <= EVAL_TOL[k] for k in measured),
+            f"cli evaluate vs JAX per image: {vs_jax}")
+    require(set(payload) == {"model", "variant", "image_size", "num_steps", "deterministic",
+                             "timesteps", "seeds", "summary"}, "cli evaluate: JSON keys")
+    rows["evaluate"].update(vs_eval_phase=vs_eval, images_bit_for_bit=bitwise,
+                            vs_jax=vs_jax, psnr_mean=payload["summary"]["psnr_mean"])
+
+    # the benchmark CLI, random-init (bf16, --profile) and the student (bf16)
+    trace_dir = os.path.join(root, "trace")
+    bench = run("benchmark", "bfloat16", benchmark.main,
+                ["--batch_sizes", *map(str, CLI_BENCH["batch_sizes"]),
+                 "--num_runs", str(CLI_BENCH["num_runs"]), "--profile", trace_dir,
+                 "--image_size", str(CLI_SPLIT["size"]), "--device", dev.type])
+    require([tuple(r) for r in bench["rows"]] == [benchmark.ROW_KEYS] * 2,
+            "cli benchmark: row keys")
+    with open(bench["trace"]) as f:
+        events = json.load(f)["traceEvents"]
+    kernels = [e for e in events if e.get("cat") == "kernel"]
+    rows["benchmark"].update(
+        rows=bench["rows"], warmup_s=bench["warmup_s"],
+        trace_bytes=os.path.getsize(bench["trace"]), trace_kernels=len(kernels),
+        trace_linear_attention_kernels=sum("linear_attention" in e.get("name", "")
+                                           for e in kernels))
+    stats = run("benchmark_model", "bfloat16", benchmark.main,
+                ["--model", art, "--num_runs", str(CLI_BENCH["num_runs"]),
+                 "--image_size", str(CLI_SPLIT["size"]), "--device", dev.type])
+    rows["benchmark_model"]["stats"] = stats["stats"]
+
+    # train --config: the YAML's own use_amp; the data roots of the written splits
+    exp = load_yaml(os.path.join(ROOT, "configs", "default.yaml"))
+    exp = dataclasses.replace(exp, data=dataclasses.replace(
+        exp.data, train_root=os.path.join(data, "train"), val_root=os.path.join(data, "val")))
+    yaml_path = os.path.join(root, "experiment.yaml")
+    save_yaml(exp, yaml_path)
+    ck, out = os.path.join(root, "ckpt"), os.path.join(root, "out")
+    run("train_config", "bfloat16" if exp.train.use_amp else "float32", train.main,
+        ["--config", yaml_path, "--epochs", "1", "--checkpoint_dir", ck, "--output_dir", out,
+         "--device", dev.type])
+    steps = CLI_SPLIT["train"] // exp.train.batch_size
+    require(rows["train_config"]["launches"].get("linear_attention_backward") == steps,
+            f"cli train --config: {rows['train_config']['launches']} for {steps} steps")
+    require(os.path.isfile(os.path.join(ck, "final_model.pt"))
+            and os.path.isfile(os.path.join(out, "samples_epoch_0.png")),
+            "cli train --config: no final checkpoint or sample grid")
+    rows["train_config"].update(use_amp=exp.train.use_amp, steps=steps,
+                                batch_size=exp.train.batch_size)
+
+    # migrate the student's state dict, saved as the reference trainer does
+    ref_pt = os.path.join(root, "student.pt")
+    state = load_state_dict_npz(os.path.join(ROOT, "artifacts_torch", f"{STUDENT}.npz"), "cpu")
+    torch.save({"model_state_dict": state}, ref_pt)
+    pkg = os.path.join(root, "migrated")
+
+    def migrate_and_serve(argv):
+        files = migrate.main(argv)
+        served = ServingPipeline.from_package(pkg, device=dev)(images[0], seed=0)
+        require(served.shape == images[0].shape and served.dtype == np.uint8,
+                "cli migrate: the package's own request")
+        return files
+
+    files = run("migrate", "float32", migrate_and_serve, [ref_pt, pkg, "--device", dev.type])
+    migrated = load_state_dict_npz(files["params"], dev)
+    require(sorted(migrated) == sorted(state)
+            and all(torch.equal(migrated[k].cpu(), state[k]) for k in state),
+            "cli migrate: the package's weights are not the student's")
+    # the package's weights on the student's model config and grid (the
+    # reference checkpoint records neither: migrate writes the JAX script's
+    # epsilon model) serve the request from_artifact serves
+    as_student = ServingPipeline.from_config(
+        os.path.join(art, "model_config.json"), os.path.join(art, "student_timesteps.json"),
+        migrated, dev)
+    want = ServingPipeline.from_artifact(STUDENT, dev)(images[0], seed=0)
+    got = as_student(images[0], seed=0)
+    migrate_lsb = int(np.abs(got.astype(int) - want.astype(int)).max())
+    require(migrate_lsb <= GRAPH_LSB_TOL, f"cli migrate: {migrate_lsb} LSB from from_artifact's")
+    rows["migrate"].update(params=len(migrated), weights_equal=True,
+                           served_lsb_vs_from_artifact=migrate_lsb)
+    del as_student, migrated, state
+    shutil.rmtree(root, ignore_errors=True)
+    torch.cuda.empty_cache()
+
+    launches = {"float32": 0, "bfloat16": 0, "backward_bfloat16": 0, "backward_float32": 0}
+    for r in rows.values():
+        if r["dtype"]:
+            launches[r["dtype"]] += r["launches"].get("linear_attention", 0)
+            launches["backward_" + r["dtype"]] += r["launches"].get(
+                "linear_attention_backward", 0)
+    emit("cli", **rows, linear_attention_launches=launches,
+         seconds=time.perf_counter() - t_phase)
+    return dict(rows=rows, launches=launches)
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--profile", action="store_true",
@@ -3327,15 +3582,7 @@ def main() -> int:
                 "fused_irb_v2": IRBS_PER_UNET_CALL * steps if fused else 0,
                 "fused_irb_v1": 0}      # no model path runs v1, as in JAX
 
-    def reset_launches():
-        lak.linear_attention_kernel.launches = 0
-        fk.flash_attention_forward.launches = 0
-        fk.flash_attention_backward_dkv.launches = 0
-        fk.flash_attention_backward_dq.launches = 0
-        fik.fused_irb_v2.launches = 0
-        fik.fused_irb_v1.launches = 0
-        qk.quantize.launches = qk.quantize_weight.launches = 0
-        qk.int8_conv.launches = qk.int8_depthwise.launches = 0
+    reset_launches = zero_launches
 
     def graph_accounting(pipe, label, want, eager_calls):
         """Hold the launches of a configuration's run to its graphs: each
@@ -4750,6 +4997,9 @@ def main() -> int:
     softmax_train = softmax_train_phase(dev, fk, reset_launches)
     split_skip_phase(dev, images, batch_images)
 
+    # 26. cli: the CLIs a user runs, through their main(argv) ----------------
+    cli = cli_phase(dev, eval_rows[SERVED[0][0]]["per_image"])["launches"]
+
     # kernels line, nvidia-smi line, last line -----------------------------
     main_row = timings[((1, 1024, 4, 32), "float32")]
     bwd_main = bwd_rows[((8, 1024, 4, 32), "float32")]    # the train batch
@@ -4780,6 +5030,7 @@ def main() -> int:
         "launches_train": train_launches["linear_attention"],
         "launches_eval": sum(r["launches"]["linear_attention"] for r in eval_rows.values()),
         "launches_distill": distill_f32["linear_attention"],
+        "launches_cli": cli["float32"],
         "max_abs_err": mid_err,
         "ms": main_row["kernel_ms"],
         "plain_ms": main_row["plain_ms"],
@@ -4878,6 +5129,7 @@ def main() -> int:
         "launches_data_train": sum(r["launches"]["linear_attention"]
                                    for r in data["runs"].values() if "launches" in r),
         "launches_distill": distill_bf16["linear_attention"],
+        "launches_cli": cli["bfloat16"],
         "max_abs_err": bf16_checks["mid_attn_max_err"],
         "ms": main16["kernel_ms"],
         "plain_ms": main16["plain_ms"],
@@ -4897,6 +5149,7 @@ def main() -> int:
         "launches_data_train": sum(r["launches"]["linear_attention_backward"]
                                    for r in data["runs"].values() if "launches" in r),
         "launches_distill": distill_bf16["linear_attention_backward"],
+        "launches_cli": cli["backward_bfloat16"],
         "max_abs_err": amp_bwd_err,
         "ms": bwd16["kernel_ms"],
         "plain_ms": bwd16["plain_ms"],

@@ -2,8 +2,11 @@
 
 Counterpart of ``cv_diffusion_tpu/config.py``: the same frozen dataclasses
 and variant presets, so that an artifact's ``model_config.json`` means the
-same model in both packages, and :class:`TrainConfig` field for field. The
-YAML loader and the data configs stay in the JAX package.
+same model in both packages, :class:`TrainConfig`, :class:`DataConfig` and
+:class:`ExperimentConfig` field for field, and the experiment YAML
+(:func:`load_yaml`, :func:`save_yaml`) through the port's own reader and
+writer of the YAML subset the configs use (``yaml_subset``: the card's
+machine has no PyYAML).
 """
 
 from __future__ import annotations
@@ -166,6 +169,25 @@ def diffusion_config(unet_variant: str = "small", image_size: int = 256,
 
 
 @dataclass(frozen=True)
+class DataConfig:
+    """Dataset and input-pipeline configuration (field for field the JAX
+    ``DataConfig``, ``cv_diffusion_tpu/config.py:221``)."""
+
+    train_root: str = "data/our485"
+    val_root: Optional[str] = "data/eval15"
+    low_dir: str = "low"
+    high_dir: str = "high"
+    image_size: int = 256
+    batch_size: int = 8
+    augment: bool = True
+    paired: bool = True
+    use_synthetic: bool = False
+    shuffle_seed: int = 0
+    gamma_range: Tuple[float, float] = (2.0, 5.0)
+    noise_level_range: Tuple[float, float] = (0.01, 0.05)
+
+
+@dataclass(frozen=True)
 class TrainConfig:
     """Training configuration, field for field and default for default the
     JAX ``TrainConfig`` (``cv_diffusion_tpu/config.py:242``).
@@ -242,17 +264,36 @@ class TrainConfig:
     prediction_type: str = "epsilon"
 
 
+@dataclass(frozen=True)
+class ExperimentConfig:
+    """Everything one run needs: model, data and training (the JAX
+    ``ExperimentConfig``), as ``configs/default.yaml`` lays it out."""
+
+    model: DiffusionConfig = field(default_factory=DiffusionConfig)
+    data: DataConfig = field(default_factory=DataConfig)
+    train: TrainConfig = field(default_factory=TrainConfig)
+
+
+def to_dict(cfg) -> Dict[str, Any]:
+    return dataclasses.asdict(cfg)
+
+
 def to_json(cfg) -> str:
     """A config dataclass as JSON (the checkpoints' ``config``)."""
-    return json.dumps(dataclasses.asdict(cfg), indent=2)
+    return json.dumps(to_dict(cfg), indent=2)
 
 
-_NESTED = {"unet": UNetConfig, "scheduler": SchedulerConfig}
+def from_json(cls, text: str):
+    return from_dict(cls, json.loads(text))
+
+
+_NESTED = {"unet": UNetConfig, "scheduler": SchedulerConfig,
+           "model": DiffusionConfig, "data": DataConfig, "train": TrainConfig}
 
 
 def from_dict(cls, data: Dict[str, Any]):
     """Rebuild a (possibly nested) config dataclass from a plain dict,
-    ignoring keys the dataclass does not have."""
+    ignoring keys the dataclass does not have; lists become tuples."""
     kwargs: Dict[str, Any] = {}
     names = {f.name for f in dataclasses.fields(cls)}
     for key, value in data.items():
@@ -294,3 +335,29 @@ def load_timesteps(path: str) -> Tuple[int, ...]:
     if not grid or list(grid) != sorted(grid, reverse=True):
         raise ValueError(f"{path}: timesteps must be a descending list, got {grid}")
     return tuple(int(t) for t in grid)
+
+
+def load_yaml(path: str) -> ExperimentConfig:
+    """An experiment YAML (e.g. ``configs/default.yaml``) as an
+    :class:`ExperimentConfig`; sections and fields it leaves out keep their
+    defaults. Read by ``yaml_subset.loads``, which gives what
+    ``yaml.safe_load`` gives and refuses, with the line, what lies outside
+    the subset (anchors, tags, block scalars, several documents, ...)."""
+    from .yaml_subset import loads
+
+    with open(path) as f:
+        data = loads(f.read()) or {}
+    if not isinstance(data, dict):
+        raise ValueError(f"{path}: an experiment config is a mapping, not "
+                         f"{type(data).__name__}")
+    return from_dict(ExperimentConfig, data)
+
+
+def save_yaml(cfg, path: str) -> None:
+    """A config dataclass as YAML, in the layout of the JAX package's
+    ``save_yaml`` (``yaml.safe_dump(..., sort_keys=False)``): both
+    :func:`load_yaml` and PyYAML read it back."""
+    from .yaml_subset import dumps
+
+    with open(path, "w") as f:
+        f.write(dumps(to_dict(cfg)))

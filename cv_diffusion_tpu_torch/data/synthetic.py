@@ -10,13 +10,15 @@ image i is degraded with ``default_rng(seed·1_000_003 + i)`` by
 value-noise texture's bilinear upsampling is :func:`resize_bilinear_u8`, a
 copy of Pillow's 8-bit two-pass resampling. Only the procedural split
 (``photo_fraction=0``, the script's validation split) is supported; the
-photo crops need scikit-learn's sample images.
+photo crops need scikit-learn's sample images. :func:`write_split` writes
+a split as the script does, as PNGs (``data/png.py``).
 """
 
 from __future__ import annotations
 
 import math
-from typing import Tuple
+from pathlib import Path
+from typing import Tuple, Union
 
 import numpy as np
 
@@ -140,3 +142,18 @@ def make_split(n: int, size: int, seed: int, photo_fraction: float = 0.0
     lows = [synthetic_low_light(np.random.default_rng(seed * 1_000_003 + i), high)
             for i, high in enumerate(highs)]
     return np.stack(lows), np.stack(highs)
+
+
+def write_split(root: Union[str, Path], n: int, size: int, seed: int) -> None:
+    """``make_split(n, size, seed)`` written as ``root/low/{i:05d}.png`` and
+    ``root/high/{i:05d}.png``: the decoded pixels of the script's
+    ``write_split`` with ``photo_fraction=0`` (or with scikit-learn absent,
+    where its photo crops yield nothing and draw nothing). The PNG bytes
+    differ from Pillow's: another encoder."""
+    from .png import write_png
+
+    root = Path(root)
+    low, high = make_split(n, size, seed)
+    for i in range(n):
+        write_png(root / "high" / f"{i:05d}.png", high[i])
+        write_png(root / "low" / f"{i:05d}.png", low[i])

@@ -25,12 +25,10 @@ counterpart (the pipeline captures a CUDA graph when it serves).
 from __future__ import annotations
 
 import argparse
-import json
-import os
 import sys
-from typing import Optional, Sequence, Tuple
+from typing import Optional, Sequence
 
-from ..config import load_timesteps
+from ..inference import parse_timesteps
 
 CALIB_BATCH = 8
 
@@ -79,28 +77,6 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--device", type=str, default="cuda",
                    help="Device to calibrate and benchmark on (default: cuda)")
     return p
-
-
-def parse_timesteps(model_path: str, timesteps_arg: Optional[str]
-                    ) -> Optional[Tuple[int, ...]]:
-    """``--timesteps``, or the grid recorded beside the weights
-    (``student_timesteps.json``, or a serving package's
-    ``model_config.json``), or None (JAX ``scripts/inference.py:21``)."""
-    if timesteps_arg:
-        return tuple(int(t) for t in timesteps_arg.split(",") if t.strip())
-    marker = os.path.join(model_path, "student_timesteps.json")
-    if os.path.isfile(marker):
-        ts = load_timesteps(marker)
-        print(f"Using recorded student timestep grid: {list(ts)}")
-        return ts
-    pkg_cfg = os.path.join(model_path, "model_config.json")
-    if os.path.isfile(pkg_cfg):
-        with open(pkg_cfg) as f:
-            ts = json.load(f).get("timesteps")
-        if ts:
-            print(f"Using package timestep grid: {list(ts)}")
-            return tuple(ts)
-    return None
 
 
 def calibration_batches(calib_dir: str, image_size: int, count: int):

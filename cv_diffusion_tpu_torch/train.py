@@ -4,23 +4,33 @@ Counterpart of ``scripts/train.py``, with its flags and defaults mapped onto
 :class:`~cv_diffusion_tpu_torch.config.TrainConfig`, and ``--device``
 (default ``cuda``). It trains from LOL-style ``{low,high}/`` image
 directories (or, with ``--use_synthetic``, a directory of normal-light
-images) through ``training.trainer.train_model``. Flags of features the port
-does not have raise ``NotImplementedError``: ``--config`` (YAML, and no
-PyYAML where the card is; ROADMAP queue 1 item 9), ``--distributed`` (item
-8), ``--wandb`` (not queued). ``--qat`` trains with the weights
-fake-quantized in the forward, ``--qat_act`` also with every convolution's
-input fake-quantized (``export.qat``).
+images) through ``training.trainer.train_model``. ``--config`` reads an
+experiment YAML (``configs/default.yaml``'s layout, ``config.load_yaml``,
+no PyYAML needed): its ``train`` section is the base, only the flags present
+in the command line override it, and ``data.train_root``, ``data.val_root``
+and ``data.use_synthetic`` give the directories (JAX ``scripts/train.py:54``).
+A field the port refuses raises where it does without the YAML
+(``training.train_state.check_trainable``: ``mesh_shape`` over more than
+one device, ``use_wandb``). Flags of features the port does not have raise
+``NotImplementedError``: ``--distributed`` (ROADMAP queue 1 item 8),
+``--wandb`` (not queued). ``--qat`` trains with the weights fake-quantized
+in the forward, ``--qat_act`` also with every convolution's input
+fake-quantized (``export.qat``).
 
     python -m cv_diffusion_tpu_torch.train --data_dir D --val_dir V \\
         --variant small --image_size 256 --epochs 100 --batch_size 8
+    python -m cv_diffusion_tpu_torch.train --config configs/default.yaml --epochs 1
 """
 
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import sys
+from typing import Sequence
 
-from .config import TrainConfig
+from .config import TrainConfig, load_yaml
+from .device import resolve_device
 
 # CLI flag → TrainConfig field; the disable-switches are inverted in
 # ``resolve_config``
@@ -61,8 +71,6 @@ _INVERTED = ("no_amp", "no_ema", "sync_checkpoints")
 
 # flag → why the port refuses it
 _REFUSED = {
-    "config": "--config reads a YAML file; the port has no YAML reader "
-              "(PyYAML is absent where the card is): ROADMAP queue 1 item 9",
     "distributed": "--distributed: training over more than one process is "
                    "not ported (ROADMAP queue 1 item 8)",
     "wandb": "--wandb: W&B logging is not ported (not queued: no wandb and "
@@ -142,29 +150,55 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--init_ema", action="store_true",
                    help="With --init_params: start from the checkpoint's EMA")
     p.add_argument("--distributed", action="store_true", help="Refused")
-    p.add_argument("--config", type=str, default=None, help="Refused")
+    p.add_argument("--config", type=str, default=None,
+                   help="Experiment YAML (configs/default.yaml's layout); "
+                        "flags given on the command line override it")
     p.add_argument("--device", type=str, default="cuda",
                    help="Device to train on (default: cuda)")
     return p
 
 
-def resolve_config(args):
-    """(TrainConfig, data_dir, val_dir, use_synthetic) from parsed args;
-    ``NotImplementedError`` for a refused flag."""
+def _val_dir(value):
+    """``--val_dir``: '' or 'none' disables validation."""
+    return value if value not in ("", "none", None) else None
+
+
+def resolve_config(args, argv: Sequence[str] = ()):
+    """(TrainConfig, data_dir, val_dir, use_synthetic) from parsed args
+    (JAX ``scripts/train.py:54``); ``NotImplementedError`` for a refused
+    flag. With ``--config`` the YAML is the base and only the flags present
+    in ``argv`` (the command line the args were parsed from) override it;
+    flags left at their defaults do not."""
     for flag, why in _REFUSED.items():
         if getattr(args, flag):
             raise NotImplementedError(why)
-    config = TrainConfig(**{
-        field: (not getattr(args, flag)) if flag in _INVERTED
-        else getattr(args, flag)
-        for flag, field in _FLAG_TO_FIELD.items()})
-    val_dir = args.val_dir if args.val_dir not in ("", "none", None) else None
-    return config, args.data_dir, val_dir, args.use_synthetic
+
+    def flag_value(flag):
+        value = getattr(args, flag)
+        return (not value) if flag in _INVERTED else value
+
+    if not args.config:
+        config = TrainConfig(**{field: flag_value(flag)
+                                for flag, field in _FLAG_TO_FIELD.items()})
+        return config, args.data_dir, _val_dir(args.val_dir), args.use_synthetic
+    exp = load_yaml(args.config)
+    passed = {a.lstrip("-").split("=")[0] for a in argv if a.startswith("--")}
+    config = dataclasses.replace(exp.train, **{
+        field: flag_value(flag) for flag, field in _FLAG_TO_FIELD.items()
+        if flag in passed})
+    data_dir = args.data_dir if "data_dir" in passed else exp.data.train_root
+    val_dir = (_val_dir(args.val_dir) if "val_dir" in passed
+               else exp.data.val_root)
+    use_synth = (args.use_synthetic if "use_synthetic" in passed
+                 else exp.data.use_synthetic)
+    return config, data_dir, val_dir, use_synth
 
 
 def main(argv=None) -> None:
+    argv = sys.argv[1:] if argv is None else list(argv)
     args = build_parser().parse_args(argv)
-    config, data_dir, val_dir, use_synth = resolve_config(args)
+    config, data_dir, val_dir, use_synth = resolve_config(args, argv)
+    resolve_device(args.device)
     from .training.trainer import train_model
 
     train_model(data_dir, val_dir, config, use_synthetic=use_synth,

@@ -652,10 +652,12 @@ def test_train_cli_help_and_refused_flags(tmp_path):
                            "--help"], cwd=REPO, capture_output=True, text=True,
                           timeout=120)
     assert proc.returncode == 0 and "--data_on_device" in proc.stdout
-    for flags, item in ((["--distributed"], "item 8"),
-                        (["--config", "x.yaml"], "item 9"), (["--wandb"], "W&B")):
+    for flags, item in ((["--distributed"], "item 8"), (["--wandb"], "W&B")):
         with pytest.raises(NotImplementedError, match=item):
             tcli.main(flags)
+    # --config, refused before the YAML reader was ported, reads the file
+    with pytest.raises(FileNotFoundError, match="x.yaml"):
+        tcli.main(["--config", str(tmp_path / "x.yaml")])
     args = tcli.build_parser().parse_args(["--no_amp", "--sync_checkpoints",
                                            "--val_dir", "none"])
     config, data_dir, val_dir, synth = tcli.resolve_config(args)

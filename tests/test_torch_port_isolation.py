@@ -19,7 +19,11 @@ device cache on the CPU, writes a sample grid, saves a checkpoint
 asynchronously and runs ``python -m cv_diffusion_tpu_torch.train``'s
 ``main`` on the CPU for one epoch of the tiny model on that directory, and
 ``python -m cv_diffusion_tpu_torch.distill``'s ``main`` (regression, from a
-``save_params`` teacher) on the same directory.
+``save_params`` teacher) on the same directory; then reads
+``configs/default.yaml`` with the port's own YAML reader (``load_yaml``),
+runs ``python -m cv_diffusion_tpu_torch.make_synthetic_dataset``'s ``main``
+at 32² and ``python -m cv_diffusion_tpu_torch.inference``'s ``main`` on one
+image through a tiny serving package.
 """
 
 import os
@@ -239,6 +243,20 @@ _CHILD = textwrap.dedent("""
     assert (tmp / "dck" / "student_final" / "student_timesteps.json").is_file()
     assert "cv_diffusion_tpu_torch.models.distillation" in sys.modules
 
+    # the experiment YAML without PyYAML, the dataset CLI, the inference CLI
+    from cv_diffusion_tpu_torch.config import load_yaml
+    exp = load_yaml("configs/default.yaml")
+    assert exp.train.learning_rate == 1e-4 and exp.model.unet.channel_multipliers == (1, 2, 4, 8)
+    from cv_diffusion_tpu_torch import inference, make_synthetic_dataset
+    make_synthetic_dataset.main(["--out", str(tmp / "synth"), "--train", "2", "--val", "1",
+                                 "--size", "32"])
+    assert png.read_image(tmp / "synth" / "val" / "low" / "00000.png").shape == (32, 32, 3)
+    create_serving_package(str(tmp / "pkg"), pipe.model, pipe.schedule, timesteps=[739])
+    res = inference.main(["--input", str(tmp / "synth" / "val" / "low" / "00000.png"),
+                          "--output", str(tmp / "enhanced"), "--model", str(tmp / "pkg"),
+                          "--format", "package", "--device", "cpu"])
+    assert png.read_image(res["outputs"][0]).shape == (32, 32, 3)
+
     loaded = sorted(m for m in sys.modules if m.split(".")[0] in BLOCKED)
     assert not loaded, loaded
     print("ISOLATED-OK", len(names))
@@ -291,6 +309,20 @@ def test_entry_points_default_to_cuda():
         ServingPipeline(model, schedule)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         enhance(model, schedule, torch.zeros(1, 32, 32, 3), timesteps=[739])
+    # the CLIs, each before it reads its inputs (the dataset CLI writes
+    # files and touches no device)
+    from cv_diffusion_tpu_torch import benchmark, evaluate, inference, migrate, train
+
+    art = os.path.join(REPO, "artifacts", "vreg1b_gt03_ema")
+    yaml_path = os.path.join(REPO, "configs", "default.yaml")
+    for main, argv in ((inference.main, ["--input", "in.png", "--model", art]),
+                       (evaluate.main, ["--data_dir", "d", "--model", art]),
+                       (evaluate.main, ["--artifact", "vreg1b_gt03_ema"]),
+                       (benchmark.main, []), (benchmark.main, ["--model", art]),
+                       (migrate.main, ["ref.pt", "pkg"]),
+                       (train.main, ["--config", yaml_path])):
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            main(argv)
 
 
 @pytest.mark.parametrize("field,value", [("remat", True), ("dtype", "bfloat16"),
