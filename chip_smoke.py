@@ -271,6 +271,28 @@ Phases, one JSON line each on stdout (warnings and build logs go to stderr):
    ``from_artifact``'s): wall seconds and linear-attention launches of each,
    which must be above 0 for every CLI that serves (the ``cli`` line).
 
+27. dp     -- data parallelism (``cv_diffusion_tpu_torch/parallel``), each
+   process a subprocess of this script (``--dp-rank``) that joins its group
+   through ``parallel.distributed_init`` with a localhost coordinator; a
+   process's non-zero exit fails the phase. World size 1 over NCCL: three
+   ``Trainer`` steps of the student's small@256 at batch 8 over a one-rank
+   mesh, float32 and ``use_amp``, bit for bit the plain ``Trainer``'s
+   (deterministic algorithms on); the DP sampler
+   (``make_sharded_sample_fn``) at batch 8, float32, bf16 and
+   ``use_pallas_irb``, 0 LSB from ``ServingPipeline`` on the same seed, and
+   their paired ms (plain, DP, DP, plain); the collectives in a profiler
+   trace of two DP sampler calls (0), beside an NCCL ``all_reduce``'s trace
+   (the control that must show one). World size 2 over gloo with CUDA
+   tensors, both processes on the card (global batch 8, 4 rows each): one
+   train step against one process's at the global batch (``within``),
+   the same step with process 1 seeded 1 (the control that must fail);
+   ``linear_attention_sharded`` at [8, 1024, 4, 32] over a spatial axis of
+   2 against the whole sequence's kernel (2e-5), each process's tokens
+   without the reduction (the control that must fail); DP serving gathered
+   against one process's ``ServingPipeline`` (≤ 1 LSB). The ``dp`` line
+   counts the linear-attention launches, forward and backward, of each
+   process (and the fused IRB's).
+
 Then the ``kernels`` line, the ``nvidia-smi`` line, and last
 ``{"ok": true, "device": {...}}``. Any failed check raises, and the script
 exits non-zero without that last line. It needs one CUDA device and the
@@ -2956,12 +2978,370 @@ def cli_phase(dev, eval_per_image: dict) -> dict:
     return dict(rows=rows, launches=launches)
 
 
+# the dp phase (27): data parallelism over torch.distributed, each process
+# a subprocess of this script (``--dp-rank``) on the one card
+DP_BATCH = 8                  # the global batch of its train steps and serves
+DP_SIZE = 256
+DP_STEPS = 3                  # world size 1: DP steps against the plain Trainer's
+DP_PAIRS = 5                  # paired timings (plain, DP, DP, plain) of a served batch
+DP_TIMEOUT = 300              # seconds a process may take
+DP_ATTN_SHAPE = (8, 1024, 4, 32)
+# a collective in a profiler trace, by its host op or device kernel's name
+DP_COLLECTIVE = re.compile(r"nccl|gloo|c10d|record_param_comms|all_?reduce|"
+                           r"all_?gather|reduce_?scatter|all_?to_?all", re.I)
+DP_SERVED = (("float32", False, "float32"), ("bfloat16", False, "bfloat16"),
+             ("float32+use_pallas_irb", True, "float32"))
+
+
+def dp_launches() -> dict:
+    from cv_diffusion_tpu_torch.export.serving import kernel_launches as counts
+
+    c = counts()
+    from cv_diffusion_tpu_torch.ops import linear_attention_kernel as lak
+
+    return {"linear_attention": c["linear_attention"],
+            "linear_attention_backward": lak.linear_attention_backward_kernel.launches,
+            "fused_irb_v2": c["fused_irb_v2"]}
+
+
+def dp_step_record(model, loss, norm, clip):
+    """(loss, the averaged gradients before the clip, the parameters) of a
+    step just taken, for ``step_diffs``."""
+    unclip = max(1.0, float(norm) / clip)
+    return (float(loss), {n: p.grad.detach() * unclip for n, p in model.named_parameters()},
+            {n: p.detach().clone() for n, p in model.named_parameters()})
+
+
+def dp_student(dev, dtype="float32"):
+    import torch
+    from cv_diffusion_tpu_torch.config import load_model_config
+    from cv_diffusion_tpu_torch.models.diffusion import create_model
+    from cv_diffusion_tpu_torch.weights import load_state_dict_npz
+
+    cfg = load_model_config(os.path.join(ROOT, "artifacts", STUDENT, "model_config.json"))
+    cfg = dataclasses.replace(cfg, unet=dataclasses.replace(cfg.unet, dtype=dtype))
+    model, schedule = create_model(cfg, device=dev)
+    model.load_state_dict(load_state_dict_npz(
+        os.path.join(ROOT, "artifacts_torch", f"{STUDENT}.npz"), dev), strict=True)
+    return model, schedule
+
+
+def dp_to_u8(x):
+    import torch
+    return (x.float() * 127.5 + 127.5).clamp(0, 255).to(torch.uint8)
+
+
+def dp_single(dev) -> dict:
+    """World size 1 over NCCL: the DP Trainer against the plain one, DP
+    serving against ServingPipeline, the sampler's collectives, paired ms."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    from torch.profiler import ProfilerActivity, profile
+
+    from cv_diffusion_tpu_torch.config import TrainConfig
+    from cv_diffusion_tpu_torch.export.serving import ServingPipeline
+    from cv_diffusion_tpu_torch.models.diffusion import with_dtype
+    from cv_diffusion_tpu_torch.parallel import make_mesh, make_sharded_sample_fn
+    from cv_diffusion_tpu_torch.training.trainer import Trainer
+
+    mesh = make_mesh()
+    out = {"backend": dist.get_backend(), "world": dist.get_world_size(),
+           "mesh": dict(mesh.shape), "train": {}, "serve": {}}
+    batches = softmax_batches(DP_STEPS, seed=5)
+    tmp = tempfile.mkdtemp(prefix="dp_", dir=build_dir())
+    torch.backends.cudnn.deterministic = True
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        for dtype, amp in (("float32", False), ("bfloat16", True)):
+            runs = {}
+            for label, m in (("plain", False), ("dp", mesh)):
+                model, schedule = dp_student(dev, dtype)
+                tc = TrainConfig(unet_variant="small", image_size=DP_SIZE, batch_size=DP_BATCH,
+                                 use_amp=amp, epochs=1, warmup_epochs=0,
+                                 async_checkpoints=False, output_dir=tmp, checkpoint_dir=tmp)
+                zero_launches()
+                trainer = Trainer(model, schedule, batches, None, tc, mesh=m)
+                loss = trainer.train_epoch()
+                torch.cuda.synchronize()
+                runs[label] = dict(
+                    loss=loss, launches=dp_launches(), mesh=trainer.mesh is not None,
+                    params={n: p.detach().clone() for n, p in model.named_parameters()},
+                    ema={n: e.clone() for n, e in trainer.state.ema_params.items()})
+                del trainer, model
+            same = (runs["dp"]["loss"] == runs["plain"]["loss"]
+                    and all(torch.equal(p, runs["plain"]["params"][n])
+                            for n, p in runs["dp"]["params"].items())
+                    and all(torch.equal(e, runs["plain"]["ema"][n])
+                            for n, e in runs["dp"]["ema"].items()))
+            require(runs["dp"]["mesh"] and not runs["plain"]["mesh"],
+                    "dp: the DP Trainer has no mesh, or the plain one has")
+            require(same, f"dp: {dtype} DP Trainer steps differ from the plain Trainer's")
+            require(runs["dp"]["launches"]["linear_attention"] >= DP_STEPS
+                    and runs["dp"]["launches"]["linear_attention_backward"] >= DP_STEPS,
+                    f"dp: {dtype} DP steps launched {runs['dp']['launches']}")
+            out["train"][dtype] = dict(steps=DP_STEPS, loss=runs["dp"]["loss"],
+                                       bit_for_bit=same, launches=runs["dp"]["launches"],
+                                       plain_launches=runs["plain"]["launches"])
+    finally:
+        torch.backends.cudnn.deterministic = False
+        torch.use_deterministic_algorithms(False)
+        shutil.rmtree(tmp, ignore_errors=True)
+        torch.cuda.empty_cache()
+
+    canvas = torch.from_numpy(np.random.default_rng(7).integers(
+        0, 256, (DP_BATCH, DP_SIZE, DP_SIZE, 3), dtype=np.uint8)).to(dev)
+    low = canvas.float() / 127.5 - 1.0
+    for label, irb, dtype in DP_SERVED:
+        pipe = ServingPipeline.from_artifact(STUDENT, device=dev, use_pallas_irb=irb)
+        if dtype == "bfloat16":
+            pipe = ServingPipeline(with_dtype(pipe.model, "bfloat16"), pipe.schedule,
+                                   pipe.config, device=dev)
+        sampler = make_sharded_sample_fn(pipe.model, pipe.schedule, mesh=mesh,
+                                         timesteps=pipe.grid)
+        params = pipe.model.state_dict()
+
+        def plain(seed=0):
+            return pipe._run(canvas, torch.Generator(device=dev).manual_seed(seed))
+
+        def dp(seed=0):
+            return dp_to_u8(sampler(params, torch.Generator(device=dev).manual_seed(seed), low))
+
+        zero_launches()
+        a, b = plain(), dp()
+        launches = dp_launches()
+        lsb = int((a.int() - b.int()).abs().max())
+        require(lsb == 0, f"dp: {label} DP serving {lsb} LSB from ServingPipeline")
+        require(launches["linear_attention"] > 0 and (launches["fused_irb_v2"] > 0) == irb,
+                f"dp: {label} serving launched {launches}")
+        times = {"plain": [], "dp": []}
+        for i in range(DP_PAIRS):
+            for which in ("plain", "dp", "dp", "plain"):
+                torch.cuda.synchronize()
+                start = time.perf_counter()
+                (plain if which == "plain" else dp)(i)
+                torch.cuda.synchronize()
+                times[which].append((time.perf_counter() - start) * 1e3)
+        row = dict(max_lsb=lsb, launches=launches,
+                   graphs=sorted(sampler.graphs), launches_a_replay={
+                       b: {k: v for k, v in g.launches.items() if v}
+                       for b, g in sampler.graphs.items()},
+                   plain_ms=float(np.median(times["plain"])),
+                   dp_ms=float(np.median(times["dp"])),
+                   plain_ms_all=times["plain"], dp_ms_all=times["dp"])
+        row["dp_over_plain"] = row["dp_ms"] / row["plain_ms"]
+        if label == "float32":
+            acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
+            with profile(activities=acts) as prof:
+                dp(1)
+                dp(2)
+                torch.cuda.synchronize()
+            events = [e.name for e in prof.events()]
+            kernels = [e for e in prof.events() if e.device_type.name == "CUDA"]
+            row["trace_events"] = len(events)
+            row["trace_device_events"] = len(kernels)
+            row["sampler_collectives"] = sorted({n for n in events if DP_COLLECTIVE.search(n)})
+            with profile(activities=acts) as prof:
+                t = torch.ones(1 << 20, device=dev)
+                dist.all_reduce(t)
+                torch.cuda.synchronize()
+            row["control_collectives"] = sorted({e.name for e in prof.events()
+                                                 if DP_COLLECTIVE.search(e.name)})
+            require(row["trace_device_events"] > 0 and not row["sampler_collectives"],
+                    f"dp: the DP sampler's trace: {row['trace_device_events']} device "
+                    f"events, collectives {row['sampler_collectives']}")
+            require(row["control_collectives"] and float(t[0]) == 1.0,
+                    "dp: an NCCL all_reduce left no collective in its trace")
+        out["serve"][label] = row
+        del pipe, sampler, params
+        torch.cuda.empty_cache()
+    return out
+
+
+def dp_pair(dev, rank: int) -> dict:
+    """World size 2 over gloo, both processes on the card: a DP train step
+    against one process's at the global batch (rank 0), with a control;
+    token-sharded linear attention against the whole sequence's kernel, with
+    a control; DP serving gathered against one process's."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from cv_diffusion_tpu_torch.config import TrainConfig
+    from cv_diffusion_tpu_torch.export.serving import ServingPipeline
+    from cv_diffusion_tpu_torch.ops import linear_attention_kernel as lak
+    from cv_diffusion_tpu_torch.ops.attention import (linear_attention_plain,
+                                                      linear_attention_sharded)
+    from cv_diffusion_tpu_torch.parallel import (gather, make_mesh, make_sharded_sample_fn,
+                                                 shard_batch)
+    from cv_diffusion_tpu_torch.training.train_state import (create_train_state,
+                                                             make_train_step)
+
+    mesh = make_mesh()
+    out = {"backend": dist.get_backend(), "world": dist.get_world_size(),
+           "mesh": dict(mesh.shape), "rank": rank}
+    batch = softmax_batches(1, seed=6)[0]
+    tc = TrainConfig(use_amp=False, epochs=1, warmup_epochs=0)
+
+    def step(m, rows, seed):
+        model, schedule = dp_student(dev)
+        state = create_train_state(model, dataclasses.replace(tc, seed=seed),
+                                   steps_per_epoch=1)
+        state, met = make_train_step(model, schedule, tc, mesh=m)(state, rows)
+        torch.cuda.synchronize()
+        return dp_step_record(model, met["loss"], met["grad_norm"], tc.gradient_clip)
+
+    torch.backends.cudnn.deterministic = True
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        zero_launches()
+        got = step(mesh, shard_batch(mesh, batch), 0)
+        out["train_launches"] = dp_launches()
+        control = step(mesh, shard_batch(mesh, batch), rank)   # rank 1 seeded 1
+        if rank == 0:
+            want = step(None, batch, 0)
+            d, c = step_diffs(got, want), step_diffs(control, want)
+            require(within(d), f"dp: the world-2 step against one process: {d}")
+            require(not within(c), f"dp: the control (rank 1 seeded 1) passed: {c}")
+            out["train"] = dict(vs_one_process=d, control_other_seed=c, loss=got[0],
+                                tol=dict(loss_rel=STEP_LOSS_TOL,
+                                         grad_norm_rel=STEP_GRAD_NORM_TOL,
+                                         grad_tensor_rel=STEP_GRAD_TOL,
+                                         param_differ_share=STEP_PARAM_SHARE))
+        del got, control
+    finally:
+        torch.backends.cudnn.deterministic = False
+        torch.use_deterministic_algorithms(False)
+    require(out["train_launches"]["linear_attention"] > 0
+            and out["train_launches"]["linear_attention_backward"] > 0,
+            f"dp: process {rank}'s step launched {out['train_launches']}")
+
+    gen = torch.Generator(device=dev).manual_seed(3)
+    q, k, v = (torch.randn(DP_ATTN_SHAPE, generator=gen, device=dev) for _ in range(3))
+    sp = make_mesh((1, 2))
+    n = DP_ATTN_SHAPE[1] // 2
+    toks = slice(rank * n, (rank + 1) * n)
+    local = linear_attention_sharded(q[:, toks], k[:, toks], v[:, toks], sp)
+    whole = lak.linear_attention_kernel(q, k, v)[:, toks]
+    alone = linear_attention_plain(q[:, toks], k[:, toks], v[:, toks])
+    err, control_err = (float((x - whole).abs().max()) for x in (local, alone))
+    require(err <= TOL["float32"] < control_err,
+            f"dp: sharded linear attention {err}, its control {control_err}")
+    out["attention"] = dict(shape=list(DP_ATTN_SHAPE), spatial=2, max_abs_err=err,
+                            control_unreduced_err=control_err, tol=TOL["float32"])
+
+    pipe = ServingPipeline.from_artifact(STUDENT, device=dev)
+    sampler = make_sharded_sample_fn(pipe.model, pipe.schedule, mesh=mesh, timesteps=pipe.grid)
+    canvas = torch.from_numpy(np.random.default_rng(8).integers(
+        0, 256, (DP_BATCH, DP_SIZE, DP_SIZE, 3), dtype=np.uint8)).to(dev)
+    zero_launches()
+    local = sampler(pipe.model.state_dict(), torch.Generator(device=dev).manual_seed(4),
+                    canvas.float() / 127.5 - 1.0)
+    out["serve_launches"] = dp_launches()
+    whole = dp_to_u8(gather(mesh, local))
+    require(out["serve_launches"]["linear_attention"] > 0,
+            f"dp: process {rank}'s serve launched {out['serve_launches']}")
+    if rank == 0:
+        one = pipe._run(canvas, torch.Generator(device=dev).manual_seed(4))
+        lsb = int((one.int() - whole.int()).abs().max())
+        require(lsb <= GRAPH_LSB_TOL, f"dp: world-2 serving {lsb} LSB from one process")
+        out["serve"] = dict(max_lsb=lsb, values_off=int((one != whole).sum()),
+                            local_rows=int(local.shape[0]), graphs=sorted(sampler.graphs))
+    return out
+
+
+def dp_rank_main(world: int, rank: int, port: int, backend: str, path: str) -> int:
+    """One process of the dp phase: join the group, run its part, write it."""
+    import torch
+
+    from cv_diffusion_tpu_torch.device import pin_fp32
+    from cv_diffusion_tpu_torch.parallel import distributed_init, local_device
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 1
+    require(distributed_init(f"localhost:{port}", world, rank, device="cuda",
+                             backend=backend), "dp: no process group")
+    dev = local_device("cuda")
+    pin_fp32()
+    result = dp_single(dev) if world == 1 else dp_pair(dev, rank)
+    torch.distributed.barrier()
+    torch.distributed.destroy_process_group()
+    with open(path, "w") as f:
+        json.dump(result, f)
+    return 0
+
+
+def dp_phase() -> dict:
+    """Phase 27: world size 1 over NCCL, then 2 over gloo on the one card,
+    each process a ``--dp-rank`` subprocess; any process's failure fails
+    the phase. Returns the ``dp`` line's fields."""
+    import socket
+
+    t0 = time.perf_counter()
+    runs = {}
+    env = dict(os.environ, CUBLAS_WORKSPACE_CONFIG=":4096:8", PYTHONPATH=ROOT)
+    for world, backend in ((1, "nccl"), (2, "gloo")):
+        with socket.socket() as s:
+            s.bind(("localhost", 0))
+            port = s.getsockname()[1]
+        directory = tempfile.mkdtemp(prefix="dp_ranks_", dir=build_dir())
+        paths = [os.path.join(directory, f"rank{r}.json") for r in range(world)]
+        logs = [open(os.path.join(directory, f"rank{r}.log"), "w+") for r in range(world)]
+        start = time.perf_counter()
+        procs = [subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__), "--dp-rank", str(world), str(r),
+             str(port), backend, paths[r]], env=env, stdout=logs[r],
+            stderr=subprocess.STDOUT, cwd=ROOT) for r in range(world)]
+        try:
+            for p in procs:
+                p.wait(timeout=DP_TIMEOUT)
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+        failed = [(r, p.returncode) for r, p in enumerate(procs) if p.returncode != 0]
+        for r, _ in failed:
+            logs[r].seek(0)
+            print(logs[r].read()[-6000:], file=sys.stderr)
+        for f in logs:
+            f.close()
+        require(not failed, f"dp: world {world} over {backend}: processes exited {failed}")
+        runs[world] = dict(backend=backend, seconds=time.perf_counter() - start,
+                           ranks=[json.load(open(p)) for p in paths])
+        shutil.rmtree(directory, ignore_errors=True)
+    single, pair = runs[1]["ranks"][0], runs[2]["ranks"]
+    per_rank = [dict(rank=r["rank"], train=r["train_launches"], serve=r["serve_launches"])
+                for r in pair]
+    emit("dp", world1=dict(single, seconds=runs[1]["seconds"]),
+         world2=dict(backend="gloo", seconds=runs[2]["seconds"], launches=per_rank,
+                     train=pair[0]["train"], attention=[r["attention"] for r in pair],
+                     serve=pair[0]["serve"]),
+         seconds=time.perf_counter() - t0)
+    launches = {k: single["train"]["float32"]["launches"][k]
+                + sum(r["train_launches"][k] + r["serve_launches"][k] for r in pair)
+                + single["serve"]["float32"]["launches"][k]
+                + single["serve"]["float32+use_pallas_irb"]["launches"][k]
+                for k in ("linear_attention", "linear_attention_backward", "fused_irb_v2")}
+    bf16 = {k: single["train"]["bfloat16"]["launches"][k]
+            + single["serve"]["bfloat16"]["launches"][k]
+            for k in ("linear_attention", "linear_attention_backward")}
+    return {"float32": launches, "bfloat16": bf16}
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--profile", action="store_true",
                         help="also trace the 1-step student's serving and "
                              "three train steps with torch.profiler")
+    parser.add_argument("--dp-rank", nargs=5, default=None,
+                        metavar=("WORLD", "RANK", "PORT", "BACKEND", "OUT"),
+                        help="(the dp phase starts these) run one process of it")
     args = parser.parse_args()
+    if args.dp_rank is not None:
+        world, rank, port, backend, path = args.dp_rank
+        return dp_rank_main(int(world), int(rank), int(port), backend, path)
 
     import torch
 
@@ -5000,6 +5380,10 @@ def main() -> int:
     # 26. cli: the CLIs a user runs, through their main(argv) ----------------
     cli = cli_phase(dev, eval_rows[SERVED[0][0]]["per_image"])["launches"]
 
+    # 27. dp: data parallelism, world size 1 over NCCL and 2 over gloo -------
+    torch.cuda.empty_cache()
+    dp = dp_phase()
+
     # kernels line, nvidia-smi line, last line -----------------------------
     main_row = timings[((1, 1024, 4, 32), "float32")]
     bwd_main = bwd_rows[((8, 1024, 4, 32), "float32")]    # the train batch
@@ -5031,6 +5415,7 @@ def main() -> int:
         "launches_eval": sum(r["launches"]["linear_attention"] for r in eval_rows.values()),
         "launches_distill": distill_f32["linear_attention"],
         "launches_cli": cli["float32"],
+        "launches_dp": dp["float32"]["linear_attention"],
         "max_abs_err": mid_err,
         "ms": main_row["kernel_ms"],
         "plain_ms": main_row["plain_ms"],
@@ -5052,6 +5437,7 @@ def main() -> int:
         "launches_package": pkg_launches["fused_irb_v2"],
         "launches_package_in_replays": pkg_replayed["fused_irb_v2"],
         "launches_eval": sum(r["launches"]["fused_irb_v2"] for r in eval_rows.values()),
+        "launches_dp": dp["float32"]["fused_irb_v2"],
         "max_abs_err": irb_err_all,
         "ms": per_unet["kernel_ms"],
         "plain_ms": per_unet["plain_ms"],
@@ -5093,6 +5479,7 @@ def main() -> int:
         "replaces": "cv_diffusion_tpu/ops/pallas_attention.py:202",
         "launches": train_launches["linear_attention_backward"],
         "launches_distill": distill_f32["linear_attention_backward"],
+        "launches_dp": dp["float32"]["linear_attention_backward"],
         "max_abs_err": max(r["max_err"] for r in bwd_rows.values()
                            if r["dtype"] == "float32"),
         "ms": bwd_main["kernel_ms"],
@@ -5130,6 +5517,7 @@ def main() -> int:
                                    for r in data["runs"].values() if "launches" in r),
         "launches_distill": distill_bf16["linear_attention"],
         "launches_cli": cli["bfloat16"],
+        "launches_dp": dp["bfloat16"]["linear_attention"],
         "max_abs_err": bf16_checks["mid_attn_max_err"],
         "ms": main16["kernel_ms"],
         "plain_ms": main16["plain_ms"],
@@ -5150,6 +5538,7 @@ def main() -> int:
                                    for r in data["runs"].values() if "launches" in r),
         "launches_distill": distill_bf16["linear_attention_backward"],
         "launches_cli": cli["backward_bfloat16"],
+        "launches_dp": dp["bfloat16"]["linear_attention_backward"],
         "max_abs_err": amp_bwd_err,
         "ms": bwd16["kernel_ms"],
         "plain_ms": bwd16["plain_ms"],

@@ -202,11 +202,12 @@ class TrainConfig:
     ``data.dataset.create_dataloaders`` as in JAX (``native_loader=True``
     raises where the C++ loader cannot be built); checkpoints are written
     on a worker thread unless ``async_checkpoints`` is off; sample grids go
-    to ``output_dir`` every ``sample_interval`` epochs. Fields the port does
-    not have yet make the trainer raise ``NotImplementedError``
-    (``training.train_state.check_trainable``): a ``mesh_shape`` over more
-    than one device, and ``use_wandb``. ``qat``/``qat_act`` train through
-    ``export.qat`` (``training.trainer``).
+    to ``output_dir`` every ``sample_interval`` epochs. ``mesh_shape`` and
+    ``mesh_axes`` lay the processes of a ``torch.distributed`` group out as
+    ``parallel.make_mesh`` does (None: automatic, every process on the data
+    axis; ``training.trainer``). ``use_wandb`` makes the trainer raise
+    ``NotImplementedError`` (``training.train_state.check_trainable``).
+    ``qat``/``qat_act`` train through ``export.qat`` (``training.trainer``).
     """
 
     unet_variant: str = "small"
@@ -255,6 +256,8 @@ class TrainConfig:
     use_pallas: bool = False
     remat: bool = False
     grad_accum_steps: int = 1
+    # processes as a mesh: (8,) pure data parallelism, (4, 2) data x spatial
+    # (None: every process on the data axis); mesh_axes=None derives names
     mesh_shape: Optional[Tuple[int, ...]] = None
     mesh_axes: Optional[Tuple[str, ...]] = None
     qat: bool = False

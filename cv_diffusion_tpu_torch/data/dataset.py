@@ -261,19 +261,16 @@ class DataLoader:
 
 
 def _process_layout(shard_by_process: Optional[bool]) -> Tuple[bool, int, int]:
-    """(shard?, processes, this process) from ``torch.distributed``; the
-    port trains in one process, so a group of more than one is refused."""
+    """(shard?, processes, this process) from ``torch.distributed`` (JAX
+    ``dataset.py:327-331``): None shards when the group has more than one
+    process."""
     import torch.distributed as dist
 
     n_procs, pid = 1, 0
     if dist.is_available() and dist.is_initialized():
         n_procs, pid = dist.get_world_size(), dist.get_rank()
-    if n_procs > 1 and shard_by_process is not False:
-        raise NotImplementedError(
-            f"create_dataloaders in a process group of {n_procs}: training "
-            "over more than one process is not ported (ROADMAP queue 1 "
-            "item 8)")
-    return bool(shard_by_process), n_procs, pid
+    do_shard = n_procs > 1 if shard_by_process is None else bool(shard_by_process)
+    return do_shard, n_procs, pid
 
 
 def create_dataloaders(train_root: str, val_root: Optional[str] = None,
@@ -297,9 +294,11 @@ def create_dataloaders(train_root: str, val_root: Optional[str] = None,
       loader stays on the host.
     * ``prefetch`` > 0 wraps the host loaders in a
       :class:`~.prefetch.PrefetchLoader`.
-    * ``shard_by_process`` shards the train files over the processes of
-      an initialised ``torch.distributed`` group: one process is all the
-      port trains in, so a larger group raises.
+    * ``shard_by_process=None`` shards the TRAIN files over the processes
+      of an initialised ``torch.distributed`` group of more than one
+      (``shard_files_by_process``: each process trains on a disjoint shard;
+      the global batch is ``batch_size`` × processes). The val set is not
+      sharded: every process computes the same validation loss.
     * ``dataset_kwargs`` go to the dataset constructor(s) that take them;
       a name that neither takes is a ``TypeError``.
     """

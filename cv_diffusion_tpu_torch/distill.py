@@ -18,7 +18,11 @@ raw parameters without; ``--init_student`` always its raw parameters (the
 JAX CLI's default). ``--dtype bfloat16`` trains in bf16 compute,
 ``--remat`` rematerialises the student's blocks, ``--data_on_device`` caches
 the training set on the device; ``--use_pallas`` is accepted and ignored:
-linear attention always runs through the port's kernels.
+linear attention always runs through the port's kernels. With the
+environment of ``parallel.distributed_init`` (``CVDM_COORDINATOR`` …, or
+``CVDM_DISTRIBUTED=1`` under ``torch.distributed.run``) every process
+distills data parallel on its shard of the files, on
+``parallel.local_device``.
 
 The sampler-regression recipe of the committed 1-step student::
 
@@ -151,8 +155,14 @@ def main(argv=None):
     from .config import TrainConfig, diffusion_config
     from .data.dataset import create_dataloaders
     from .models.diffusion import create_model
+    from .parallel import distributed_init, local_device
     from .training import checkpoint as ckpt
     from .training.trainer import DistillationTrainer
+
+    # a process group from the CVDM_* or torch.distributed.run environment
+    # (none without it): the trainer is then data parallel over it
+    distributed_init(device=args.device)
+    args.device = local_device(args.device)
 
     # the student inherits the teacher's prediction target (its saved
     # model_config.json carries it on); a v-prediction teacher distilled

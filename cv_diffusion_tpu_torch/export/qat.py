@@ -60,15 +60,16 @@ def fake_quant_params(params: Dict[str, torch.Tensor], model_config,
 
 
 def make_qat_train_step(model, schedule, train_config,
-                        quant_config: Optional[QuantizationConfig] = None
-                        ) -> Callable:
+                        quant_config: Optional[QuantizationConfig] = None,
+                        mesh=None) -> Callable:
     """The train step whose forward sees int8-fake-quantized weights (JAX
     ``make_qat_train_step``): ``training.train_state.make_train_step`` with
     :func:`fake_quant_params` as its ``params_transform``, so clipping,
-    AdamW, the EMA and gradient accumulation are those of plain training."""
+    AdamW, the EMA, gradient accumulation and data parallelism over
+    ``mesh`` are those of plain training."""
     from ..training.train_state import make_train_step
 
     qcfg = quant_config or QuantizationConfig()
     return make_train_step(model, schedule, train_config,
                            params_transform=lambda p: fake_quant_params(
-                               p, model.config, qcfg))
+                               p, model.config, qcfg), mesh=mesh)

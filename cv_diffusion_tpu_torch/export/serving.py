@@ -120,9 +120,9 @@ class SamplerGraph:
 
     @torch.inference_mode()
     def __init__(self, sample: Callable, batch: int, size: int, steps: int,
-                 device: torch.device, pool):
+                 device: torch.device, pool, in_dtype=torch.uint8):
         start = time.perf_counter()
-        self.canvas = torch.zeros((batch, size, size, 3), dtype=torch.uint8,
+        self.canvas = torch.zeros((batch, size, size, 3), dtype=in_dtype,
                                   device=device)
         self.noise = (torch.zeros((batch, size, size, 3), device=device),
                       torch.zeros((steps, batch, size, size, 3), device=device))
@@ -148,6 +148,19 @@ class SamplerGraph:
         self.canvas.copy_(canvas_u8)
         sampler_noise(generator, self.canvas.shape, self.noise[1].shape[0],
                       self.canvas.device, out=self.noise)
+        return self._replay()
+
+    @torch.inference_mode()
+    def replay(self, canvas: torch.Tensor, init_noise: torch.Tensor,
+               step_noise: torch.Tensor) -> torch.Tensor:
+        """A replay on explicit noise (the data-parallel sampler's rows of
+        the global batch's noise)."""
+        self.canvas.copy_(canvas)
+        for buf, t in zip(self.noise, (init_noise, step_noise)):
+            buf.copy_(t)
+        return self._replay()
+
+    def _replay(self) -> torch.Tensor:
         self.graph.replay()
         self.replays += 1
         return self.out
@@ -414,6 +427,32 @@ class ServingPipeline:
             "postprocess_ms": float(np.mean(post_t) * 1000),
             "fps": float(1000.0 / arr.mean()),
         }
+
+
+def make_sample_fn(model: LowLightDiffusion, schedule: LCMSchedule,
+                   num_inference_steps: int, deterministic: bool = False,
+                   timesteps: Optional[Sequence[int]] = None) -> Callable:
+    """``fn(params_or_variables, generator, low_light) → enhanced`` (JAX
+    ``make_sample_fn``, ``serving.py:72``): the sampler of ``model`` on
+    ``low_light`` [B, H, W, 3] in [-1, 1], its noise drawn from
+    ``generator`` (``diffusion.sampler_noise``), the output float32.
+    ``params_or_variables`` is a bare state dict, used in place of the
+    module's parameters for the call, or ``{"params": ..., "act_scales":
+    ...}`` (an ``int8_act`` package's), whose scales are loaded into the
+    model's QConvs. ``deterministic`` takes renoise-free steps;
+    ``timesteps`` replaces the stock grid."""
+    def fn(params, generator, low_light):
+        variables = params if "params" in params else {"params": params}
+        if "act_scales" in variables:
+            load_act_scales(model, variables["act_scales"])
+        out = enhance(model, schedule, low_light,
+                      num_inference_steps=num_inference_steps,
+                      timesteps=timesteps, deterministic=deterministic,
+                      generator=generator, params=variables["params"],
+                      device=next(model.parameters()).device)
+        return out.float()
+
+    return fn
 
 
 # a package's int8 params: the quantized dict flattened under these prefixes

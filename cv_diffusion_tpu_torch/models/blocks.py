@@ -33,6 +33,7 @@ from ..ops.fused_irb import irb_args
 from ..ops.norms import (concat_group_norm_parts, gn2_film_affine_gram,
                          gn_num_groups, group_norm, group_norm_film)
 from ..ops.qconv import Conv2d, QConv
+from . import rows
 
 
 def dense(x: torch.Tensor, weight: torch.Tensor, bias: Optional[torch.Tensor],
@@ -141,7 +142,8 @@ def dropout(x: torch.Tensor, rate: float,
     if rate >= 1.0:
         return torch.zeros_like(x)
     keep = 1.0 - rate
-    mask = torch.rand(x.shape, generator=generator, device=x.device) < keep
+    mask = rows.draw(lambda s: torch.rand(s, generator=generator,
+                                          device=x.device), x.shape) < keep
     return torch.where(mask, x / keep, torch.zeros_like(x))
 
 

@@ -26,6 +26,7 @@ from ..config import DiffusionConfig
 from ..device import pin_fp32, resolve_device
 from ..ops import upcast
 from ..ops.qconv import QConv
+from . import rows
 from . import scheduler as sched
 from .blocks import Conv2d, SiLU, set_compute_dtype
 from .scheduler import LCMSchedule, make_schedule
@@ -125,10 +126,13 @@ def sample_timesteps_and_noise(schedule: LCMSchedule, shape: Sequence[int],
                                device) -> Tuple[torch.Tensor, torch.Tensor]:
     """t ~ U[0, T) [B] and ε ~ N(0, 1) of ``shape`` (NHWC), drawn from
     ``generator`` in that order: what :func:`train_forward` draws when it is
-    given neither."""
-    t = torch.randint(0, schedule.config.num_train_timesteps, (shape[0],),
-                      generator=generator, device=device)
-    noise = torch.randn(tuple(shape), generator=generator, device=device)
+    given neither. Inside ``rows.global_batch`` both are drawn for the
+    global batch and narrowed to this process's rows."""
+    t = rows.draw(lambda s: torch.randint(
+        0, schedule.config.num_train_timesteps, s, generator=generator,
+        device=device), (shape[0],))
+    noise = rows.draw(lambda s: torch.randn(s, generator=generator,
+                                            device=device), shape)
     return t, noise
 
 
@@ -214,7 +218,18 @@ def sampler_noise(generator: Optional[torch.Generator],
     grid, the 1-step one too, whose renoise is unused). :func:`enhance`
     draws its noise here, and the serving pipeline's CUDA graph fills its
     buffers here (``out``, filled in place), so a seed gives the same image
-    either way."""
+    either way. Inside ``rows.global_batch`` both are drawn for the global
+    batch and narrowed to this process's rows (dim 0 of ``init_noise``,
+    dim 1 of ``step_noise``)."""
+    if rows.active():
+        def fill(s):
+            return torch.empty(s, device=device).normal_(generator=generator)
+        drawn = (rows.draw(fill, shape), rows.draw(fill, (steps,) + tuple(shape), 1))
+        if out is None:
+            return drawn
+        for t, d in zip(out, drawn):
+            t.copy_(d)
+        return out
     if out is None:
         out = (torch.empty(tuple(shape), device=device),
                torch.empty((steps,) + tuple(shape), device=device))

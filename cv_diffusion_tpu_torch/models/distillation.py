@@ -33,6 +33,7 @@ import torch
 
 from ..config import TrainConfig
 from ..ops import upcast
+from . import rows
 from . import scheduler as sched
 from .diffusion import LowLightDiffusion, _to_nchw, huber, run_sampler, sampler_noise
 from .scheduler import LCMSchedule
@@ -79,8 +80,9 @@ def sample_canonical_pairs(batch_size: int, num_train_timesteps: int,
     c = num_train_timesteps // num_ddim_timesteps
     k = num_ddim_timesteps // num_inference_steps if stride is None else stride
     if idx is None:
-        idx = torch.randint(k, num_ddim_timesteps - 1, (batch_size,),
-                            generator=generator, device=device)
+        idx = rows.draw(lambda s: torch.randint(
+            k, num_ddim_timesteps - 1, s, generator=generator, device=device),
+            (batch_size,))
     return idx * c + c - 1, (idx - k) * c + c - 1
 
 
@@ -93,8 +95,9 @@ def sample_sampler_pairs(batch_size: int, grid: Sequence[int], *,
     pairing, JAX ``distillation.py:152-158``)."""
     g = torch.as_tensor(list(grid), device=device if idx is None else idx.device)
     if idx is None:
-        idx = torch.randint(0, len(grid) - 1, (batch_size,),
-                            generator=generator, device=device)
+        idx = rows.draw(lambda s: torch.randint(
+            0, len(grid) - 1, s, generator=generator, device=device),
+            (batch_size,))
     return g[idx], g[idx + 1]
 
 
@@ -156,8 +159,9 @@ def consistency_distillation_loss(
     batch = low_light.shape[0]
     device = normal_light.device
     if noise is None:
-        noise = torch.randn(normal_light.shape, generator=generator,
-                            device=device, dtype=normal_light.dtype)
+        noise = rows.draw(lambda s: torch.randn(
+            s, generator=generator, device=device, dtype=normal_light.dtype),
+            normal_light.shape)
     if timesteps is None:
         T = schedule.config.num_train_timesteps
         if sampler_matched:
@@ -175,8 +179,9 @@ def consistency_distillation_loss(
                 generator=generator, device=device)
     t, t_next = (torch.as_tensor(v, device=device) for v in timesteps)
     if sampler_matched and renoise is None:
-        renoise = torch.randn(normal_light.shape, generator=generator,
-                              device=device, dtype=upcast(normal_light).dtype)
+        renoise = rows.draw(lambda s: torch.randn(
+            s, generator=generator, device=device,
+            dtype=upcast(normal_light).dtype), normal_light.shape)
 
     x0 = _to_nchw(normal_light)
     low = _to_nchw(low_light)
@@ -378,7 +383,8 @@ LossFn = Callable[[DistillationState, torch.Tensor, torch.Tensor, dict],
                   torch.Tensor]
 
 
-def _distillation_step(loss_fn: LossFn, ema_decay: float) -> Callable:
+def _distillation_step(loss_fn: LossFn, ema_decay: float,
+                       mesh=None) -> Callable:
     """The update around a loss (JAX ``_jit_distillation_step``): the loss
     of the student, its gradients, the clip and AdamW step
     (``train_state.optimizer_update``; ``grad_norm`` before the clip), the
@@ -386,22 +392,39 @@ def _distillation_step(loss_fn: LossFn, ema_decay: float) -> Callable:
     batch, draws=None)``: ``batch`` holds NHWC ``low_light`` and
     ``normal_light`` (numpy arrays or tensors, taken in the student's
     parameter dtype), ``draws`` the loss's
-    explicit draws by keyword."""
+    explicit draws by keyword.
+
+    With ``mesh`` the step is data parallel as ``train_state.
+    make_train_step``'s (JAX ``:343-407``): ``batch`` is this process's
+    rows, the draws are made for the global batch and narrowed to them,
+    the gradients and the loss are averaged over the data axis before the
+    clip, and the first step copies the first process's student and EMA
+    to the others."""
+    from ..parallel.mesh import data_shard
     from ..training.ema import update_ema
-    from ..training.train_state import optimizer_update
+    from ..training.train_state import (optimizer_update, reduce_gradients,
+                                        shard_rows, sync_replicas)
+
+    shard = data_shard(mesh)
+    synced = []
 
     def step(state: DistillationState, batch, draws: Optional[dict] = None):
+        if not synced:
+            sync_replicas(shard, state.model, state.ema_params)
+            synced.append(True)
         p = next(state.model.parameters())
         low, normal = (torch.as_tensor(batch[k]).to(p.device, p.dtype, non_blocking=True)
                        for k in ("low_light", "normal_light"))
         state.optimizer.zero_grad(set_to_none=True)
-        loss = loss_fn(state, low, normal, draws or {})
-        loss.backward()
+        with shard_rows(shard, low.shape[0]):
+            loss = loss_fn(state, low, normal, draws or {})
+            loss.backward()
+        loss = reduce_gradients(shard, state.model, loss.detach())
         norm = optimizer_update(state.model, state.optimizer, state.lr_schedule,
                                 state.step, state.max_grad_norm)
         update_ema(state.ema_params, state.params, ema_decay)
         state.step += 1
-        return state, {"loss": loss.detach(), "grad_norm": norm}
+        return state, {"loss": loss, "grad_norm": norm}
 
     return step
 
@@ -413,11 +436,13 @@ def make_distillation_step(model: LowLightDiffusion, schedule: LCMSchedule,
                            canonical: bool = False,
                            clip_x0: Optional[float] = 1.5,
                            pair_stride: Optional[int] = None,
-                           sampler_matched: bool = False) -> Callable:
+                           sampler_matched: bool = False,
+                           mesh=None) -> Callable:
     """The consistency-distillation step (JAX ``make_distillation_step``):
     :func:`consistency_distillation_loss` of the state's student against
     its teacher and EMA. EMA decay 0.95, the distillation components'
-    default, not the trainer's 0.9999."""
+    default, not the trainer's 0.9999. ``mesh``: data parallel
+    (:func:`_distillation_step`)."""
     def loss_fn(state, low, normal, draws):
         return consistency_distillation_loss(
             model, schedule, state.teacher_params, None, state.ema_params,
@@ -426,7 +451,7 @@ def make_distillation_step(model: LowLightDiffusion, schedule: LCMSchedule,
             sampler_matched=sampler_matched, generator=state.generator,
             **draws)
 
-    return _distillation_step(loss_fn, ema_decay)
+    return _distillation_step(loss_fn, ema_decay, mesh)
 
 
 def make_regression_distillation_step(
@@ -437,11 +462,13 @@ def make_regression_distillation_step(
         deterministic_teacher: bool = False,
         gt_weight: float = 0.0,
         full_grad: bool = False,
-        teacher_model: Optional[LowLightDiffusion] = None) -> Callable:
+        teacher_model: Optional[LowLightDiffusion] = None,
+        mesh=None) -> Callable:
     """The sampler-regression step (JAX
     ``make_regression_distillation_step``): :func:`sampler_regression_loss`,
     the 1-step student's training mode; for m > 1 the stop-grad prefix
-    unless ``full_grad``."""
+    unless ``full_grad``. ``mesh``: data parallel
+    (:func:`_distillation_step`)."""
     grid = tuple(int(t) for t in student_timesteps)
 
     def loss_fn(state, low, normal, draws):
@@ -452,4 +479,4 @@ def make_regression_distillation_step(
             full_grad=full_grad, teacher_model=teacher_model,
             generator=state.generator, **draws)
 
-    return _distillation_step(loss_fn, ema_decay)
+    return _distillation_step(loss_fn, ema_decay, mesh)

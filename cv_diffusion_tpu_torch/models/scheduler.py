@@ -19,6 +19,7 @@ import numpy as np
 import torch
 
 from ..config import SchedulerConfig
+from . import rows
 
 
 @dataclass(frozen=True)
@@ -218,6 +219,7 @@ def consistency_timestep_pairs(batch_size: int, num_inference_steps: int,
     c = num_train_timesteps // num_ddim_timesteps
     k = num_ddim_timesteps // num_inference_steps
     if idx is None:
-        idx = torch.randint(0, num_ddim_timesteps - k - 1, (batch_size,),
-                            generator=generator, device=device)
+        idx = rows.draw(lambda s: torch.randint(
+            0, num_ddim_timesteps - k - 1, s, generator=generator,
+            device=device), (batch_size,))
     return idx * c + c - 1, (idx + k) * c + c - 1

@@ -88,6 +88,36 @@ def linear_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return linear_attention_trainable(q, k, v, eps)
 
 
+def linear_attention_sharded(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                             mesh, axis: str = "spatial",
+                             eps: float = 1e-6) -> torch.Tensor:
+    """Token-sharded linear attention over a mesh axis (JAX
+    ``linear_attention_sharded``, ``ops/attention.py:100-136``).
+
+    ``q``, ``k``, ``v`` are this process's tokens [B, N/n, H, D] of a
+    sequence split over the ``n`` ranks of ``mesh``'s ``axis`` (rank i of
+    the axis holds tokens [i·N/n, (i+1)·N/n)). Each process forms φ(K)ᵀV
+    [B, H, D, D] and Σφ(K) [B, H, D] over its tokens in float32, one
+    ``all_reduce`` of each sums them over the axis's subgroup, and each
+    process applies them to its own rows of φ(Q): the output is its tokens
+    of the whole sequence's linear attention, in q's dtype. Forward only,
+    plain PyTorch, as JAX's is XLA einsums; no model path calls it."""
+    import torch.distributed as dist
+
+    group = mesh.group(axis)
+    qf = elu_plus_one(upcast(q))
+    kf = elu_plus_one(upcast(k))
+    vf = upcast(v)
+    k_sum = kf.sum(dim=1).contiguous()                      # [B, H, D]
+    kv = torch.einsum("bnhd,bnhe->bhde", kf, vf).contiguous()   # [B, H, D, D]
+    if group is not None:
+        dist.all_reduce(k_sum, group=group)
+        dist.all_reduce(kv, group=group)
+    num = torch.einsum("bnhd,bhde->bnhe", qf, kv)
+    den = torch.einsum("bnhd,bhd->bnh", qf, k_sum)
+    return (num / (den[..., None] + eps)).to(q.dtype)
+
+
 def _round_like(p: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
     """p rounded to ``like``'s dtype where that is narrower (bf16), kept in
     p's dtype: the stock flash kernel's ``p.astype(v.dtype)`` before a

@@ -10,16 +10,22 @@ no PyYAML needed): its ``train`` section is the base, only the flags present
 in the command line override it, and ``data.train_root``, ``data.val_root``
 and ``data.use_synthetic`` give the directories (JAX ``scripts/train.py:54``).
 A field the port refuses raises where it does without the YAML
-(``training.train_state.check_trainable``: ``mesh_shape`` over more than
-one device, ``use_wandb``). Flags of features the port does not have raise
-``NotImplementedError``: ``--distributed`` (ROADMAP queue 1 item 8),
-``--wandb`` (not queued). ``--qat`` trains with the weights fake-quantized
-in the forward, ``--qat_act`` also with every convolution's input
-fake-quantized (``export.qat``).
+(``training.train_state.check_trainable``: ``use_wandb``). ``--wandb``
+raises ``NotImplementedError`` (not queued). ``--qat`` trains with the
+weights fake-quantized in the forward, ``--qat_act`` also with every
+convolution's input fake-quantized (``export.qat``). ``--distributed``
+starts the process group (``parallel.distributed_init``: the
+``CVDM_COORDINATOR`` / ``CVDM_NUM_PROCESSES`` / ``CVDM_PROCESS_ID``
+variables, or ``CVDM_DISTRIBUTED=1`` under ``torch.distributed.run``; a
+no-op without them, as in JAX): every process then trains on
+``parallel.local_device`` on its shard of the files, data parallel (NCCL
+on CUDA, gloo on the CPU).
 
     python -m cv_diffusion_tpu_torch.train --data_dir D --val_dir V \\
         --variant small --image_size 256 --epochs 100 --batch_size 8
     python -m cv_diffusion_tpu_torch.train --config configs/default.yaml --epochs 1
+    CVDM_DISTRIBUTED=1 python -m torch.distributed.run --nproc_per_node 8 \\
+        -m cv_diffusion_tpu_torch.train --distributed --data_dir D --val_dir V
 """
 
 from __future__ import annotations
@@ -71,8 +77,6 @@ _INVERTED = ("no_amp", "no_ema", "sync_checkpoints")
 
 # flag → why the port refuses it
 _REFUSED = {
-    "distributed": "--distributed: training over more than one process is "
-                   "not ported (ROADMAP queue 1 item 8)",
     "wandb": "--wandb: W&B logging is not ported (not queued: no wandb and "
              "no network; ROADMAP queue 1 item 4)",
 }
@@ -149,7 +153,11 @@ def build_parser() -> argparse.ArgumentParser:
                         "fresh optimizer and epoch")
     p.add_argument("--init_ema", action="store_true",
                    help="With --init_params: start from the checkpoint's EMA")
-    p.add_argument("--distributed", action="store_true", help="Refused")
+    p.add_argument("--distributed", action="store_true",
+                   help="Multi-process: torch.distributed from "
+                        "CVDM_COORDINATOR/CVDM_NUM_PROCESSES/CVDM_PROCESS_ID "
+                        "(or torch.distributed.run's environment with "
+                        "CVDM_DISTRIBUTED=1)")
     p.add_argument("--config", type=str, default=None,
                    help="Experiment YAML (configs/default.yaml's layout); "
                         "flags given on the command line override it")
@@ -199,10 +207,13 @@ def main(argv=None) -> None:
     args = build_parser().parse_args(argv)
     config, data_dir, val_dir, use_synth = resolve_config(args, argv)
     resolve_device(args.device)
+    from .parallel import distributed_init, local_device
     from .training.trainer import train_model
 
+    if args.distributed:
+        distributed_init(device=args.device)
     train_model(data_dir, val_dir, config, use_synthetic=use_synth,
-                device=args.device)
+                device=local_device(args.device))
 
 
 if __name__ == "__main__":

@@ -12,6 +12,15 @@ model computes in its config's dtype (bfloat16 under ``use_amp``, which
 their gradients, AdamW's moments and the EMA stay float32: the loss is
 taken in float32 and the gradients reach the float32 parameters through
 the casts, as in JAX.
+
+Over a mesh (``parallel.make_mesh``: one process per GPU) the steps are
+data parallel and equal the one-process step at the global batch, as
+JAX's steps over a mesh equal its single-device step: t, ε and the dropout
+masks are drawn for the global batch from the state's generator, seeded
+alike everywhere, and each process takes its rows (``models.rows``); the
+gradients and the loss are averaged over the data axis (one flattened
+``all_reduce``) before the clip, so the update, the EMA and the LR are the
+same in every process.
 """
 
 from __future__ import annotations
@@ -24,17 +33,20 @@ import numpy as np
 import torch
 
 from ..config import TrainConfig
+from ..ops import upcast
+from ..models import rows
 from ..models.diffusion import (LowLightDiffusion, diffusion_loss,
                                 train_forward)
 from ..models.scheduler import LCMSchedule
+from ..parallel.mesh import (DataShard, Mesh, all_reduce_mean_,
+                             all_reduce_sum, broadcast_, data_shard,
+                             shard_batch)
 from .ema import init_ema, update_ema
 
 Schedule = Callable[[int], float]
 
 # TrainConfig fields the port does not have yet: (name, refused when, what).
 _UNPORTED = (
-    ("mesh_shape", lambda v: v is not None and math.prod(v) > 1,
-     "training over more than one device (ROADMAP queue 1 item 8)"),
     ("use_wandb", lambda v: v,
      "W&B logging (not queued: no wandb and no network; ROADMAP queue 1 "
      "item 4)"),
@@ -212,30 +224,88 @@ def apply_update(state: TrainState, config: TrainConfig
     return norm
 
 
-def _as_tensor(x, device) -> torch.Tensor:
-    return torch.as_tensor(x).to(device=device, dtype=torch.float32,
+def _as_tensor(x, device, dtype=torch.float32) -> torch.Tensor:
+    return torch.as_tensor(x).to(device=device, dtype=dtype,
                                  non_blocking=True)
+
+
+def shard_rows(shard: Optional[DataShard], local: int):
+    """The draws' block of a global batch of which this process holds
+    ``local`` rows (the whole batch without a mesh)."""
+    return rows.global_batch(*(shard.rows(local) if shard is not None
+                               else (local, 0, local)))
+
+
+def sync_replicas(shard: Optional[DataShard], model: torch.nn.Module,
+                  ema: Optional[Dict[str, torch.Tensor]] = None) -> None:
+    """Copy the data axis's first process's parameters, buffers and EMA to
+    the others (what ``DistributedDataParallel`` does when it is built):
+    the replicas then start equal whatever each process initialised."""
+    if shard is None or shard.size == 1:
+        return
+    tensors = [t.data for t in model.parameters()] + list(model.buffers())
+    if ema is not None:
+        tensors += list(ema.values())
+    for dtype in sorted({t.dtype for t in tensors}, key=str):
+        broadcast_([t for t in tensors if t.dtype == dtype], shard.group,
+                   shard.src)
+
+
+def reduce_gradients(shard: Optional[DataShard], model: torch.nn.Module,
+                     loss: torch.Tensor) -> torch.Tensor:
+    """Average the gradients held in ``.grad`` over the data axis in place
+    (every parameter: a missing gradient counts as zeros, as in JAX), and
+    return the loss averaged likewise."""
+    if shard is None or shard.size == 1:
+        return loss
+    params = list(model.parameters())
+    for p in params:
+        if p.grad is None:
+            p.grad = torch.zeros_like(p)
+    grads = [p.grad for p in params]
+    for dtype in sorted({g.dtype for g in grads}, key=str):
+        all_reduce_mean_([g for g in grads if g.dtype == dtype], shard.group)
+    return all_reduce_sum(loss, shard.group) / shard.size
 
 
 def make_train_step(model: LowLightDiffusion, schedule: LCMSchedule,
                     config: TrainConfig,
-                    params_transform: Optional[Callable] = None) -> Callable:
-    """``step(state, batch) → (state, {"loss", "grad_norm"})``, both device
-    scalars (no host sync). ``batch`` holds NHWC ``low_light`` and
-    ``normal_light`` in [-1, 1] (numpy arrays or tensors).
+                    params_transform: Optional[Callable] = None,
+                    mesh: Optional[Mesh] = None) -> Callable:
+    """``step(state, batch, draws=None) → (state, {"loss", "grad_norm"})``,
+    both device scalars (no host sync). ``batch`` holds NHWC ``low_light``
+    and ``normal_light`` in [-1, 1] (numpy arrays or tensors, taken in the
+    parameters' dtype); ``draws`` explicit ``timesteps`` [B] and ``noise``
+    [B, H, W, 3] for the batch's rows.
 
     ``params_transform`` (the QAT fake-quant, ``export.qat``) maps the
     parameters (``{name: Parameter}``) to those the forward uses, inside
     the loss (``torch.func.functional_call``): the gradients reach the raw
     parameters through it, and the optimizer and the EMA update those (JAX
-    ``train_state.py:140-163``)."""
-    check_trainable(config)
-    accum = max(1, config.grad_accum_steps)
-    device = next(model.parameters()).device
+    ``train_state.py:140-163``).
 
-    def step(state: TrainState, batch) -> Tuple[TrainState, Dict]:
-        low = _as_tensor(batch["low_light"], device)
-        normal = _as_tensor(batch["normal_light"], device)
+    With ``mesh`` the step is data parallel (module docstring): ``batch``
+    is this process's rows (``parallel.shard_batch`` of a global batch, or
+    its own loader's batch), and the first step copies the first
+    process's parameters and EMA to the others. With ``grad_accum_steps``
+    k, micro-batch i is every process's local rows [i·b/k, (i+1)·b/k)
+    (each micro-batch stays split over the processes) and the gradients are
+    reduced once, after the last. A spatial axis of more than one process
+    raises ``NotImplementedError`` (ROADMAP queue 1 item 8b)."""
+    check_trainable(config)
+    shard = data_shard(mesh)
+    accum = max(1, config.grad_accum_steps)
+    param = next(model.parameters())
+    device = param.device
+    synced = []
+
+    def step(state: TrainState, batch, draws: Optional[Dict] = None
+             ) -> Tuple[TrainState, Dict]:
+        if not synced:
+            sync_replicas(shard, model, state.ema_params)
+            synced.append(True)
+        low = _as_tensor(batch["low_light"], device, param.dtype)
+        normal = _as_tensor(batch["normal_light"], device, param.dtype)
         lead = low.shape[0]
         if lead % accum:
             raise ValueError(f"batch size {lead} not divisible by "
@@ -244,21 +314,25 @@ def make_train_step(model: LowLightDiffusion, schedule: LCMSchedule,
         micro = lead // accum
         loss = torch.zeros((), device=device)
         for i in range(accum):
-            rows = slice(i * micro, (i + 1) * micro)
+            part = slice(i * micro, (i + 1) * micro)
+            given = {k: torch.as_tensor(v)[part].to(device)
+                     for k, v in (draws or {}).items()}
             params = (None if params_transform is None
                       else params_transform(dict(model.named_parameters())))
-            out = train_forward(model, schedule, low[rows], normal[rows],
-                                generator=state.generator, train=True,
-                                params=params)
-            micro_loss = diffusion_loss(out["noise_pred"], out["target"],
-                                        config.loss_type)
-            micro_loss.backward()
+            with shard_rows(shard, micro):
+                out = train_forward(model, schedule, low[part], normal[part],
+                                    generator=state.generator, train=True,
+                                    params=params, **given)
+                micro_loss = diffusion_loss(out["noise_pred"], out["target"],
+                                            config.loss_type)
+                micro_loss.backward()
             loss = loss + micro_loss.detach()
         if accum > 1:
             loss = loss / accum
             with torch.no_grad():
                 torch._foreach_div_([p.grad for p in model.parameters()
                                      if p.grad is not None], accum)
+        loss = reduce_gradients(shard, model, loss)
         norm = apply_update(state, config)
         if config.debug_nans and not bool(torch.isfinite(loss)
                                           & torch.isfinite(norm)):
@@ -270,24 +344,49 @@ def make_train_step(model: LowLightDiffusion, schedule: LCMSchedule,
 
 
 def make_eval_step(model: LowLightDiffusion, schedule: LCMSchedule,
-                   config: TrainConfig) -> Callable:
+                   config: TrainConfig, mesh: Optional[Mesh] = None
+                   ) -> Callable:
     """``eval(params, generator, batch, n_valid=None) → mse``: the
     validation loss, mse whatever ``config.loss_type`` is (as the JAX
     package and its reference), per image and averaged over the first
-    ``n_valid`` rows; t and ε drawn from ``generator``; ``params`` (e.g. the
-    EMA) in place of the module's own, or None for those."""
-    device = next(model.parameters()).device
+    ``n_valid`` rows (the rest, e.g. ``parallel.pad_batch``'s padding,
+    masked out); t and ε drawn from ``generator``; ``params`` (e.g. the
+    EMA) in place of the module's own, or None for those.
+
+    With ``mesh``, ``batch`` is the global batch, whole in every process:
+    each takes its rows (``parallel.shard_batch``; a batch that does not
+    split over the data axis is computed whole everywhere), t and ε are
+    drawn for the global batch, and the masked per-image sums are added
+    over the data axis and divided by ``n_valid`` (JAX
+    ``train_state.py:234-276``): every process gets the same loss."""
+    shard = data_shard(mesh)
+    param = next(model.parameters())
+    device = param.device
 
     @torch.no_grad()
     def evaluate(params, generator, batch, n_valid: Optional[int] = None
                  ) -> torch.Tensor:
-        low = _as_tensor(batch["low_light"], device)
-        normal = _as_tensor(batch["normal_light"], device)
-        out = train_forward(model, schedule, low, normal, generator=generator,
-                            train=False, params=params)
-        err = out["noise_pred"].float() - out["target"].float()
+        total = len(batch["low_light"])
+        n = total if n_valid is None else n_valid
+        split = shard is not None and total % shard.size == 0
+        if split:
+            batch = shard_batch(mesh, {k: batch[k] for k in
+                                       ("low_light", "normal_light")})
+        low = _as_tensor(batch["low_light"], device, param.dtype)
+        normal = _as_tensor(batch["normal_light"], device, param.dtype)
+        local = low.shape[0]
+        block = shard.rows(local) if split else (local, 0, local)
+        with rows.global_batch(*block):
+            out = train_forward(model, schedule, low, normal,
+                                generator=generator, train=False,
+                                params=params)
+        err = upcast(out["noise_pred"]) - upcast(out["target"])
         per_image = (err * err).mean(dim=(1, 2, 3))
-        n = per_image.shape[0] if n_valid is None else n_valid
-        return per_image[:n].sum() / max(n, 1)
+        index = torch.arange(block[1], block[2], device=device)
+        masked = torch.where(index < n, per_image,
+                             torch.zeros_like(per_image)).sum()
+        if split:
+            masked = all_reduce_sum(masked, shard.group)
+        return masked / max(n, 1)
 
     return evaluate

@@ -14,6 +14,20 @@ trains from image directories, as the JAX one. ``qat`` / ``qat_act`` take
 the QAT step (``export.qat``); ``qat_act`` on a model not built with
 ``unet.act_quant="fake"`` raises, where the JAX trainer quietly trains
 weight-only QAT. W&B is not ported.
+
+In a ``torch.distributed`` group (``parallel.distributed_init``, one
+process per GPU) the trainers are data parallel over a mesh (``mesh=None``:
+``config.mesh_shape``, else every process on the data axis; ``False``:
+off): each process trains on its loader's batches (``data.dataset.
+create_dataloaders`` gives it its shard of the files, so the global batch
+is ``batch_size`` × processes) through the steps' ``mesh`` paths, the
+validation set is whole everywhere and each process evaluates its rows of
+each padded batch, so every process gets the same validation loss; sample
+grids and checkpoints are written by process 0 alone (the state is
+replicated, so one writer writes what every process holds; the JAX
+package saves from every process because orbax's sharded save is
+collective), the others waiting at a barrier, and checkpoints are written
+synchronously.
 :class:`DistillationTrainer` is the host loop of distillation (JAX
 ``trainer.py:369-598``): a student trained from a frozen teacher, with the
 best-by-PSNR EMA student kept.
@@ -33,6 +47,8 @@ from ..config import TrainConfig, diffusion_config, to_json
 from ..models.diffusion import (LowLightDiffusion, create_model,
                                 denormalize_image, enhance)
 from ..models.scheduler import LCMSchedule
+from ..parallel.mesh import (Mesh, auto_mesh, barrier, make_mesh, pad_batch,
+                             world)
 from . import checkpoint as ckpt
 from .metrics import psnr, ssim
 from .train_state import (check_trainable, create_train_state, make_eval_step,
@@ -54,13 +70,30 @@ def save_comparison_grid(low, enhanced, target, path: str) -> None:
     write_png(path, np.concatenate(rows, axis=0))
 
 
+def resolve_mesh(mesh, config: TrainConfig) -> Optional[Mesh]:
+    """A trainer's mesh (JAX ``trainer.py:84-95``): ``False`` → None (one
+    process's step); a mesh → itself; None → ``config.mesh_shape`` and
+    ``mesh_axes`` over the process group's ranks when set, else every
+    process on the data axis (``auto_mesh`` of the global batch), which is
+    None in one process."""
+    if mesh is False:
+        return None
+    if mesh is not None:
+        return mesh
+    if config.mesh_shape is not None:
+        return make_mesh(tuple(config.mesh_shape),
+                         None if config.mesh_axes is None else tuple(config.mesh_axes))
+    return auto_mesh(config.batch_size * world()[0])
+
+
 class _HostLoop:
     """What both trainers share: the model on its device, the loaders, the
-    checkpoint saver and output directories, and the epoch loop around
-    ``self.train_step`` (set by the subclass)."""
+    mesh, the checkpoint saver and output directories, and the epoch loop
+    around ``self.train_step`` (set by the subclass)."""
 
     def __init__(self, model: LowLightDiffusion, schedule: LCMSchedule,
-                 train_loader, val_loader, config: Optional[TrainConfig]):
+                 train_loader, val_loader, config: Optional[TrainConfig],
+                 mesh=None):
         self.config = config or TrainConfig()
         check_trainable(self.config)
         self.model = model
@@ -69,8 +102,13 @@ class _HostLoop:
         self.val_loader = val_loader
         self.device = next(model.parameters()).device
         self.epoch = 0
+        self.mesh = resolve_mesh(mesh, self.config)
+        processes, rank = world()
+        # host-only side effects (grids, checkpoints, logs) on process 0
+        self.is_main_process = rank == 0
         self._saver = (ckpt.AsyncCheckpointSaver()
-                       if self.config.async_checkpoints else None)
+                       if self.config.async_checkpoints and processes == 1
+                       else None)
         # where the last epoch's time went: steps, seconds, and the seconds
         # spent waiting for the loader's next batch
         self.epoch_stats: Dict[str, float] = {}
@@ -103,7 +141,7 @@ class _HostLoop:
             self.state, metrics = self.train_step(self.state,
                                                   self._device_batch(batch))
             total = total + metrics["loss"]
-            if count % self.config.log_interval == 0:
+            if count % self.config.log_interval == 0 and self.is_main_process:
                 print(f"epoch {self.epoch} step {self.state.step}: "
                       f"loss={float(metrics['loss']):.4f} "
                       f"lr={self.state.lr_schedule(self.state.step):.3e}", flush=True)
@@ -118,14 +156,22 @@ class _HostLoop:
         if self._saver is not None:
             self._saver.wait()
 
+    def _write(self, save, *args, **kwargs) -> None:
+        """``save(*args, **kwargs)`` on process 0 (on the worker thread when
+        checkpoints are asynchronous), then every process waits for it."""
+        if self.is_main_process:
+            save(*args, **kwargs)
+        barrier()
+
 
 class Trainer(_HostLoop):
     """Host-side training loop of a model on its device."""
 
     def __init__(self, model: LowLightDiffusion, schedule: LCMSchedule,
                  train_loader, val_loader=None,
-                 config: Optional[TrainConfig] = None):
-        super().__init__(model, schedule, train_loader, val_loader, config)
+                 config: Optional[TrainConfig] = None, mesh=None):
+        super().__init__(model, schedule, train_loader, val_loader, config,
+                         mesh)
         if self.config.init_params_from:
             # fine-tuning warm start (unlike resume): the weights only; the
             # state below starts from them (step 0, fresh AdamW, EMA = them)
@@ -143,17 +189,22 @@ class Trainer(_HostLoop):
                 "train_model builds it so")
         if self.config.qat or self.config.qat_act:
             from ..export.qat import make_qat_train_step
-            self.train_step = make_qat_train_step(model, schedule, self.config)
+            self.train_step = make_qat_train_step(model, schedule, self.config,
+                                                  mesh=self.mesh)
         else:
-            self.train_step = make_train_step(model, schedule, self.config)
-        self.eval_step = make_eval_step(model, schedule, self.config)
+            self.train_step = make_train_step(model, schedule, self.config,
+                                              mesh=self.mesh)
+        self.eval_step = make_eval_step(model, schedule, self.config,
+                                        mesh=self.mesh)
         self.best_val_loss = float("inf")
         if self.config.resume_from:
             self.load_checkpoint(self.config.resume_from)
 
     def train(self) -> None:
         """All epochs from ``self.epoch`` on (the JAX ``Trainer.train``)."""
-        print(f"Starting training on {self.device}")
+        if self.is_main_process:
+            print(f"Starting training on {self.device}"
+                  + (f" over {self.mesh!r}" if self.mesh is not None else ""))
         for epoch in range(self.epoch, self.config.epochs):
             self.epoch = epoch
             train_loss = self.train_epoch()
@@ -161,13 +212,15 @@ class Trainer(_HostLoop):
             msg = f"Epoch {epoch}: train_loss={train_loss:.4f}"
             if val_loss is not None:
                 msg += f", val_loss={val_loss:.4f}"
-            print(msg, flush=True)
+            if self.is_main_process:
+                print(msg, flush=True)
             if (epoch + 1) % self.config.save_interval == 0:
                 self.save_checkpoint(f"checkpoint_epoch_{epoch}")
             if val_loss is not None and val_loss < self.best_val_loss:
                 self.best_val_loss = val_loss
                 self.save_checkpoint("best_model")
-            if (epoch + 1) % self.config.sample_interval == 0:
+            if ((epoch + 1) % self.config.sample_interval == 0
+                    and self.is_main_process):
                 self.generate_samples(epoch)
         self.save_checkpoint("final_model")
         self.wait_for_checkpoints()
@@ -180,14 +233,18 @@ class Trainer(_HostLoop):
 
     def validate(self) -> float:
         """Validation mse under the EMA weights, per image over the whole
-        validation set (t and ε from a generator seeded 12345)."""
+        validation set (t and ε from a generator seeded 12345). A ragged
+        final batch is padded to ``batch_size`` and its padding masked
+        (``parallel.pad_batch``, JAX ``trainer.py:251-275``); over a mesh
+        each process evaluates its rows of every batch."""
         params = self._eval_params()
         generator = torch.Generator(device=self.device).manual_seed(12345)
         total, count = 0.0, 0
         for batch in self.val_loader:
-            n = len(batch["low_light"])
-            total += float(self.eval_step(params, generator,
-                                          self._device_batch(batch), n)) * n
+            arrays = {k: np.asarray(torch.as_tensor(batch[k]).cpu())
+                      for k in ("low_light", "normal_light")}
+            arrays, n = pad_batch(arrays, self.config.batch_size)
+            total += float(self.eval_step(params, generator, arrays, n)) * n
             count += n
         return total / max(1, count)
 
@@ -248,8 +305,9 @@ class Trainer(_HostLoop):
         thread when checkpoints are asynchronous; returns the path."""
         path = str(self.checkpoint_dir / f"{name}.pt")
         save = self._saver.save if self._saver is not None else ckpt.save_checkpoint
-        save(path, self.state, epoch=self.epoch,
-             best_val_loss=self.best_val_loss, config_json=to_json(self.config))
+        self._write(save, path, self.state, epoch=self.epoch,
+                    best_val_loss=self.best_val_loss,
+                    config_json=to_json(self.config))
         return path
 
     def load_checkpoint(self, path: str) -> None:
@@ -315,8 +373,9 @@ class DistillationTrainer(_HostLoop):
     is given, else as a copy of ``teacher_params``. A regression student is
     validated, sampled and saved with its own grid ``student_timesteps``
     (default ``(739,)``), written beside its weights as
-    ``student_timesteps.json``. There is one card: ``mesh`` other than None
-    or False raises.
+    ``student_timesteps.json``. ``mesh`` as :class:`Trainer`'s: the
+    steps are data parallel over it, and students and grids are written by
+    process 0.
     """
 
     def __init__(self, model: LowLightDiffusion, schedule: LCMSchedule,
@@ -343,11 +402,8 @@ class DistillationTrainer(_HostLoop):
             # teacher's weights and targets them: one architecture only
             raise ValueError("teacher_model (capacity-asymmetric "
                              "distillation) requires regression mode")
-        if mesh is not None and mesh is not False:
-            raise NotImplementedError(
-                "DistillationTrainer(mesh=...): training over more than one "
-                "device is not ported (ROADMAP queue 1 item 8)")
-        super().__init__(model, schedule, train_loader, val_loader, config)
+        super().__init__(model, schedule, train_loader, val_loader, config,
+                         mesh)
         if student_params is None and teacher_model is not None:
             from ..weights import init_weights
             model.load_state_dict(init_weights(model.config, seed=self.config.seed,
@@ -367,39 +423,43 @@ class DistillationTrainer(_HostLoop):
                 student_timesteps=self.student_timesteps,
                 deterministic_teacher=deterministic_teacher,
                 gt_weight=gt_weight, full_grad=full_grad,
-                teacher_model=teacher_model)
+                teacher_model=teacher_model, mesh=self.mesh)
         else:
             self.train_step = make_distillation_step(
                 model, schedule, ema_decay=ema_decay,
                 num_ddim_timesteps=num_ddim_timesteps,
                 num_inference_steps=self.config.num_inference_steps,
                 canonical=canonical, pair_stride=pair_stride,
-                sampler_matched=sampler_matched)
+                sampler_matched=sampler_matched, mesh=self.mesh)
         self.best_val_psnr = float("-inf")
 
     def train(self) -> None:
         """All epochs from ``self.epoch`` on, then ``student_final``; the
         asynchronous saves are drained before it returns, so a failed write
         raises here and a caller can read what was saved."""
-        print(f"Distilling on {self.device} ({self.config.epochs} epochs)")
+        if self.is_main_process:
+            print(f"Distilling on {self.device} ({self.config.epochs} epochs)")
         for epoch in range(self.epoch, self.config.epochs):
             self.epoch = epoch
             loss = self.train_epoch()
             count = self.epoch_stats["steps"]
-            print(f"Distill epoch {epoch}: loss={loss:.4f} "
-                  f"lr={self.state.lr_schedule(count * (epoch + 1)):.2e}",
-                  flush=True)
+            if self.is_main_process:
+                print(f"Distill epoch {epoch}: loss={loss:.4f} "
+                      f"lr={self.state.lr_schedule(count * (epoch + 1)):.2e}",
+                      flush=True)
             if self.val_loader is not None:
                 val_psnr = self.validate_psnr()
-                print(f"Distill epoch {epoch}: val_psnr={val_psnr:.2f} dB",
-                      flush=True)
+                if self.is_main_process:
+                    print(f"Distill epoch {epoch}: val_psnr={val_psnr:.2f} dB",
+                          flush=True)
                 # students degrade with over-training: keep the best one
                 if val_psnr > self.best_val_psnr:
                     self.best_val_psnr = val_psnr
                     self.save_student("best_student")
             if (epoch + 1) % self.config.save_interval == 0:
                 self.save_student(f"student_epoch_{epoch}")
-            if (epoch + 1) % self.config.sample_interval == 0:
+            if ((epoch + 1) % self.config.sample_interval == 0
+                    and self.is_main_process):
                 self.generate_samples(epoch)
         self.save_student("student_final")
         self.wait_for_checkpoints()
@@ -455,7 +515,8 @@ class DistillationTrainer(_HostLoop):
             sidecar = {"student_timesteps.json": json.dumps(
                 {"timesteps": list(self.student_timesteps)})}
         save = self._saver.save_params if self._saver is not None else ckpt.save_params
-        save(path, self.state.ema_params, config_json=to_json(self.model.config),
-             sidecar=sidecar)
-        print(f"Saved distilled student: {name}", flush=True)
+        self._write(save, path, self.state.ema_params,
+                    config_json=to_json(self.model.config), sidecar=sidecar)
+        if self.is_main_process:
+            print(f"Saved distilled student: {name}", flush=True)
         return path

@@ -162,10 +162,15 @@ def test_resolve_config_equals_jax(argv, jax_train_script, small_yaml):
 
 def test_config_fields_the_port_refuses_raise_where_they_did(tmp_path):
     """A YAML's ``mesh_shape`` over several devices and ``use_wandb`` are
-    read, and refused by the trainer's check as the flags' values are."""
+    read; ``use_wandb`` is refused by the trainer's check as the flag's
+    value is, and ``mesh_shape`` passes it and lays out the processes of
+    the group: (4,) does not cover this one process, with JAX
+    ``make_mesh``'s error."""
+    from cv_diffusion_tpu.parallel.mesh import make_mesh as jax_make_mesh
     from cv_diffusion_tpu_torch.training.train_state import check_trainable
+    from cv_diffusion_tpu_torch.training.trainer import resolve_mesh
 
-    for field, value, match in (("mesh_shape", (4,), "item 8"),
+    for field, value, match in (("mesh_shape", (4,), None),
                                 ("use_wandb", True, "W&B")):
         exp = dataclasses.replace(tconfig.ExperimentConfig(), train=dataclasses.replace(
             tconfig.TrainConfig(), **{field: value}))
@@ -174,5 +179,13 @@ def test_config_fields_the_port_refuses_raise_where_they_did(tmp_path):
             tcli.build_parser().parse_args(["--config", str(tmp_path / f"{field}.yaml")]),
             ["--config", str(tmp_path / f"{field}.yaml")])[0]
         assert getattr(config, field) == value
+        if match is None:
+            check_trainable(config)
+            with pytest.raises(ValueError) as want:
+                jax_make_mesh(value, devices=jax_make_mesh().devices.ravel()[:1])
+            with pytest.raises(ValueError) as got:
+                resolve_mesh(None, config)
+            assert str(got.value) == str(want.value)
+            continue
         with pytest.raises(NotImplementedError, match=match):
             check_trainable(config)

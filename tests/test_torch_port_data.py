@@ -346,13 +346,26 @@ def test_create_dataloaders_routes_as_jax(lol_dir, tmp_path, monkeypatch):
     with pytest.raises(ValueError, match="paired=True"):
         tdataset.create_dataloaders(root, None, device_cache=True,
                                     paired=False, **kw)
-    # one process is all the port trains in
+    # in a process group of two, each process trains on its half of the
+    # files (JAX's shard_files_by_process) and validates on all of them
     import torch.distributed as dist
     monkeypatch.setattr(dist, "is_initialized", lambda: True)
     monkeypatch.setattr(dist, "get_world_size", lambda: 2)
+    shards = []
+    for rank in (0, 1):
+        monkeypatch.setattr(dist, "get_rank", lambda: rank)
+        train, val = tdataset.create_dataloaders(root, root, native=False,
+                                                 prefetch=0, **kw)
+        want = jdataset.shard_files_by_process(
+            sorted((lol_dir / "low").iterdir()), rank, 2)
+        assert [p.name for p in train.dataset.low_images] == [p.name for p in want]
+        assert len(val.dataset) == len(list((lol_dir / "low").iterdir()))
+        shards.append({p.name for p in train.dataset.high_images})
+    assert not shards[0] & shards[1]
     monkeypatch.setattr(dist, "get_rank", lambda: 0)
-    with pytest.raises(NotImplementedError, match="item 8"):
-        tdataset.create_dataloaders(root, None, **kw)
+    train, _ = tdataset.create_dataloaders(root, None, native=False, prefetch=0,
+                                           shard_by_process=False, **kw)
+    assert len(train.dataset) == len(list((lol_dir / "low").iterdir()))
 
 
 def test_prefetch_stops_early_and_raises_the_producers_error():
@@ -652,9 +665,23 @@ def test_train_cli_help_and_refused_flags(tmp_path):
                            "--help"], cwd=REPO, capture_output=True, text=True,
                           timeout=120)
     assert proc.returncode == 0 and "--data_on_device" in proc.stdout
-    for flags, item in ((["--distributed"], "item 8"), (["--wandb"], "W&B")):
-        with pytest.raises(NotImplementedError, match=item):
-            tcli.main(flags)
+    with pytest.raises(NotImplementedError, match="W&B"):
+        tcli.main(["--wandb"])
+    # --distributed, refused before data parallelism was ported, starts the
+    # process group (a no-op without its environment) and trains on
+    # parallel.local_device
+    from cv_diffusion_tpu_torch import parallel
+    from cv_diffusion_tpu_torch.training import trainer as ttrainer
+    calls = []
+    with pytest.MonkeyPatch.context() as patch:
+        patch.setattr(parallel, "distributed_init",
+                      lambda **kw: calls.append(("init", kw)) or False)
+        patch.setattr(ttrainer, "train_model",
+                      lambda *a, **kw: calls.append(("train", kw["device"])))
+        tcli.main(["--distributed", "--device", "cpu"])
+        tcli.main(["--device", "cpu"])
+    assert calls == [("init", {"device": "cpu"}), ("train", torch.device("cpu")),
+                     ("train", torch.device("cpu"))]
     # --config, refused before the YAML reader was ported, reads the file
     with pytest.raises(FileNotFoundError, match="x.yaml"):
         tcli.main(["--config", str(tmp_path / "x.yaml")])

@@ -11,8 +11,10 @@ an int8 and an int8_act (calibrated on one batch) serving package of that
 model, serves the same request with
 ``use_pallas_irb`` on, runs one forward of a softmax-attention model with
 ``split_skip``, runs ``fused_irb_v1`` on one block, takes one
-train step, serves the request in bf16 compute and takes one ``use_amp``
-step; then loads the committed student's ``.npz`` and serves a request
+train step, starts a gloo process group of one through
+``parallel.distributed_init`` and takes a data-parallel train step and
+serves a data-parallel batch in it, serves the request in bf16 compute and
+takes one ``use_amp`` step; then loads the committed student's ``.npz`` and serves a request
 through ``ServingPipeline.from_artifact``, makes a small synthetic split and
 computes the five quality metrics; then decodes a PNG directory into a
 device cache on the CPU, writes a sample grid, saves a checkpoint
@@ -163,6 +165,25 @@ _CHILD = textwrap.dedent("""
     state = create_train_state(model, tcfg)
     state, metrics = make_train_step(model, schedule, tcfg)(state, batch)
     assert state.step == 1 and bool(torch.isfinite(metrics["loss"]))
+
+    # data parallelism in a gloo group of one: a train step and a DP serve
+    import socket
+    from cv_diffusion_tpu_torch import parallel
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        port = sock.getsockname()[1]
+    assert parallel.distributed_init(f"localhost:{{port}}", 1, 0, device="cpu")
+    mesh = parallel.make_mesh()
+    state, metrics = make_train_step(model, schedule, tcfg, mesh=mesh)(
+        state, parallel.shard_batch(mesh, batch))
+    assert state.step == 2 and bool(torch.isfinite(metrics["loss"]))
+    model.eval()
+    sample = parallel.make_sharded_sample_fn(model, schedule, 1, mesh=mesh)
+    low = torch.full((2, 32, 32, 3), -0.5)
+    got = parallel.gather(mesh, sample(dict(model.state_dict()),
+                                       torch.Generator().manual_seed(0), low))
+    assert got.shape == (2, 32, 32, 3) and bool(torch.isfinite(got).all())
+    torch.distributed.destroy_process_group()
 
     # bf16 compute: one request, and one use_amp step (train_model's model)
     from cv_diffusion_tpu_torch.models.diffusion import with_dtype

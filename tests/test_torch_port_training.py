@@ -438,8 +438,7 @@ def test_eval_step_is_masked_mse():
     assert per_image(None, 3) != per_image(params, 3)
 
 
-@pytest.mark.parametrize("name,value", [
-    ("mesh_shape", (2,)), ("use_wandb", True)])
+@pytest.mark.parametrize("name,value", [("use_wandb", True)])
 def test_unported_training_features_raise(name, value):
     tc = dataclasses.replace(TrainConfig(use_amp=False), **{name: value})
     model, schedule = _tiny_model()
@@ -452,11 +451,13 @@ def test_unported_training_features_raise(name, value):
 @pytest.mark.parametrize("name,value", [
     ("use_amp", True), ("remat", True), ("init_params_from", "weights.npz"),
     ("data_on_device", True), ("native_loader", True), ("qat", True),
-    ("qat_act", True)])
+    ("qat_act", True), ("mesh_shape", (1, 1))])
 def test_ported_training_features_are_accepted(name, value, tmp_path):
     """Refused before they were ported: a train step and a Trainer take
     them (``init_params_from`` names a weights file written here; ``qat_act``
-    is given a model built with ``act_quant="fake"``)."""
+    is given a model built with ``act_quant="fake"``; ``mesh_shape`` lays
+    out this one process, as data × spatial; more processes are
+    ``test_torch_port_parallel_train.py``'s)."""
     model, schedule = _tiny_model(**({"act_quant": "fake"} if name == "qat_act" else {}))
     if name == "init_params_from":
         value = str(tmp_path / value)
