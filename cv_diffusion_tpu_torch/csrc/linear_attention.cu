@@ -436,14 +436,16 @@ template <int D> __device__ int slice_chunks(int C, int rank) {
 // and reruns are too. A rank that has this slice may push its next partial
 // into recv: every read of recv comes before the copies (the block barrier
 // between).
-template <int D>
-__device__ void gather(const float* recv, float* R, unsigned bar, int C, int rank) {
+//
+// sum_slice is the summing half, into `out` (shared memory, fenced for the
+// copies, or device memory); gather adds the copies.
+template <int D, bool Shared>
+__device__ void sum_slice(const float* recv, float4* out, int C, int rank) {
   const int S4 = (Dims<D>::KV4 + C - 1) / C;
   const int x0 = rank * S4;
   const int n = slice_chunks<D>(C, rank);
   const int Q = C > 8 ? 4 : C > 4 ? 2 : 1;  // lanes a chunk
   const float4* in = reinterpret_cast<const float4*>(recv);
-  float4* out = reinterpret_cast<float4*>(R);
   const int lanes = (n * Q + 31) / 32 * 32;  // whole warps: every lane shuffles
   for (int p = threadIdx.x; p < lanes; p += kThreads) {
     const int j = p / Q;
@@ -466,9 +468,17 @@ __device__ void gather(const float* recv, float* R, unsigned bar, int C, int ran
     }
     if (j < n && r0 == 0) {
       out[x0 + j] = a;
-      fence_async_shared();  // the sum, before the copies read it
+      if constexpr (Shared) fence_async_shared();  // the sum, before the copies read it
     }
   }
+}
+
+template <int D>
+__device__ void gather(const float* recv, float* R, unsigned bar, int C, int rank) {
+  const int S4 = (Dims<D>::KV4 + C - 1) / C;
+  const int x0 = rank * S4;
+  const int n = slice_chunks<D>(C, rank);
+  sum_slice<D, true>(recv, reinterpret_cast<float4*>(R), C, rank);
   __syncthreads();
   // one copy a warp: the copies of one warp's lanes are issued one by one
   constexpr int kWarps = kThreads / 32;
@@ -837,6 +847,257 @@ linear_attention_bwd(const T* __restrict__ q, const T* __restrict__ k, const T* 
   cluster_wait();  // no block leaves while a copy out of its R may be running
 }
 
+// The token-sharded entries: the sequence of a (batch, head) is split over
+// the ranks of a process group (the spatial axis of a UNet sharded by image
+// rows), so kv and ksum, and in the backward d_kv and d_ksum, are sums over
+// tokens that other processes hold. Each reduction therefore stops at device
+// memory: `kv` and `bwd_partial` leave this process's sums there, float32,
+// [B, H, D (D + 1)] (kv row-major [D][D], then ksum [D]: the layout of R), the
+// caller adds them over the group (an all_reduce), and `apply` and
+// `bwd_finish` take the reduced sums. The counterpart in the JAX package is
+// the partitioner's psum form of `linear_attention_xla` and
+// `linear_attention_sharded` (cv_diffusion_tpu/ops/attention.py:51-78,
+// 100-136). `kv` and `bwd_partial` reduce over their own tokens with the
+// cluster reduction above (reduce-scatter into the slices' owners, each owner
+// writing its slice); `apply` and `bwd_finish` are row-parallel and run C
+// blocks a (batch, head) with no cluster, each staging the reduced sums from
+// device memory. Each moves its tokens' tensors once, as the fused kernels do.
+
+// kv and ksum over this process's tokens, into kvs.
+template <typename T, int D, int TR>
+__global__ void __launch_bounds__(kThreads, D == 32 ? 3 : D == 64 ? 2 : 1)
+linear_attention_kv(const T* __restrict__ k, const T* __restrict__ v, float* __restrict__ kvs,
+                    int N, int H, int rows) {
+  constexpr int LD = Dims<D>::LD;
+  static_assert(2 * TR * LD >= (Reduce<D>::G > 1 ? Reduce<D>::G * D * D : 0) + kThreads,
+                "the reduction's scratch fits in ks and vs");
+  extern __shared__ __align__(16) float smem[];
+  const unsigned bar_rs = smem_addr(smem);
+  float* ks = smem + kBarrierFloats;
+  float* vs = ks + TR * LD;
+  float* recv = vs + TR * LD;
+
+  const cg::cluster_group cluster = cg::this_cluster();
+  const int C = static_cast<int>(cluster.num_blocks());
+  const int rank = static_cast<int>(cluster.block_rank());
+  const Span sp = span_of(C, rank, N, H, D, rows);
+  if (threadIdx.x == 0) bar_init(bar_rs);
+  cluster_arrive();  // the barrier exists before any rank pushes to it
+
+  Reduce<D> red;
+  reduce_kv<T, D, TR>(red, k, v, sp, ks, vs);
+  cluster_wait();
+  if (threadIdx.x == 0) bar_expect(bar_rs, 16u * C * slice_chunks<D>(C, rank));
+  red.scatter(smem_addr(recv), bar_rs, ks, C, rank);
+  bar_wait(bar_rs, 0);  // every rank's part of this slice has landed
+  cluster_arrive_relaxed();
+  sum_slice<D, false>(recv, reinterpret_cast<float4*>(kvs + static_cast<size_t>(blockIdx.x / C) *
+                                                                Dims<D>::KV),
+                      C, rank);
+  cluster_wait();  // no block leaves while another may still push to it
+}
+
+// R = a [D (D + 1)] buffer of device memory (kvs of this block's (batch,
+// head)), staged in shared memory.
+template <int D> __device__ void stage_sums(float* R, const float* src) {
+  for (int x = threadIdx.x; x < Dims<D>::KV4; x += kThreads)
+    reinterpret_cast<float4*>(R)[x] = reinterpret_cast<const float4*>(src)[x];
+}
+
+// out = phi(q) kv / (phi(q) . ksum + eps) from the reduced kvs; C blocks a
+// (batch, head), block rank r taking tokens [r rows, (r + 1) rows).
+template <typename T, int D, int TR>
+__global__ void __launch_bounds__(kThreads, D == 32 ? 3 : D == 64 ? 2 : 1)
+linear_attention_apply(const T* __restrict__ q, const float* __restrict__ kvs,
+                       T* __restrict__ out, int N, int H, int C, int rows, float eps) {
+  using IO = TileIO<T, D, TR>;
+  using Pr = Product<T, D, TR>;
+  extern __shared__ __align__(16) float smem[];
+  float* qs = smem;
+  float* R = qs + TR * Dims<D>::LD;
+  const int rank = static_cast<int>(blockIdx.x % C);
+  const Span sp = span_of(C, rank, N, H, D, rows);
+  stage_sums<D>(R, kvs + static_cast<size_t>(blockIdx.x / C) * Dims<D>::KV);
+  for (int t0 = 0; t0 < sp.mine; t0 += TR) {
+    const int rows_t = min(TR, sp.mine - t0);
+    const size_t off = sp.base + static_cast<size_t>(sp.n0 + t0) * sp.row_stride;
+    uint4 qr[IO::ITERS];
+    IO::fetch(qr, q + off, sp.row_stride, rows_t);
+    IO::template commit<true>(qr, qs, rows_t);
+    __syncthreads();  // the tile, and on the first pass R
+    float o[Pr::AR][8] = {};
+    float den[Pr::AR] = {};
+    Pr::template run<true>(o, den, qs, R, R + D * D, rows_t);
+#pragma unroll
+    for (int a = 0; a < Pr::AR; ++a) {
+      const int row = Pr::row(a);
+      if (row < rows_t) {
+        const float d = den[a] + eps;
+        float x[8];
+#pragma unroll
+        for (int e = 0; e < 8; ++e) x[e] = o[a][e] / d;
+        Pr::store(out + off + row * sp.row_stride, x);
+      }
+    }
+    __syncthreads();
+  }
+}
+
+// Step 2 of the backward from the reduced kvs: dq, written, and the partial
+// d_kv and d_ksum over this process's tokens, into dkvs.
+template <typename T, int D, int TR>
+__global__ void __launch_bounds__(kThreads, D <= 64 ? 2 : 1)
+linear_attention_bwd_partial(const T* __restrict__ q, const T* __restrict__ g,
+                             const float* __restrict__ kvs, T* __restrict__ dq,
+                             float* __restrict__ dkvs, int N, int H, int rows, float eps) {
+  constexpr int LD = Dims<D>::LD;
+  static_assert(2 * TR * LD >= (Reduce<D>::G > 1 ? Reduce<D>::G * D * D : 0) + kThreads,
+                "the reduction's scratch fits in qs and gs");
+  using IO = TileIO<T, D, TR>;
+  using Pr = Product<T, D, TR>;
+  extern __shared__ __align__(16) float smem[];
+  const unsigned bar_rs = smem_addr(smem);
+  float* qs = smem + kBarrierFloats;
+  float* gs = qs + TR * LD;
+  float* dd = gs + TR * LD;  // d_den of the tile's rows
+  float* recv = dd + TR;
+  float* R = recv + Dims<D>::RECV;  // kv, then ksum
+  float* RT = R + Dims<D>::KV;      // kv^T
+
+  const cg::cluster_group cluster = cg::this_cluster();
+  const int C = static_cast<int>(cluster.num_blocks());
+  const int rank = static_cast<int>(cluster.block_rank());
+  const Span sp = span_of(C, rank, N, H, D, rows);
+  if (threadIdx.x == 0) bar_init(bar_rs);
+  cluster_arrive();  // the barrier exists before any rank pushes to it
+  stage_sums<D>(R, kvs + static_cast<size_t>(blockIdx.x / C) * Dims<D>::KV);
+  __syncthreads();
+  transpose<D>(R, RT);
+
+  Reduce<D> red;
+  red.zero();
+  for (int t0 = 0; t0 < sp.mine; t0 += TR) {
+    const int rows_t = min(TR, sp.mine - t0);
+    const size_t off = sp.base + static_cast<size_t>(sp.n0 + t0) * sp.row_stride;
+    uint4 qr[IO::ITERS], gr[IO::ITERS];
+    IO::fetch(qr, q + off, sp.row_stride, rows_t);
+    IO::fetch(gr, g + off, sp.row_stride, rows_t);
+    IO::template commit<true>(qr, qs, rows_t);
+    IO::template commit<false>(gr, gs, rows_t);
+    __syncthreads();  // the tiles, and on the first pass RT
+    {
+      float num[Pr::AR][8] = {};
+      float den[Pr::AR] = {};
+      Pr::template run<true>(num, den, qs, R, R + D * D, rows_t);
+#pragma unroll
+      for (int a = 0; a < Pr::AR; ++a) {
+        const int row = Pr::row(a);
+        const float d = den[a] + eps;  // eps before the square
+        float sg = 0.f;
+#pragma unroll
+        for (int c = 0; c < 2; ++c) {
+          float* gp = gs + row * LD + Pr::col(c);
+#pragma unroll
+          for (int u = 0; u < 4; ++u) {
+            sg = fmaf(gp[u], num[a][4 * c + u], sg);
+            gp[u] = gp[u] / d;  // d_num over g, this thread's columns only
+          }
+        }
+#pragma unroll
+        for (int m = Pr::CG / 2; m > 0; m >>= 1) sg += __shfl_xor_sync(0xffffffffu, sg, m);
+        if (Pr::colgroup() == 0) dd[row] = -sg / (d * d);  // zero on rows past the tile
+      }
+    }
+    __syncthreads();
+    {
+      float acc[Pr::AR][8] = {};
+      float unused[Pr::AR];
+      Pr::template run<false>(acc, unused, gs, RT, nullptr, rows_t);
+#pragma unroll
+      for (int a = 0; a < Pr::AR; ++a) {
+        const int row = Pr::row(a);
+        if (row < rows_t) {
+          float x[8];
+#pragma unroll
+          for (int c = 0; c < 2; ++c)
+#pragma unroll
+            for (int u = 0; u < 4; ++u) {
+              const int col = Pr::col(c) + u;
+              x[4 * c + u] = fmaf(dd[row], R[D * D + col], acc[a][4 * c + u]) *
+                             fminf(qs[row * LD + col], 1.f);
+            }
+          Pr::store(dq + off + row * sp.row_stride, x);
+        }
+      }
+    }
+    red.template tile<true>(qs, gs, dd, rows_t);
+    __syncthreads();
+  }
+  cluster_wait();
+  if (threadIdx.x == 0) bar_expect(bar_rs, 16u * C * slice_chunks<D>(C, rank));
+  red.scatter(smem_addr(recv), bar_rs, qs, C, rank);
+  bar_wait(bar_rs, 0);
+  cluster_arrive_relaxed();
+  sum_slice<D, false>(recv, reinterpret_cast<float4*>(dkvs + static_cast<size_t>(blockIdx.x / C) *
+                                                                 Dims<D>::KV),
+                      C, rank);
+  cluster_wait();  // no block leaves while another may still push to it
+}
+
+// Step 3 of the backward from the reduced dkvs: dk = (v d_kv^T + d_ksum) *
+// phi'(k), dv = phi(k) d_kv; C blocks a (batch, head), no cluster.
+template <typename T, int D, int TR>
+__global__ void __launch_bounds__(kThreads, D <= 64 ? 2 : 1)
+linear_attention_bwd_finish(const T* __restrict__ k, const T* __restrict__ v,
+                            const float* __restrict__ dkvs, T* __restrict__ dk,
+                            T* __restrict__ dv, int N, int H, int C, int rows) {
+  constexpr int LD = Dims<D>::LD;
+  using IO = TileIO<T, D, TR>;
+  using Pr = Product<T, D, TR>;
+  extern __shared__ __align__(16) float smem[];
+  float* ks = smem;
+  float* vs = ks + TR * LD;
+  float* R = vs + TR * LD;      // d_kv, then d_ksum
+  float* RT = R + Dims<D>::KV;  // d_kv^T
+  const int rank = static_cast<int>(blockIdx.x % C);
+  const Span sp = span_of(C, rank, N, H, D, rows);
+  stage_sums<D>(R, dkvs + static_cast<size_t>(blockIdx.x / C) * Dims<D>::KV);
+  __syncthreads();
+  transpose<D>(R, RT);
+  for (int t0 = 0; t0 < sp.mine; t0 += TR) {
+    const int rows_t = min(TR, sp.mine - t0);
+    const size_t off = sp.base + static_cast<size_t>(sp.n0 + t0) * sp.row_stride;
+    uint4 kr[IO::ITERS], vr[IO::ITERS];
+    IO::fetch(kr, k + off, sp.row_stride, rows_t);
+    IO::fetch(vr, v + off, sp.row_stride, rows_t);
+    IO::template commit<true>(kr, ks, rows_t);
+    IO::template commit<false>(vr, vs, rows_t);
+    __syncthreads();  // the tiles, and on the first pass RT
+    float ak[Pr::AR][8] = {};
+    float av[Pr::AR][8] = {};
+    float unused[Pr::AR];
+    Pr::template run<false>(ak, unused, vs, RT, nullptr, rows_t);
+    Pr::template run<false>(av, unused, ks, R, nullptr, rows_t);
+#pragma unroll
+    for (int a = 0; a < Pr::AR; ++a) {
+      const int row = Pr::row(a);
+      if (row < rows_t) {
+        float x[8];
+#pragma unroll
+        for (int c = 0; c < 2; ++c)
+#pragma unroll
+          for (int u = 0; u < 4; ++u) {
+            const int col = Pr::col(c) + u;
+            x[4 * c + u] = (ak[a][4 * c + u] + R[D * D + col]) * fminf(ks[row * LD + col], 1.f);
+          }
+        Pr::store(dk + off + row * sp.row_stride, x);
+        Pr::store(dv + off + row * sp.row_stride, av[a]);
+      }
+    }
+    __syncthreads();
+  }
+}
+
 // Once per kernel instance, before its first launch (so that a CUDA graph
 // capture of a later call holds no such call): its shared memory above 48 KB
 // and clusters of 16; and once per C, whether a cluster of C fits at all.
@@ -951,6 +1212,71 @@ cudaError_t backward(const void* q, const void* k, const void* v, const void* g,
   }
 }
 
+
+// The token-sharded entries' launches: a (batch, head) is a cluster of C for
+// kv and bwd_partial, C independent blocks for apply and bwd_finish. The
+// forward pair takes the forward's tiles, the backward pair the backward's.
+enum class Sharded { kKv, kApply, kBwdPartial, kBwdFinish };
+
+template <Sharded E, int D> constexpr int sharded_smem_floats(int TR) {
+  if constexpr (E == Sharded::kKv) return kBarrierFloats + 2 * TR * Dims<D>::LD + Dims<D>::RECV;
+  if constexpr (E == Sharded::kApply) return TR * Dims<D>::LD + Dims<D>::KV;
+  if constexpr (E == Sharded::kBwdPartial)
+    return kBarrierFloats + 2 * TR * Dims<D>::LD + TR + Dims<D>::RECV + Dims<D>::KV + D * D;
+  return 2 * TR * Dims<D>::LD + Dims<D>::KV + D * D;
+}
+
+template <Sharded E, typename T, int D, int TR>
+cudaError_t sharded_tile(const void* const (&in)[3], void* const (&o)[2], int B, int N, int H,
+                         int C, int rows, float eps, void* stream) {
+  constexpr int smem = sharded_smem_floats<E, D>(TR);
+  const T* a = static_cast<const T*>(in[0]);
+  if constexpr (E == Sharded::kKv)
+    return launch<linear_attention_kv<T, D, TR>>(B * H, C, smem, stream, a,
+                                                 static_cast<const T*>(in[1]),
+                                                 static_cast<float*>(o[0]), N, H, rows);
+  if constexpr (E == Sharded::kApply)
+    return launch<linear_attention_apply<T, D, TR>>(B * H * C, 1, smem, stream, a,
+                                                    static_cast<const float*>(in[1]),
+                                                    static_cast<T*>(o[0]), N, H, C, rows, eps);
+  if constexpr (E == Sharded::kBwdPartial)
+    return launch<linear_attention_bwd_partial<T, D, TR>>(
+        B * H, C, smem, stream, a, static_cast<const T*>(in[1]),
+        static_cast<const float*>(in[2]), static_cast<T*>(o[0]), static_cast<float*>(o[1]), N, H,
+        rows, eps);
+  if constexpr (E == Sharded::kBwdFinish)
+    return launch<linear_attention_bwd_finish<T, D, TR>>(
+        B * H * C, 1, smem, stream, a, static_cast<const T*>(in[1]),
+        static_cast<const float*>(in[2]), static_cast<T*>(o[0]), static_cast<T*>(o[1]), N, H, C,
+        rows);
+}
+
+template <Sharded E, typename T, int D>
+cudaError_t sharded_d(const void* const (&in)[3], void* const (&o)[2], int B, int N, int H, int C,
+                      int rows, float eps, void* stream) {
+  constexpr bool backward = E == Sharded::kBwdPartial || E == Sharded::kBwdFinish;
+  if constexpr (Tiles<D>::kShortRows > 0) {
+    constexpr int TR = Tiles<D>::kShortRows;
+    if (rows <= TR) return sharded_tile<E, T, D, TR>(in, o, B, N, H, C, rows, eps, stream);
+  }
+  constexpr int TR = backward ? Tiles<D>::kBwdRows : Tiles<D>::kFwdRows;
+  return sharded_tile<E, T, D, TR>(in, o, B, N, H, C, rows, eps, stream);
+}
+
+template <Sharded E, typename T>
+cudaError_t sharded(const void* a, const void* b, const void* c, void* o0, void* o1, int B, int N,
+                    int H, int D, int C, int rows, float eps, void* stream) {
+  if (!valid(B, N, H, C, rows)) return cudaErrorInvalidValue;
+  const void* const in[3] = {a, b, c};
+  void* const o[2] = {o0, o1};
+  switch (D) {
+    case 32: return sharded_d<E, T, 32>(in, o, B, N, H, C, rows, eps, stream);
+    case 64: return sharded_d<E, T, 64>(in, o, B, N, H, C, rows, eps, stream);
+    case 128: return sharded_d<E, T, 128>(in, o, B, N, H, C, rows, eps, stream);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
 }  // namespace
 
 extern "C" {
@@ -978,6 +1304,40 @@ cudaError_t linear_attention_bwd_bf16(const void* q, const void* k, const void* 
                                       int C, int rows, float eps, void* stream) {
   return backward<__nv_bfloat16>(q, k, v, g, dq, dk, dv, B, N, H, D, C, rows, eps, stream);
 }
+
+// The token-sharded entries (q, k, v, g, dq, dk, dv [B, N, H, D] of this
+// process's tokens; kvs and dkvs float32 [B, H, D (D + 1)]). kv: kvs = this
+// process's kv and ksum. apply: out from the reduced kvs. bwd_partial: dq and
+// this process's d_kv and d_ksum into dkvs, from the reduced kvs and g.
+// bwd_finish: dk and dv from the reduced dkvs.
+#define LA_SHARDED(SUFFIX, T)                                                                      \
+  cudaError_t linear_attention_kv_##SUFFIX(const void* k, const void* v, void* kvs, int B, int N,  \
+                                           int H, int D, int C, int rows, void* stream) {         \
+    return sharded<Sharded::kKv, T>(k, v, nullptr, kvs, nullptr, B, N, H, D, C, rows, 0.f,        \
+                                    stream);                                                       \
+  }                                                                                                \
+  cudaError_t linear_attention_apply_##SUFFIX(const void* q, const void* kvs, void* out, int B,    \
+                                              int N, int H, int D, int C, int rows, float eps,     \
+                                              void* stream) {                                      \
+    return sharded<Sharded::kApply, T>(q, kvs, nullptr, out, nullptr, B, N, H, D, C, rows, eps,   \
+                                       stream);                                                    \
+  }                                                                                                \
+  cudaError_t linear_attention_bwd_partial_##SUFFIX(const void* q, const void* g, const void* kvs, \
+                                                    void* dq, void* dkvs, int B, int N, int H,     \
+                                                    int D, int C, int rows, float eps,             \
+                                                    void* stream) {                                \
+    return sharded<Sharded::kBwdPartial, T>(q, g, kvs, dq, dkvs, B, N, H, D, C, rows, eps,        \
+                                            stream);                                               \
+  }                                                                                                \
+  cudaError_t linear_attention_bwd_finish_##SUFFIX(const void* k, const void* v, const void* dkvs, \
+                                                   void* dk, void* dv, int B, int N, int H, int D, \
+                                                   int C, int rows, void* stream) {                \
+    return sharded<Sharded::kBwdFinish, T>(k, v, dkvs, dk, dv, B, N, H, D, C, rows, 0.f, stream); \
+  }
+
+LA_SHARDED(f32, float)
+LA_SHARDED(bf16, __nv_bfloat16)
+#undef LA_SHARDED
 
 // Dynamic shared memory of one block in bytes (either dtype) for ranks of
 // `rows` tokens, or -1.

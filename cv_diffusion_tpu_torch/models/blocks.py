@@ -28,11 +28,14 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..ops import fused_irb_kernel, upcast
-from ..ops.attention import linear_attention, softmax_attention
+from ..ops.attention import (linear_attention, linear_attention_sharded,
+                             softmax_attention)
 from ..ops.fused_irb import irb_args
 from ..ops.norms import (concat_group_norm_parts, gn2_film_affine_gram,
                          gn_num_groups, group_norm, group_norm_film)
 from ..ops.qconv import Conv2d, QConv
+from ..parallel.halo import gather_rows, halo_rows, scatter_rows, spatial_sum
+from ..parallel.mesh import current_spatial
 from . import rows
 
 
@@ -143,7 +146,7 @@ def dropout(x: torch.Tensor, rate: float,
         return torch.zeros_like(x)
     keep = 1.0 - rate
     mask = rows.draw(lambda s: torch.rand(s, generator=generator,
-                                          device=x.device), x.shape) < keep
+                                          device=x.device), x.shape, hdim=2) < keep
     return torch.where(mask, x / keep, torch.zeros_like(x))
 
 
@@ -199,7 +202,13 @@ class SqueezeExcitation(nn.Module):
         self.fc2 = DenseConv(squeezed, channels, 1)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        s = self.fc1(x.mean(dim=(2, 3)))
+        shard = current_spatial()
+        if shard is None:
+            pooled = x.mean(dim=(2, 3))
+        else:   # the strips' sums over the group, over the image's pixels
+            count = x.shape[2] * x.shape[3] * shard.size
+            pooled = (spatial_sum(upcast(x).sum(dim=(2, 3)), shard) / count).to(x.dtype)
+        s = self.fc1(pooled)
         s = activation(s, self.quantization_friendly)
         s = self.fc2(s)
         s = torch.sigmoid(upcast(s)).to(x.dtype)
@@ -298,9 +307,17 @@ class InvertedResidualBlock(nn.Module):
                     "grad enabled (as the JAX package's Pallas kernel cannot "
                     "be differentiated either); build the differentiated "
                     "model without use_pallas_irb, or run it under no_grad")
-            return fused_irb_kernel.fused_irb_v2(
-                x, film_scale=film_scale, film_shift=film_shift,
-                **irb_args(self))
+            shard = current_spatial()
+            if shard is None:
+                return fused_irb_kernel.fused_irb_v2(
+                    x, film_scale=film_scale, film_shift=film_shift,
+                    **irb_args(self))
+            # the kernel holds three reductions over the image and a
+            # depthwise 3×3: it runs on the whole image, gathered
+            whole = gather_rows(x, 2, shard).contiguous()
+            return scatter_rows(fused_irb_kernel.fused_irb_v2(
+                whole, film_scale=film_scale, film_shift=film_shift,
+                **irb_args(self)), 2, shard).contiguous()
         h = activation(self.norm1(x), self.quantization_friendly)
         if self.fold_gn and not self.training:
             a2, b2 = gn2_film_affine_gram(
@@ -358,11 +375,16 @@ class InvertedResidualBlock(nn.Module):
 class LinearAttention(nn.Module):
     """The attention op of :class:`LinearAttentionBlock` on q, k, v
     [B, N, heads, dim]. A module of its own, without parameters, so that a
-    forward hook can see its inputs."""
+    forward hook can see its inputs. Under a spatial shard the tokens are
+    this rank's of the h-major sequence, and it runs token-sharded
+    (``ops.attention.linear_attention_sharded``)."""
 
     def forward(self, q: torch.Tensor, k: torch.Tensor,
                 v: torch.Tensor) -> torch.Tensor:
-        return linear_attention(q, k, v)
+        shard = current_spatial()
+        if shard is None:
+            return linear_attention(q, k, v)
+        return linear_attention_sharded(q, k, v, shard)
 
 
 class SoftmaxAttention(nn.Module):
@@ -377,7 +399,14 @@ class SoftmaxAttention(nn.Module):
 
     def forward(self, q: torch.Tensor, k: torch.Tensor,
                 v: torch.Tensor) -> torch.Tensor:
-        return softmax_attention(q, k, v, self.scale)
+        shard = current_spatial()
+        if shard is None:
+            return softmax_attention(q, k, v, self.scale)
+        # every query sees every key: the kernels run on the whole sequence
+        # (one shape for q, k and v), and this rank keeps its queries' rows
+        whole = [gather_rows(t, 1, shard).contiguous() for t in (q, k, v)]
+        return scatter_rows(softmax_attention(*whole, self.scale), 1,
+                            shard).contiguous()
 
 
 class _AttentionBlock(nn.Module):
@@ -439,7 +468,10 @@ class StandardAttentionBlock(_AttentionBlock):
 
 
 class Downsample(nn.Module):
-    """3×3 stride-2 conv, padding 1 (a :class:`QConv`)."""
+    """3×3 stride-2 conv, padding 1 (a :class:`QConv`). Under a spatial
+    shard its strip has an even number of rows starting at an even row, so
+    the conv takes one halo row from above and none from below
+    (:class:`~..ops.qconv.Conv2d`)."""
 
     def __init__(self, channels: int, act_quant=False):
         super().__init__()
@@ -464,16 +496,28 @@ class Upsample(nn.Module):
     """Bilinear ×2 in float32 with half-pixel centres, then a 3×3 conv.
 
     On the card, a float32 conv that cuDNN would run as an FFT
-    (:data:`CUDNN_FFT_FROM_BATCH`) runs with cuDNN off, as PyTorch's own
-    convolution."""
+    (:data:`CUDNN_FFT_FROM_BATCH`, keyed on the shape the conv is given:
+    under a spatial shard a strip, which that table does not name) runs
+    with cuDNN off, as PyTorch's own convolution.
+
+    Under a spatial shard the strip of L rows takes one halo row on each
+    side, copies of the edge row at the image's border (the clamp of JAX's
+    ``jax.image.resize``, as of ``F.interpolate``), and output rows [2,
+    2L + 2) of the 2L + 4 that the resize makes of the L + 2 are this
+    rank's: each of them reads rows of the padded strip only."""
 
     def __init__(self, channels: int, act_quant=False):
         super().__init__()
         self.conv = QConv(channels, channels, 3, padding=1, act_quant=act_quant)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        up = F.interpolate(upcast(x), scale_factor=2, mode="bilinear",
-                           align_corners=False, antialias=False).to(x.dtype)
+        shard = current_spatial()
+        xf = upcast(x if shard is None else halo_rows(x, 1, 1, "replicate", shard))
+        up = F.interpolate(xf, scale_factor=2, mode="bilinear",
+                           align_corners=False, antialias=False)
+        if shard is not None:
+            up = up[:, :, 2:up.shape[2] - 2]
+        up = up.to(x.dtype)
         if (self.conv.compute_dtype is None and up.is_cuda
                 and up.shape[0] >= CUDNN_FFT_FROM_BATCH.get(tuple(up.shape[1:]),
                                                              math.inf)):

@@ -127,12 +127,13 @@ def sample_timesteps_and_noise(schedule: LCMSchedule, shape: Sequence[int],
     """t ~ U[0, T) [B] and ε ~ N(0, 1) of ``shape`` (NHWC), drawn from
     ``generator`` in that order: what :func:`train_forward` draws when it is
     given neither. Inside ``rows.global_batch`` both are drawn for the
-    global batch and narrowed to this process's rows."""
+    global batch and narrowed to this process's rows (and ε to its strip of
+    image rows)."""
     t = rows.draw(lambda s: torch.randint(
         0, schedule.config.num_train_timesteps, s, generator=generator,
         device=device), (shape[0],))
     noise = rows.draw(lambda s: torch.randn(s, generator=generator,
-                                            device=device), shape)
+                                            device=device), shape, hdim=1)
     return t, noise
 
 
@@ -220,11 +221,12 @@ def sampler_noise(generator: Optional[torch.Generator],
     buffers here (``out``, filled in place), so a seed gives the same image
     either way. Inside ``rows.global_batch`` both are drawn for the global
     batch and narrowed to this process's rows (dim 0 of ``init_noise``,
-    dim 1 of ``step_noise``)."""
+    dim 1 of ``step_noise``) and strip of image rows (dims 1 and 2)."""
     if rows.active():
         def fill(s):
             return torch.empty(s, device=device).normal_(generator=generator)
-        drawn = (rows.draw(fill, shape), rows.draw(fill, (steps,) + tuple(shape), 1))
+        drawn = (rows.draw(fill, shape, hdim=1),
+                 rows.draw(fill, (steps,) + tuple(shape), 1, hdim=2))
         if out is None:
             return drawn
         for t, d in zip(out, drawn):

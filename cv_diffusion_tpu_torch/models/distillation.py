@@ -399,13 +399,14 @@ def _distillation_step(loss_fn: LossFn, ema_decay: float,
     rows, the draws are made for the global batch and narrowed to them,
     the gradients and the loss are averaged over the data axis before the
     clip, and the first step copies the first process's student and EMA
-    to the others."""
+    to the others. A spatial axis of more than one rank raises
+    ``NotImplementedError`` (ROADMAP item 8c)."""
     from ..parallel.mesh import data_shard
     from ..training.ema import update_ema
     from ..training.train_state import (optimizer_update, reduce_gradients,
                                         shard_rows, sync_replicas)
 
-    shard = data_shard(mesh)
+    shard = data_shard(mesh, unported="distillation")
     synced = []
 
     def step(state: DistillationState, batch, draws: Optional[dict] = None):

@@ -38,6 +38,7 @@ from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
 
 from ..config import UNetConfig
 from ..ops.qconv import QConv
+from ..parallel.mesh import SPATIAL_UNPORTED, current_spatial
 from .blocks import (Downsample, GroupNorm, InvertedResidualBlock,
                      LinearAttentionBlock, StandardAttentionBlock,
                      TimeEmbedding, Upsample, compute_dtype,
@@ -202,7 +203,19 @@ class EfficientUNet(nn.Module):
 
     def forward(self, x: torch.Tensor, timestep: torch.Tensor,
                 generator: Optional[torch.Generator] = None) -> torch.Tensor:
-        """``generator`` draws the dropout masks in training mode."""
+        """``generator`` draws the dropout masks in training mode. Under a
+        spatial shard x is this rank's strip of image rows; the image's
+        height must split into strips that every level halves into an even
+        number of rows (``ValueError`` otherwise), and ``act_quant`` is not
+        ported there (``NotImplementedError``, ROADMAP item 8c: its dynamic
+        amax would need a max over the group)."""
+        shard = current_spatial()
+        if shard is not None:
+            if self.config.act_quant:
+                raise NotImplementedError(SPATIAL_UNPORTED.format(
+                    what=f"UNetConfig.act_quant={self.config.act_quant!r}",
+                    n=shard.size))
+            shard.check_height(x.shape[2] * shard.size, len(self.config.channels))
         if self.compute_dtype is not None:
             x = x.to(self.compute_dtype)
         t_emb = self.time_mlp(timestep)

@@ -9,7 +9,8 @@ Counterpart of ``cv_diffusion_tpu/ops/attention.py``:
 Token layout is the JAX package's ``[B, N, heads, dim]``.
 :func:`linear_attention_plain` and :func:`linear_attention_backward_plain`
 are the plain versions of the hand-written CUDA kernels in
-:mod:`.linear_attention_kernel`, :func:`softmax_attention_plain` and
+:mod:`.linear_attention_kernel`, and ``linear_attention_{kv, apply,
+bwd_partial, bwd_finish}_plain`` those of its token-sharded entries, :func:`softmax_attention_plain` and
 :func:`softmax_attention_backward_rows` those of the flash-attention
 kernels in :mod:`.flash_attention_kernel`; the CPU tests hold them against
 the JAX package, and ``chip_smoke.py`` holds the kernels against them on
@@ -88,34 +89,91 @@ def linear_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return linear_attention_trainable(q, k, v, eps)
 
 
-def linear_attention_sharded(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                             mesh, axis: str = "spatial",
-                             eps: float = 1e-6) -> torch.Tensor:
-    """Token-sharded linear attention over a mesh axis (JAX
-    ``linear_attention_sharded``, ``ops/attention.py:100-136``).
+def _split_sums(sums: torch.Tensor, dim: int):
+    """[B, H, D (D + 1)] → (the [B, H, D, D] matrix, the [B, H, D] vector)."""
+    return (sums[..., :dim * dim].unflatten(-1, (dim, dim)), sums[..., dim * dim:])
 
-    ``q``, ``k``, ``v`` are this process's tokens [B, N/n, H, D] of a
-    sequence split over the ``n`` ranks of ``mesh``'s ``axis`` (rank i of
-    the axis holds tokens [i·N/n, (i+1)·N/n)). Each process forms φ(K)ᵀV
-    [B, H, D, D] and Σφ(K) [B, H, D] over its tokens in float32, one
-    ``all_reduce`` of each sums them over the axis's subgroup, and each
-    process applies them to its own rows of φ(Q): the output is its tokens
-    of the whole sequence's linear attention, in q's dtype. Forward only,
-    plain PyTorch, as JAX's is XLA einsums; no model path calls it."""
-    import torch.distributed as dist
 
-    group = mesh.group(axis)
-    qf = elu_plus_one(upcast(q))
+def linear_attention_kv_plain(k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """φ(K)ᵀV and Σφ(K) over the tokens of k, v [B, N, H, D], in at least
+    float32, as one [B, H, D (D + 1)] tensor (the matrix row-major, then
+    the vector): the plain version of the ``kv`` entry of the token-sharded
+    kernels (:mod:`.linear_attention_kernel`)."""
     kf = elu_plus_one(upcast(k))
-    vf = upcast(v)
-    k_sum = kf.sum(dim=1).contiguous()                      # [B, H, D]
-    kv = torch.einsum("bnhd,bnhe->bhde", kf, vf).contiguous()   # [B, H, D, D]
-    if group is not None:
-        dist.all_reduce(k_sum, group=group)
-        dist.all_reduce(kv, group=group)
+    kv = torch.einsum("bnhd,bnhe->bhde", kf, upcast(v))
+    return torch.cat([kv.flatten(2), kf.sum(dim=1)], dim=-1).contiguous()
+
+
+def linear_attention_apply_plain(q: torch.Tensor, kvs: torch.Tensor,
+                                 eps: float = 1e-6) -> torch.Tensor:
+    """φ(Q)·kv / (φ(Q)·ksum + eps) from the reduced ``kvs`` of
+    :func:`linear_attention_kv_plain`, in q's dtype: the plain version of
+    the ``apply`` entry."""
+    qf = elu_plus_one(upcast(q))
+    kv, k_sum = _split_sums(kvs.to(qf.dtype), q.shape[-1])
     num = torch.einsum("bnhd,bhde->bnhe", qf, kv)
     den = torch.einsum("bnhd,bhd->bnh", qf, k_sum)
     return (num / (den[..., None] + eps)).to(q.dtype)
+
+
+def linear_attention_bwd_partial_plain(q: torch.Tensor, g: torch.Tensor,
+                                       kvs: torch.Tensor, eps: float = 1e-6):
+    """(dq, d_kvs) for the upstream gradient ``g`` of this process's tokens
+    from the reduced ``kvs``: dq in q's dtype, and d_kv = Σ φ(q)ᵀ d_num and
+    d_ksum = Σ φ(q) d_den over these tokens in the layout of ``kvs``. The
+    plain version of the ``bwd_partial`` entry (the arithmetic of
+    :func:`linear_attention_backward_plain`)."""
+    d = q.shape[-1]
+    qf, gf = elu_plus_one(upcast(q)), upcast(g)
+    kv, k_sum = _split_sums(kvs.to(qf.dtype), d)
+    den = torch.einsum("bnhd,bhd->bnh", qf, k_sum) + eps
+    num = torch.einsum("bnhd,bhde->bnhe", qf, kv)
+    d_num = gf / den[..., None]
+    d_den = -torch.einsum("bnhe,bnhe->bnh", gf, num) / (den * den)
+    d_phiq = (torch.einsum("bnhe,bhde->bnhd", d_num, kv)
+              + d_den[..., None] * k_sum[:, None])
+    d_kv = torch.einsum("bnhd,bnhe->bhde", qf, d_num)
+    d_ksum = torch.einsum("bnhd,bnh->bhd", qf, d_den)
+    dq = (d_phiq * elu_plus_one_grad(upcast(q))).to(q.dtype)
+    return dq, torch.cat([d_kv.flatten(2), d_ksum], dim=-1).contiguous()
+
+
+def linear_attention_bwd_finish_plain(k: torch.Tensor, v: torch.Tensor,
+                                      dkvs: torch.Tensor):
+    """(dk, dv) of this process's tokens from the reduced ``dkvs``, each in
+    its input's dtype: the plain version of the ``bwd_finish`` entry."""
+    kf, vf = elu_plus_one(upcast(k)), upcast(v)
+    d_kv, d_ksum = _split_sums(dkvs.to(kf.dtype), k.shape[-1])
+    d_phik = torch.einsum("bhde,bnhe->bnhd", d_kv, vf) + d_ksum[:, None]
+    d_v = torch.einsum("bnhd,bhde->bnhe", kf, d_kv)
+    return ((d_phik * elu_plus_one_grad(upcast(k))).to(k.dtype),
+            d_v.to(v.dtype))
+
+
+def linear_attention_sharded(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                             mesh, axis: str = "spatial",
+                             eps: float = 1e-6) -> torch.Tensor:
+    """Token-sharded linear attention over a process group (JAX
+    ``linear_attention_sharded``, ``ops/attention.py:100-136``),
+    differentiable.
+
+    ``q``, ``k``, ``v`` are this process's tokens [B, N/n, H, D] of a
+    sequence split over the ``n`` ranks of ``mesh``'s ``axis`` (a
+    ``parallel.Mesh``; or a ``parallel.mesh.SpatialShard``, whose group is
+    taken): rank i holds tokens [i·N/n, (i+1)·N/n). Each process forms
+    φ(K)ᵀV [B, H, D, D] and Σφ(K) [B, H, D] over its tokens in float32, one
+    ``all_reduce`` sums them over the group, and each process applies them
+    to its own rows of φ(Q): the output is its tokens of the whole
+    sequence's linear attention, in q's dtype. The backward forms dq and
+    its tokens' share of d_kv and d_ksum, sums those over the group, and
+    forms dk and dv. All four steps run through the hand-written kernels
+    (:class:`.linear_attention_kernel.LinearAttentionShardedFunction`),
+    whose plain versions are above."""
+    from ..parallel.mesh import SpatialShard
+    from .linear_attention_kernel import linear_attention_sharded_trainable
+
+    group = mesh.group if isinstance(mesh, SpatialShard) else mesh.group(axis)
+    return linear_attention_sharded_trainable(q, k, v, group, eps)
 
 
 def _round_like(p: torch.Tensor, like: torch.Tensor) -> torch.Tensor:

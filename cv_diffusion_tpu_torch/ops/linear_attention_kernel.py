@@ -17,6 +17,16 @@ For tensors on the CPU they run the plain versions (:mod:`.attention`); for
 CUDA tensors they launch the kernel or raise. :class:`LinearAttentionFunction`
 pairs the two as one ``torch.autograd.Function``, as the JAX ``custom_vjp``
 does.
+
+The token-sharded entries (a sequence split over a process group, as a
+spatially sharded UNet splits its tokens) stop each reduction at device
+memory, so that the group's ``all_reduce`` can run between two launches:
+:func:`linear_attention_kv_kernel` (φ(K)ᵀV and Σφ(K) over this process's
+tokens), :func:`linear_attention_apply_kernel` (the output from the reduced
+sums), :func:`linear_attention_bwd_partial_kernel` (dq, and this process's
+d_kv and d_ksum) and :func:`linear_attention_bwd_finish_kernel` (dk and dv
+from the reduced ones). :class:`LinearAttentionShardedFunction` runs kv →
+all_reduce → apply, and partial → all_reduce → finish in the backward.
 """
 
 from __future__ import annotations
@@ -24,13 +34,18 @@ from __future__ import annotations
 import ctypes
 import functools
 import math
-from typing import NamedTuple
+from typing import NamedTuple, Optional
 
 import torch
 
+import torch.distributed as dist
+
 from . import cuda_build
-from .attention import (linear_attention_backward_plain,
-                        linear_attention_plain)
+from .attention import (linear_attention_apply_plain,
+                        linear_attention_backward_plain,
+                        linear_attention_bwd_finish_plain,
+                        linear_attention_bwd_partial_plain,
+                        linear_attention_kv_plain, linear_attention_plain)
 
 SOURCE = cuda_build.source("linear_attention.cu")
 HEAD_DIMS = (32, 64, 128)
@@ -58,6 +73,10 @@ MAX_CLUSTER = 8
 SMS = 132
 MIN_ROWS = 32
 ROW_MULTIPLE = 8
+# the token-sharded entries, and whether each takes the backward's plan
+SHARDED_ENTRIES = ("kv", "apply", "bwd_partial", "bwd_finish")
+SHARDED_BACKWARD = {"kv": False, "apply": False, "bwd_partial": True,
+                    "bwd_finish": True}
 
 
 class Plan(NamedTuple):
@@ -126,6 +145,15 @@ def _declare(lib) -> None:
         fn = getattr(lib, name)
         fn.argtypes = [ptr] * 7 + [i32] * 6 + [ctypes.c_float, ptr]
         fn.restype = i32
+    for dt in ("f32", "bf16"):
+        getattr(lib, f"linear_attention_kv_{dt}").argtypes = [ptr] * 3 + [i32] * 6 + [ptr]
+        getattr(lib, f"linear_attention_apply_{dt}").argtypes = (
+            [ptr] * 3 + [i32] * 6 + [ctypes.c_float, ptr])
+        getattr(lib, f"linear_attention_bwd_partial_{dt}").argtypes = (
+            [ptr] * 5 + [i32] * 6 + [ctypes.c_float, ptr])
+        getattr(lib, f"linear_attention_bwd_finish_{dt}").argtypes = [ptr] * 5 + [i32] * 6 + [ptr]
+        for entry in SHARDED_ENTRIES:
+            getattr(lib, f"linear_attention_{entry}_{dt}").restype = i32
     lib.linear_attention_smem_bytes.argtypes = [i32, i32, i32]
     lib.linear_attention_smem_bytes.restype = i32
     lib.linear_attention_error_string.argtypes = [i32]
@@ -236,6 +264,159 @@ def linear_attention_backward_kernel(q: torch.Tensor, k: torch.Tensor,
 
 
 linear_attention_backward_kernel.launches = 0
+
+
+def _check_sums(sums: torch.Tensor, q: torch.Tensor) -> None:
+    """The reduced sums of a token-sharded call: float32 [B, H, D (D + 1)],
+    contiguous, on q's device."""
+    b, _, h, d = q.shape
+    if (sums.shape != (b, h, d * (d + 1)) or sums.dtype != torch.float32
+            or sums.device != q.device or not sums.is_contiguous()):
+        raise ValueError(f"the sums must be float32 [{b}, {h}, {d * (d + 1)}], "
+                         f"contiguous, on {q.device}; got {sums.dtype} "
+                         f"{tuple(sums.shape)} on {sums.device}")
+
+
+def _launch_sharded(lib, stream, entry: str, tokens: torch.Tensor, inputs,
+                    outputs, eps: Optional[float] = None) -> None:
+    """One launch of a token-sharded entry on ``stream``, planned on
+    ``tokens``' shape and dtype (no device check here)."""
+    b, n, h, d = tokens.shape
+    p = plan(b, n, h, d, tokens.dtype, backward=SHARDED_BACKWARD[entry])
+    dt = "f32" if tokens.dtype == torch.float32 else "bf16"
+    tail = ([] if eps is None else [float(eps)]) + [stream]
+    err = getattr(lib, f"linear_attention_{entry}_{dt}")(
+        *(t.data_ptr() for t in tuple(inputs) + tuple(outputs)),
+        b, n, h, d, p.cluster, p.rows, *tail)
+    if err != 0:
+        raise RuntimeError(
+            f"linear-attention {entry} kernel launch failed: "
+            f"{lib.linear_attention_error_string(err).decode()} ({err}); "
+            f"{p.cluster} blocks a (batch, head) of {p.rows} tokens each")
+
+
+def _sharded_device(t: torch.Tensor) -> bool:
+    """True for a CUDA tensor (launch), False for a CPU one (plain)."""
+    if t.device.type == "cpu":
+        return False
+    if t.device.type != "cuda":
+        raise ValueError(f"no linear-attention kernel for device {t.device}")
+    return True
+
+
+def linear_attention_kv_kernel(k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """φ(K)ᵀV and Σφ(K) over the tokens of k, v [B, N, H, D] (f32 or bf16,
+    contiguous) through the ``kv`` entry: float32 [B, H, D (D + 1)]."""
+    if not _sharded_device(k):
+        return linear_attention_kv_plain(k, v)
+    _check(k, v)
+    b, _, h, d = k.shape
+    kvs = torch.empty((b, h, d * (d + 1)), device=k.device, dtype=torch.float32)
+    _on_device(k, _launch_sharded, "kv", k, (k, v), (kvs,))
+    linear_attention_kv_kernel.launches += 1
+    return kvs
+
+
+linear_attention_kv_kernel.launches = 0
+
+
+def linear_attention_apply_kernel(q: torch.Tensor, kvs: torch.Tensor,
+                                  eps: float = 1e-6) -> torch.Tensor:
+    """The output of q's tokens from the reduced sums ``kvs`` through the
+    ``apply`` entry, in q's dtype."""
+    if not _sharded_device(q):
+        return linear_attention_apply_plain(q, kvs, eps)
+    _check(q)
+    _check_sums(kvs, q)
+    out = torch.empty_like(q)
+    _on_device(q, _launch_sharded, "apply", q, (q, kvs), (out,), eps)
+    linear_attention_apply_kernel.launches += 1
+    return out
+
+
+linear_attention_apply_kernel.launches = 0
+
+
+def linear_attention_bwd_partial_kernel(q: torch.Tensor, g: torch.Tensor,
+                                        kvs: torch.Tensor, eps: float = 1e-6):
+    """(dq, d_kvs): dq of q's tokens and their share of d_kv and d_ksum
+    (float32 [B, H, D (D + 1)]) for the upstream gradient ``g``, from the
+    reduced ``kvs``, through the ``bwd_partial`` entry."""
+    if not _sharded_device(q):
+        return linear_attention_bwd_partial_plain(q, g, kvs, eps)
+    _check(q, g)
+    _check_sums(kvs, q)
+    dq = torch.empty_like(q)
+    dkvs = torch.empty_like(kvs)
+    _on_device(q, _launch_sharded, "bwd_partial", q, (q, g, kvs), (dq, dkvs), eps)
+    linear_attention_bwd_partial_kernel.launches += 1
+    return dq, dkvs
+
+
+linear_attention_bwd_partial_kernel.launches = 0
+
+
+def linear_attention_bwd_finish_kernel(k: torch.Tensor, v: torch.Tensor,
+                                       dkvs: torch.Tensor):
+    """(dk, dv) of k's tokens from the reduced ``dkvs`` through the
+    ``bwd_finish`` entry, each in its input's dtype."""
+    if not _sharded_device(k):
+        return linear_attention_bwd_finish_plain(k, v, dkvs)
+    _check(k, v)
+    _check_sums(dkvs, k)
+    dk, dv = torch.empty_like(k), torch.empty_like(v)
+    _on_device(k, _launch_sharded, "bwd_finish", k, (k, v, dkvs), (dk, dv))
+    linear_attention_bwd_finish_kernel.launches += 1
+    return dk, dv
+
+
+linear_attention_bwd_finish_kernel.launches = 0
+
+
+def sharded_launches() -> dict:
+    """The token-sharded entries' launch counts, by entry."""
+    return {f"linear_attention_{e}": globals()[f"linear_attention_{e}_kernel"].launches
+            for e in SHARDED_ENTRIES}
+
+
+def _all_reduce(t: torch.Tensor, group) -> torch.Tensor:
+    if group is not None:
+        dist.all_reduce(t, group=group)
+    return t
+
+
+class LinearAttentionShardedFunction(torch.autograd.Function):
+    """Token-sharded linear attention over a process group: the forward is
+    :func:`linear_attention_kv_kernel`, an ``all_reduce`` of its sums over
+    ``group`` and :func:`linear_attention_apply_kernel`; it saves q, k, v
+    and the reduced sums. The backward is
+    :func:`linear_attention_bwd_partial_kernel`, an ``all_reduce`` of
+    d_kv and d_ksum, and :func:`linear_attention_bwd_finish_kernel`. Every
+    process of the group calls it at the same point (the collectives)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, group, eps):
+        q, k, v = (t.contiguous() for t in (q, k, v))
+        kvs = _all_reduce(linear_attention_kv_kernel(k, v), group)
+        ctx.save_for_backward(q, k, v, kvs)
+        ctx.group, ctx.eps = group, eps
+        return linear_attention_apply_kernel(q, kvs, eps)
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, g):
+        q, k, v, kvs = ctx.saved_tensors
+        dq, dkvs = linear_attention_bwd_partial_kernel(q, g.contiguous(), kvs, ctx.eps)
+        dk, dv = linear_attention_bwd_finish_kernel(k, v, _all_reduce(dkvs, ctx.group))
+        return dq, dk, dv, None, None
+
+
+def linear_attention_sharded_trainable(q: torch.Tensor, k: torch.Tensor,
+                                       v: torch.Tensor, group,
+                                       eps: float = 1e-6) -> torch.Tensor:
+    """Differentiable token-sharded linear attention over ``group`` (None:
+    a group of one) through the four sharded entries."""
+    return LinearAttentionShardedFunction.apply(q, k, v, group, eps)
 
 
 class LinearAttentionFunction(torch.autograd.Function):

@@ -3,13 +3,32 @@
 Counterpart of ``cv_diffusion_tpu/ops/norms.py``: the same group rule and the
 same statistics, ``var = E[x²] − E[x]²`` clamped at 0, so that the port
 agrees with the JAX package to float rounding.
+
+Under a spatial shard (``parallel.mesh.spatial_scope``) each rank holds a
+strip of image rows: its sums are added over the spatial group
+(``parallel.halo.spatial_sum``, one collective a normalisation) and the
+means taken over the whole image's count.
 """
 
 from __future__ import annotations
 
+from typing import Tuple
+
 import torch
 
+from ..parallel.halo import spatial_sum
+from ..parallel.mesh import current_spatial
 from . import upcast
+
+
+def _image_sums(parts: torch.Tensor, count: int) -> Tuple[torch.Tensor, int]:
+    """(``parts`` summed over the spatial group, ``count`` over the whole
+    image): sums over this rank's elements and their number, as they are
+    without a spatial shard."""
+    shard = current_spatial()
+    if shard is None:
+        return parts, count
+    return spatial_sum(parts, shard), count * shard.size
 
 
 def gn_num_groups(channels: int, max_groups: int = 32) -> int:
@@ -26,8 +45,13 @@ def _normalized(x: torch.Tensor, num_groups: int, eps: float) -> torch.Tensor:
     if c % num_groups:
         raise ValueError(f"{c} channels do not split into {num_groups} groups")
     xg = upcast(x.reshape(b, num_groups, -1))
-    mean = xg.mean(dim=-1, keepdim=True)
-    mean2 = xg.square().mean(dim=-1, keepdim=True)
+    if current_spatial() is None:
+        mean = xg.mean(dim=-1, keepdim=True)
+        mean2 = xg.square().mean(dim=-1, keepdim=True)
+    else:
+        sums, n = _image_sums(torch.stack([xg.sum(dim=-1), xg.square().sum(dim=-1)]),
+                              xg.shape[-1])
+        mean, mean2 = (m[..., None] / n for m in sums)
     var = (mean2 - mean.square()).clamp_min(0.0)
     return ((xg - mean) * torch.rsqrt(var + eps)).reshape(x.shape)
 
@@ -95,6 +119,9 @@ def gn2_film_affine_gram(xhat: torch.Tensor, wexp: torch.Tensor,
     chunks = flat.reshape(b, cin, s, n // s).transpose(1, 2).reshape(b * s, cin, -1)
     gram = torch.bmm(chunks, chunks.transpose(1, 2)).reshape(b, s, cin, cin).sum(1)
     asum = flat.sum(dim=-1)                                 # Σ_p x̂
+    if current_spatial() is not None:
+        sums, n = _image_sums(torch.cat([gram.reshape(b, -1), asum], dim=1), n)
+        gram, asum = sums[:, :cin * cin].reshape(b, cin, cin), sums[:, cin * cin:]
     wf = wexp.reshape(chid, cin).to(flat.dtype)
     m1 = asum @ wf.t() / n                                  # E[h1_c]
     gw = gram @ wf.t()                                      # [B, Cin, Chid]
@@ -132,11 +159,12 @@ def concat_group_norm_parts(u: torch.Tensor, s: torch.Tensor,
         raise ValueError(f"{c} channels do not split into {num_groups} groups")
     gs = c // num_groups
     spatial = tuple(range(2, u.dim()))
-    n = float(gs * u[0, 0].numel())
     uf, sf = upcast(u), upcast(s)
     sums = torch.cat([uf.sum(dim=spatial), sf.sum(dim=spatial)], dim=1)   # [B, C]
     sums2 = torch.cat([uf.square().sum(dim=spatial),
                        sf.square().sum(dim=spatial)], dim=1)
+    (sums, sums2), n = _image_sums(torch.stack([sums, sums2]), gs * u[0, 0].numel())
+    n = float(n)
     mean = sums.reshape(-1, num_groups, gs).sum(-1) / n                   # [B, G]
     var = (sums2.reshape(-1, num_groups, gs).sum(-1) / n
            - mean.square()).clamp_min(0.0)

@@ -47,6 +47,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..parallel.halo import halo_rows
+from ..parallel.mesh import current_spatial
 from . import upcast
 
 # float(1/127) as JAX's compiled scales use it (see the module docstring)
@@ -221,9 +223,31 @@ class Conv2d(nn.Conv2d):
     """``nn.Conv2d`` with a compute dtype (JAX ``QConv``'s float path): with
     ``compute_dtype`` set, the input and the weight are cast to it, the
     convolution's output has it, and the bias is added in it after that
-    rounding."""
+    rounding.
+
+    Under a spatial shard (``parallel.mesh.spatial_scope``) the input is
+    this rank's strip of image rows, and a 3×3 convolution with padding 1
+    takes its halo from the neighbouring strips (``parallel.halo.
+    halo_rows``, zeros at the image's border, in the compute dtype) and pads
+    W only: one row on each side at stride 1; at stride 2, where the strip
+    has an even number of rows starting at an even row, one row above and
+    none below. A 1×1 needs nothing."""
 
     compute_dtype: Optional[torch.dtype] = None
+
+    def _conv_forward(self, input: torch.Tensor, weight: torch.Tensor,
+                      bias: Optional[torch.Tensor]) -> torch.Tensor:
+        shard = current_spatial()
+        if shard is None or self.kernel_size[0] == 1:
+            return super()._conv_forward(input, weight, bias)
+        if (self.kernel_size[0], self.padding[0]) != (3, 1) or self.stride[0] not in (1, 2):
+            raise ValueError(f"spatial sharding takes 3×3 convolutions with padding 1 "
+                             f"at stride 1 or 2, not {self}")
+        if self.stride[0] == 2 and input.shape[2] % 2:
+            raise ValueError(f"a stride-2 convolution of a strip of {input.shape[2]} rows")
+        x = halo_rows(input, 1, 1 if self.stride[0] == 1 else 0, "zero", shard)
+        return F.conv2d(x, weight, bias, self.stride, (0, self.padding[1]),
+                        self.dilation, self.groups)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         dt = self.compute_dtype

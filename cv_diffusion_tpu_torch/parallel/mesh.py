@@ -8,9 +8,12 @@ subgroup per axis, through which the port's data-parallel paths reduce.
 
 Axes:
   * ``data``    — the batch axis (pure data parallelism);
-  * ``spatial`` — the image-height axis. Only ``ops.attention.
-    linear_attention_sharded`` runs over it; a UNet path refuses a spatial
-    axis larger than 1 (ROADMAP queue 1 item 8b).
+  * ``spatial`` — the image-height axis: rank i of it holds image rows
+    [i·H/n, (i+1)·H/n) of every image of its data block. The UNet's layers
+    read this process's place on it (:class:`SpatialShard`, opened by
+    :func:`spatial_scope`) and exchange what crosses the strips through
+    ``parallel.halo``, where XLA's partitioner inserts the exchanges in the
+    JAX package.
 
 A rank takes ``cuda:LOCAL_RANK`` (:func:`local_device`). Ranks are laid
 out host-major, as ``torch.distributed.run`` numbers them, so the blocks of
@@ -19,10 +22,11 @@ out host-major, as ``torch.distributed.run`` numbers them, so the blocks of
 
 from __future__ import annotations
 
+import contextlib
 import os
 from collections import OrderedDict
 from dataclasses import dataclass
-from typing import Dict, List, Optional, Sequence, Tuple
+from typing import Dict, Iterator, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -30,6 +34,7 @@ import torch.distributed as dist
 
 DATA_AXIS = "data"
 SPATIAL_AXIS = "spatial"
+MESH_GROUP = "mesh"         # the key of the subgroup of every rank of a mesh
 
 _NEEDS_IDS = ("distributed_init: a coordinator address requires "
               "num_processes and process_id (as args or "
@@ -165,6 +170,17 @@ class Mesh:
                              else dist.new_group(ranks=ranks))
                     if me in ranks:
                         self._groups[axis] = group
+            # every rank of the mesh: the one axis's line, or a group of its own
+            split = [a for a in self.axis_names if self.shape[a] > 1]
+            if len(split) == 1:
+                if split[0] in self._groups:
+                    self._groups[MESH_GROUP] = self._groups[split[0]]
+            elif split:
+                ranks = sorted(int(r) for r in self.devices.ravel())
+                group = (dist.group.WORLD if ranks == list(range(n))
+                         else dist.new_group(ranks=ranks))
+                if me in ranks:
+                    self._groups[MESH_GROUP] = group
 
     def __repr__(self) -> str:
         return f"Mesh({dict(self.shape)}, ranks={self.devices.tolist()})"
@@ -198,8 +214,9 @@ class Mesh:
         return [int(r) for r in np.ravel(self.devices[index])]
 
     def group(self, axis: str):
-        """This process's subgroup along ``axis``; None when the axis has
-        one rank (nothing to reduce) or outside a process group."""
+        """This process's subgroup along ``axis`` (``MESH_GROUP``: every
+        rank of the mesh); None when it has one rank (nothing to reduce) or
+        outside a process group."""
         return self._groups.get(axis)
 
 
@@ -431,23 +448,86 @@ def barrier() -> None:
         dist.barrier()
 
 
-# --- data parallelism on a mesh ------------------------------------------------
+# --- data and spatial parallelism on a mesh ----------------------------------
 
-SPATIAL_REFUSED = ("a spatial axis of {n} ranks on a UNet path: spatial "
-                   "sharding of the UNet (halo exchanges of its convolutions, "
-                   "GroupNorm/SE statistics over the spatial group) is not "
-                   "ported (ROADMAP queue 1 item 8b)")
+SPATIAL_UNPORTED = ("{what} under a spatial axis of {n} ranks is not ported "
+                    "(ROADMAP queue 1 item 8c)")
 
 
 @dataclass(frozen=True)
-class DataShard:
-    """This process's place on a mesh's data axis: its subgroup (None for
-    one rank), the axis's size and this process's index on it."""
+class SpatialShard:
+    """This process's place on a mesh's spatial axis: its subgroup, the
+    axis's size n and this process's index on it. Rank i of the axis holds
+    image rows [i·H/n, (i+1)·H/n) (dim 1 of an NHWC batch, dim 2 of the
+    model's NCHW tensors) and tokens [i·N/n, (i+1)·N/n) of an h-major
+    flattening."""
 
     group: object
     size: int
     index: int
-    src: int        # global rank of the axis's first member
+
+    def rows(self, local: int) -> Tuple[int, int, int]:
+        """(global rows, first here, one past the last) of an image of
+        which this process holds ``local`` rows."""
+        return local * self.size, self.index * local, (self.index + 1) * local
+
+    def check_height(self, height: int, levels: int) -> None:
+        """Raise ``ValueError`` unless ``height`` splits into n strips
+        that every one of ``levels`` resolutions halves into an even number
+        of rows: H a multiple of n·2^(levels−1). (JAX's partitioner pads an
+        uneven split; the port refuses it: ROADMAP queue 3.)"""
+        multiple = self.size * 2 ** (levels - 1)
+        if height % multiple:
+            raise ValueError(
+                f"an image of {height} rows does not split over a spatial "
+                f"axis of {self.size} ranks through {levels} resolutions: the "
+                f"height must be a multiple of {multiple}")
+
+
+# The spatial shard the layers run under: a module global, as
+# ``models.rows`` keeps its block, because a rematerialised block runs its
+# forward again on the autograd engine's device thread in the backward and
+# must see what the forward saw.
+_SPATIAL: Optional[SpatialShard] = None
+
+
+@contextlib.contextmanager
+def spatial_scope(shard: Optional[SpatialShard]) -> Iterator[None]:
+    """The UNet's layers inside see ``shard`` (:func:`current_spatial`);
+    a None ``shard`` leaves the current one as it is."""
+    global _SPATIAL
+    if shard is None:
+        yield
+        return
+    previous, _SPATIAL = _SPATIAL, shard
+    try:
+        yield
+    finally:
+        _SPATIAL = previous
+
+
+def current_spatial() -> Optional[SpatialShard]:
+    """The spatial shard the layers run under, or None (whole images)."""
+    return _SPATIAL
+
+
+@dataclass(frozen=True)
+class DataShard:
+    """This process's place on a mesh: its data axis's subgroup (None for
+    one rank), the axis's size, this process's index on it and the axis's
+    first member; the subgroup of every rank of the mesh, its size and
+    first member, over which gradients are averaged and replicas synced;
+    and its :class:`SpatialShard` (None without a spatial axis of more
+    than one rank)."""
+
+    group: object
+    size: int
+    index: int
+    src: int             # global rank of the data axis's first member
+    mesh_group: object = None
+    replicas: int = 1    # ranks of the mesh
+    mesh_src: int = 0    # global rank of the mesh's first member
+    spatial: Optional[SpatialShard] = None
 
     def rows(self, local: int) -> Tuple[int, int, int]:
         """(global rows, first here, one past the last) of a global batch
@@ -455,18 +535,48 @@ class DataShard:
         return local * self.size, self.index * local, (self.index + 1) * local
 
 
-def data_shard(mesh: Optional[Mesh]) -> Optional[DataShard]:
+def spatial_shard(mesh: Optional[Mesh]) -> Optional[SpatialShard]:
+    """This process's :class:`SpatialShard` of ``mesh``; None without a
+    mesh or a spatial axis of more than one rank."""
+    if mesh is None or mesh.axis_size(SPATIAL_AXIS) == 1:
+        return None
+    return SpatialShard(mesh.group(SPATIAL_AXIS), mesh.axis_size(SPATIAL_AXIS),
+                        mesh.axis_index(SPATIAL_AXIS))
+
+
+def refuse_spatial(mesh: Optional[Mesh], what: str) -> None:
+    """Raise ``NotImplementedError`` naming ROADMAP item 8c when ``mesh``
+    has a spatial axis of more than one rank: ``what`` is not ported
+    under it."""
+    if mesh is not None and mesh.axis_size(SPATIAL_AXIS) > 1:
+        raise NotImplementedError(SPATIAL_UNPORTED.format(
+            what=what, n=mesh.axis_size(SPATIAL_AXIS)))
+
+
+def refuse_spatial_model(mesh: Optional[Mesh], model, config=None) -> None:
+    """:func:`refuse_spatial` for what a spatial axis does not run of a
+    model (a ``LowLightDiffusion``) and its training config: ``act_quant``
+    (its dynamic amax would need a max over the group) and ``qat_act``."""
+    if model.config.unet.act_quant:
+        refuse_spatial(mesh, f"UNetConfig.act_quant={model.config.unet.act_quant!r}")
+    if config is not None and config.qat_act:
+        refuse_spatial(mesh, "TrainConfig.qat_act (activation-aware QAT)")
+
+
+def data_shard(mesh: Optional[Mesh],
+               unported: Optional[str] = None) -> Optional[DataShard]:
     """This process's :class:`DataShard` of ``mesh`` for a UNet path (None
-    without a mesh). Raises ``NotImplementedError`` for a spatial axis of
-    more than one rank, and ``ValueError`` when this process is not in the
-    mesh."""
+    without a mesh). ``unported`` names a path that a spatial axis of more
+    than one rank does not run: it then raises ``NotImplementedError``
+    (ROADMAP item 8c). Raises ``ValueError`` when this process is not in
+    the mesh."""
     if mesh is None:
         return None
-    if mesh.axis_size(SPATIAL_AXIS) > 1:
-        raise NotImplementedError(SPATIAL_REFUSED.format(
-            n=mesh.axis_size(SPATIAL_AXIS)))
+    if unported is not None:
+        refuse_spatial(mesh, unported)
     if mesh.rank not in mesh:
         raise ValueError(f"rank {mesh.rank} is not in {mesh!r}")
     return DataShard(mesh.group(DATA_AXIS), mesh.axis_size(DATA_AXIS),
-                     mesh.axis_index(DATA_AXIS),
-                     mesh.axis_ranks(DATA_AXIS)[0])
+                     mesh.axis_index(DATA_AXIS), mesh.axis_ranks(DATA_AXIS)[0],
+                     mesh.group(MESH_GROUP), mesh.size,
+                     int(mesh.devices.ravel()[0]), spatial_shard(mesh))

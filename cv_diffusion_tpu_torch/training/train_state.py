@@ -14,17 +14,22 @@ taken in float32 and the gradients reach the float32 parameters through
 the casts, as in JAX.
 
 Over a mesh (``parallel.make_mesh``: one process per GPU) the steps are
-data parallel and equal the one-process step at the global batch, as
-JAX's steps over a mesh equal its single-device step: t, ε and the dropout
-masks are drawn for the global batch from the state's generator, seeded
-alike everywhere, and each process takes its rows (``models.rows``); the
-gradients and the loss are averaged over the data axis (one flattened
-``all_reduce``) before the clip, so the update, the EMA and the LR are the
-same in every process.
+data parallel, and over a ``(data, spatial)`` mesh also spatially sharded
+(each process a strip of image rows of its images, the UNet's layers
+exchanging what crosses the strips: ``parallel.halo``); either way they
+equal the one-process step at the global batch, as JAX's steps over a mesh
+equal its single-device step: t, ε and the dropout masks are drawn for the
+global batch from the state's generator, seeded alike everywhere, and each
+process takes its block (``models.rows``); the gradients and the loss are
+averaged over the whole mesh (one flattened ``all_reduce``) before the
+clip, so the update, the EMA and the LR are the same in every process.
+Each process's loss is the mean over its own pixels, and every process
+holds as many, so that average is the global batch's mean.
 """
 
 from __future__ import annotations
 
+import contextlib
 import math
 from dataclasses import dataclass
 from typing import Callable, Dict, List, Optional, Tuple
@@ -38,9 +43,10 @@ from ..models import rows
 from ..models.diffusion import (LowLightDiffusion, diffusion_loss,
                                 train_forward)
 from ..models.scheduler import LCMSchedule
+from ..parallel.halo import spatial_sum
 from ..parallel.mesh import (DataShard, Mesh, all_reduce_mean_,
                              all_reduce_sum, broadcast_, data_shard,
-                             shard_batch)
+                             refuse_spatial_model, shard_batch, spatial_scope)
 from .ema import init_ema, update_ema
 
 Schedule = Callable[[int], float]
@@ -229,34 +235,43 @@ def _as_tensor(x, device, dtype=torch.float32) -> torch.Tensor:
                                  non_blocking=True)
 
 
+@contextlib.contextmanager
 def shard_rows(shard: Optional[DataShard], local: int):
     """The draws' block of a global batch of which this process holds
-    ``local`` rows (the whole batch without a mesh)."""
-    return rows.global_batch(*(shard.rows(local) if shard is not None
-                               else (local, 0, local)))
+    ``local`` rows (the whole batch without a mesh) and, with a spatial
+    axis, its strip of image rows; the layers run under its spatial
+    shard."""
+    spatial = shard.spatial if shard is not None else None
+    block = shard.rows(local) if shard is not None else (local, 0, local)
+    strips = (spatial.size, spatial.index) if spatial is not None else None
+    with rows.global_batch(*block, strips=strips), spatial_scope(spatial):
+        yield
 
 
 def sync_replicas(shard: Optional[DataShard], model: torch.nn.Module,
                   ema: Optional[Dict[str, torch.Tensor]] = None) -> None:
-    """Copy the data axis's first process's parameters, buffers and EMA to
-    the others (what ``DistributedDataParallel`` does when it is built):
-    the replicas then start equal whatever each process initialised."""
-    if shard is None or shard.size == 1:
+    """Copy the mesh's first process's parameters, buffers and EMA to the
+    others (what ``DistributedDataParallel`` does when it is built): the
+    replicas then start equal whatever each process initialised."""
+    if shard is None or shard.replicas == 1:
         return
     tensors = [t.data for t in model.parameters()] + list(model.buffers())
     if ema is not None:
         tensors += list(ema.values())
     for dtype in sorted({t.dtype for t in tensors}, key=str):
-        broadcast_([t for t in tensors if t.dtype == dtype], shard.group,
-                   shard.src)
+        broadcast_([t for t in tensors if t.dtype == dtype], shard.mesh_group,
+                   shard.mesh_src)
 
 
 def reduce_gradients(shard: Optional[DataShard], model: torch.nn.Module,
                      loss: torch.Tensor) -> torch.Tensor:
-    """Average the gradients held in ``.grad`` over the data axis in place
+    """Average the gradients held in ``.grad`` over the whole mesh in place
     (every parameter: a missing gradient counts as zeros, as in JAX), and
-    return the loss averaged likewise."""
-    if shard is None or shard.size == 1:
+    return the loss averaged likewise. Under a spatial axis each process's
+    gradients hold its own pixels' share of the loss (``parallel.halo``
+    says why none is counted twice), so this one average is the gradient
+    of the global batch's mean."""
+    if shard is None or shard.replicas == 1:
         return loss
     params = list(model.parameters())
     for p in params:
@@ -264,8 +279,8 @@ def reduce_gradients(shard: Optional[DataShard], model: torch.nn.Module,
             p.grad = torch.zeros_like(p)
     grads = [p.grad for p in params]
     for dtype in sorted({g.dtype for g in grads}, key=str):
-        all_reduce_mean_([g for g in grads if g.dtype == dtype], shard.group)
-    return all_reduce_sum(loss, shard.group) / shard.size
+        all_reduce_mean_([g for g in grads if g.dtype == dtype], shard.mesh_group)
+    return all_reduce_sum(loss, shard.mesh_group) / shard.replicas
 
 
 def make_train_step(model: LowLightDiffusion, schedule: LCMSchedule,
@@ -285,14 +300,17 @@ def make_train_step(model: LowLightDiffusion, schedule: LCMSchedule,
     ``train_state.py:140-163``).
 
     With ``mesh`` the step is data parallel (module docstring): ``batch``
-    is this process's rows (``parallel.shard_batch`` of a global batch, or
-    its own loader's batch), and the first step copies the first
-    process's parameters and EMA to the others. With ``grad_accum_steps``
-    k, micro-batch i is every process's local rows [i·b/k, (i+1)·b/k)
-    (each micro-batch stays split over the processes) and the gradients are
-    reduced once, after the last. A spatial axis of more than one process
-    raises ``NotImplementedError`` (ROADMAP queue 1 item 8b)."""
+    is this process's block (``parallel.shard_batch`` of a global batch,
+    or its own loader's batch on a data-only mesh), and the first step
+    copies the first process's parameters and EMA to the others. On a
+    ``(data, spatial)`` mesh the block is its rows of the batch and its
+    strip of image rows of each. With ``grad_accum_steps`` k, micro-batch i
+    is every process's local rows [i·b/k, (i+1)·b/k) (each micro-batch
+    stays split over both axes) and the gradients are reduced once, after
+    the last. Under a spatial axis an ``act_quant`` model and ``qat_act``
+    raise ``NotImplementedError`` (ROADMAP item 8c)."""
     check_trainable(config)
+    refuse_spatial_model(mesh, model, config)
     shard = data_shard(mesh)
     accum = max(1, config.grad_accum_steps)
     param = next(model.parameters())
@@ -354,14 +372,19 @@ def make_eval_step(model: LowLightDiffusion, schedule: LCMSchedule,
     EMA) in place of the module's own, or None for those.
 
     With ``mesh``, ``batch`` is the global batch, whole in every process:
-    each takes its rows (``parallel.shard_batch``; a batch that does not
+    each takes its block (``parallel.shard_batch``: its rows, and on a
+    ``(data, spatial)`` mesh its strip of image rows; a batch that does not
     split over the data axis is computed whole everywhere), t and ε are
-    drawn for the global batch, and the masked per-image sums are added
-    over the data axis and divided by ``n_valid`` (JAX
-    ``train_state.py:234-276``): every process gets the same loss."""
+    drawn for the global batch, each image's squared error is summed over
+    the spatial group, and the masked per-image means are added over the
+    data axis and divided by ``n_valid`` (JAX ``train_state.py:234-276``):
+    every process gets the same loss."""
+    refuse_spatial_model(mesh, model)
     shard = data_shard(mesh)
+    spatial = shard.spatial if shard is not None else None
     param = next(model.parameters())
     device = param.device
+    levels = len(model.config.unet.channels)
 
     @torch.no_grad()
     def evaluate(params, generator, batch, n_valid: Optional[int] = None
@@ -370,18 +393,24 @@ def make_eval_step(model: LowLightDiffusion, schedule: LCMSchedule,
         n = total if n_valid is None else n_valid
         split = shard is not None and total % shard.size == 0
         if split:
+            if spatial is not None:
+                spatial.check_height(len(batch["low_light"][0]), levels)
             batch = shard_batch(mesh, {k: batch[k] for k in
                                        ("low_light", "normal_light")})
         low = _as_tensor(batch["low_light"], device, param.dtype)
         normal = _as_tensor(batch["normal_light"], device, param.dtype)
-        local = low.shape[0]
-        block = shard.rows(local) if split else (local, 0, local)
-        with rows.global_batch(*block):
+        with shard_rows(shard if split else None, low.shape[0]):
             out = train_forward(model, schedule, low, normal,
                                 generator=generator, train=False,
                                 params=params)
         err = upcast(out["noise_pred"]) - upcast(out["target"])
-        per_image = (err * err).mean(dim=(1, 2, 3))
+        if split and spatial is not None:
+            per_image = (spatial_sum((err * err).sum(dim=(1, 2, 3)), spatial)
+                         / (err[0].numel() * spatial.size))
+        else:
+            per_image = (err * err).mean(dim=(1, 2, 3))
+        local = low.shape[0]
+        block = shard.rows(local) if split else (local, 0, local)
         index = torch.arange(block[1], block[2], device=device)
         masked = torch.where(index < n, per_image,
                              torch.zeros_like(per_image)).sum()

@@ -27,7 +27,12 @@ grids and checkpoints are written by process 0 alone (the state is
 replicated, so one writer writes what every process holds; the JAX
 package saves from every process because orbax's sharded save is
 collective), the others waiting at a barrier, and checkpoints are written
-synchronously.
+synchronously. On a mesh with a spatial axis (``mesh_shape=(d, s)``) every
+process's loader yields the global batch (``train_model`` builds the
+loaders unsharded), each step takes this process's block of it
+(``parallel.shard_batch``: its rows and its strip of image rows), and the
+sample grids are sampled over the mesh and gathered before process 0
+writes them.
 :class:`DistillationTrainer` is the host loop of distillation (JAX
 ``trainer.py:369-598``): a student trained from a frozen teacher, with the
 best-by-PSNR EMA student kept.
@@ -47,8 +52,9 @@ from ..config import TrainConfig, diffusion_config, to_json
 from ..models.diffusion import (LowLightDiffusion, create_model,
                                 denormalize_image, enhance)
 from ..models.scheduler import LCMSchedule
-from ..parallel.mesh import (Mesh, auto_mesh, barrier, make_mesh, pad_batch,
-                             world)
+from ..parallel.mesh import (DATA_AXIS, SPATIAL_AXIS, Mesh, auto_mesh, barrier,
+                             data_shard, make_mesh, pad_batch, refuse_spatial,
+                             refuse_spatial_model, shard_batch, world)
 from . import checkpoint as ckpt
 from .metrics import psnr, ssim
 from .train_state import (check_trainable, create_train_state, make_eval_step,
@@ -103,6 +109,9 @@ class _HostLoop:
         self.device = next(model.parameters()).device
         self.epoch = 0
         self.mesh = resolve_mesh(mesh, self.config)
+        # a spatial axis: every loader batch is the global batch, whole here
+        self.spatial = (self.mesh is not None
+                        and self.mesh.axis_size(SPATIAL_AXIS) > 1)
         processes, rank = world()
         # host-only side effects (grids, checkpoints, logs) on process 0
         self.is_main_process = rank == 0
@@ -138,6 +147,9 @@ class _HostLoop:
             waited += time.perf_counter() - t
             if batch is None:
                 break
+            if self.spatial:
+                batch = shard_batch(self.mesh, {k: batch[k] for k in
+                                                ("low_light", "normal_light")})
             self.state, metrics = self.train_step(self.state,
                                                   self._device_batch(batch))
             total = total + metrics["loss"]
@@ -180,6 +192,7 @@ class Trainer(_HostLoop):
                 use_ema=self.config.init_params_ema), strict=True)
         self.state = create_train_state(model, self.config,
                                         steps_per_epoch=len(train_loader))
+        refuse_spatial_model(self.mesh, model, self.config)
         if self.config.qat_act and model.config.unet.act_quant != "fake":
             # the JAX trainer trains weight-only QAT here without a word
             # (trainer.py:122; ROADMAP queue 3)
@@ -220,7 +233,7 @@ class Trainer(_HostLoop):
                 self.best_val_loss = val_loss
                 self.save_checkpoint("best_model")
             if ((epoch + 1) % self.config.sample_interval == 0
-                    and self.is_main_process):
+                    and (self.is_main_process or self.spatial)):
                 self.generate_samples(epoch)
         self.save_checkpoint("final_model")
         self.wait_for_checkpoints()
@@ -283,19 +296,38 @@ class Trainer(_HostLoop):
         return {"psnr": float(np.mean(psnrs)), "ssim": float(np.mean(ssims))}
 
     @torch.no_grad()
-    def generate_samples(self, epoch: int) -> str:
+    def generate_samples(self, epoch: int) -> Optional[str]:
         """A [low | enhanced | target] grid of the first ``num_samples``
         images of the first val (else train) batch under the EMA weights,
         noise from a generator seeded ``epoch``, written to
-        ``output_dir/samples_epoch_{epoch}.png``."""
+        ``output_dir/samples_epoch_{epoch}.png``. On a mesh with a spatial
+        axis every process samples its block and process 0 writes the
+        gathered grid (the others return None)."""
         loader = self.val_loader or self.train_loader
         batch = self._device_batch(next(iter(loader)))
         n = self.config.num_samples
         low = batch["low_light"][:n]
         self.model.eval()
-        out = enhance(self.model, self.schedule, low,
-                      generator=torch.Generator(device=self.device).manual_seed(epoch),
-                      device=self.device, params=self._eval_params())
+        generator = torch.Generator(device=self.device).manual_seed(epoch)
+        if self.spatial:
+            from ..models.scheduler import lcm_timesteps
+            from ..parallel.serving import gather, sample_block
+
+            cfg = self.schedule.config
+            grid = lcm_timesteps(self.model.config.num_inference_steps,
+                                 cfg.num_train_timesteps, cfg.original_inference_steps)
+            size = self.mesh.axis_size(DATA_AXIS)
+            padded, _ = pad_batch({"low": low.cpu().numpy()}, size)
+            local = sample_block(self.model, self.schedule, grid,
+                                 data_shard(self.mesh), generator,
+                                 torch.from_numpy(padded["low"]),
+                                 params=self._eval_params())
+            out = gather(self.mesh, local)[:len(low)]
+            if not self.is_main_process:
+                return None
+        else:
+            out = enhance(self.model, self.schedule, low, generator=generator,
+                          device=self.device, params=self._eval_params())
         path = str(self.output_dir / f"samples_epoch_{epoch}.png")
         save_comparison_grid(low, out, batch["normal_light"][:n], path)
         return path
@@ -335,12 +367,17 @@ def train_model(train_data_dir: str, val_data_dir: Optional[str] = None,
 
     config = config or TrainConfig()
     check_trainable(config)
+    # a spatial axis: every process loads the global batch (Trainer)
+    spatial = config.mesh_shape is not None and dict(zip(
+        config.mesh_axes or (DATA_AXIS, SPATIAL_AXIS),
+        config.mesh_shape)).get(SPATIAL_AXIS, 1) > 1
     train_loader, val_loader = create_dataloaders(
         train_root=train_data_dir, val_root=val_data_dir,
         batch_size=config.batch_size, image_size=config.image_size,
         use_synthetic=use_synthetic, seed=config.seed,
         native=config.native_loader, prefetch=config.prefetch_batches,
-        device_cache=config.data_on_device, device=device)
+        device_cache=config.data_on_device, device=device,
+        **({"shard_by_process": False} if spatial else {}))
     model_cfg = diffusion_config(config.unet_variant, config.image_size,
                                  config.num_inference_steps,
                                  dtype="bfloat16" if config.use_amp else "float32",
@@ -404,6 +441,7 @@ class DistillationTrainer(_HostLoop):
                              "distillation) requires regression mode")
         super().__init__(model, schedule, train_loader, val_loader, config,
                          mesh)
+        refuse_spatial(self.mesh, "DistillationTrainer")
         if student_params is None and teacher_model is not None:
             from ..weights import init_weights
             model.load_state_dict(init_weights(model.config, seed=self.config.seed,
@@ -459,7 +497,7 @@ class DistillationTrainer(_HostLoop):
             if (epoch + 1) % self.config.save_interval == 0:
                 self.save_student(f"student_epoch_{epoch}")
             if ((epoch + 1) % self.config.sample_interval == 0
-                    and self.is_main_process):
+                    and (self.is_main_process or self.spatial)):
                 self.generate_samples(epoch)
         self.save_student("student_final")
         self.wait_for_checkpoints()

@@ -325,11 +325,30 @@ def test_shard_files_by_process_matches_jax(ranks):
         assert shard_files_by_process(list(range(n)), pid, procs) == want
 
 
-def test_spatial_axis_on_a_unet_path_raises(ranks):
-    """A spatial axis of more than one process on a UNet path names the
-    queued item; linear attention alone runs over it (above)."""
+def test_spatial_axis_on_a_unet_path_runs(ranks):
+    """The sampler on a (2, 2) mesh (a spatial axis of two processes, which
+    the port once refused) serves the DP batch: each process its two rows
+    and 16 image rows, eagerly (no CUDA graph), gathered into the batch
+    that the data-parallel sampler serves, within the sampler tolerance
+    (float32 at other row counts; ``test_torch_port_spatial.py`` holds the
+    spatial path to JAX and to the one-process sampler)."""
+    _, results = ranks
+    whole = results[0]["serve"]["whole"]
+    for res in results:
+        assert res["spatial_serve"]["graphs"] == {}
+        assert res["spatial_serve"]["local"].shape == (4, SIZE // 2, SIZE, 3)
+        np.testing.assert_array_equal(res["spatial_serve"]["whole"],
+                                      results[0]["spatial_serve"]["whole"])
+    np.testing.assert_allclose(results[0]["spatial_serve"]["whole"], whole,
+                               atol=SAMPLER_TOL, rtol=0)
+
+
+def test_spatial_axis_refuses_int8_serving_by_name(ranks):
+    """What a spatial axis does not serve names ROADMAP item 8c: an
+    ``act_quant`` model (its dynamic amax would need a max over the
+    group)."""
     inputs, _ = ranks
-    model, schedule = torch_dp_rank.tiny(inputs)
+    model, schedule = torch_dp_rank.tiny(inputs, act_quant=True)
     mesh = tpar.make_mesh((1, 2), devices=[0, 1])
-    with pytest.raises(NotImplementedError, match="item 8b"):
+    with pytest.raises(NotImplementedError, match="item 8c"):
         tpar.make_sharded_sample_fn(model, schedule, 2, mesh=mesh)

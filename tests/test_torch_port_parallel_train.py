@@ -223,27 +223,43 @@ def test_distillation_step_at_two_processes_matches_one(ranks,
                                        atol=1e-9, rtol=0, err_msg=k)
 
 
-def test_spatial_axis_on_unet_paths_raises(ranks):
-    """A spatial axis of more than one process on a UNet path (train,
-    eval, QAT, distillation steps, the trainers) raises, naming ROADMAP
-    item 8b; a data-only mesh that leaves this process out raises too."""
+def test_spatial_axis_train_step_runs(ranks):
+    """The float64 step with explicit t and ε on a (2, 2) mesh (a spatial
+    axis of two processes, which the port once refused): its loss, gradient
+    norm and gradients equal the data-parallel step's on (4, 1) within
+    1e-9 (``test_torch_port_spatial_train.py`` holds the spatial paths to
+    JAX and to one process)."""
+    _, results = ranks
+    for res in results:
+        got, want = res["spatial_f64"], res["f64"]
+        np.testing.assert_allclose(got["loss"], want["loss"], atol=1e-9, rtol=0)
+        np.testing.assert_allclose(got["norm"], want["norm"], rtol=1e-9)
+        for k, g in want["grads"].items():
+            np.testing.assert_allclose(got["grads"][k], g, atol=1e-9, rtol=0, err_msg=k)
+
+
+def test_spatial_axis_refuses_by_name(ranks):
+    """What a spatial axis of more than one process does not run names
+    ROADMAP item 8c: activation-aware QAT (the train step, the QAT step and
+    the trainer with ``qat_act``), the distillation steps and
+    ``DistillationTrainer``; a data-only mesh that leaves this process out
+    raises ``ValueError``."""
     from cv_diffusion_tpu_torch.export.qat import make_qat_train_step
 
     inputs, _ = ranks
     model, schedule = tiny(inputs)
     mesh = tpar.make_mesh((1, 2), devices=[0, 1])
-    tc = step_config()
+    tc = step_config(qat_act=True)
     for make in (lambda: tts.make_train_step(model, schedule, tc, mesh=mesh),
-                 lambda: tts.make_eval_step(model, schedule, tc, mesh=mesh),
                  lambda: make_qat_train_step(model, schedule, tc, mesh=mesh),
-                 lambda: make_distillation_step(model, schedule, mesh=mesh),
                  lambda: Trainer(model, schedule, [None], config=tc, mesh=mesh),
+                 lambda: make_distillation_step(model, schedule, mesh=mesh),
                  lambda: DistillationTrainer(model, schedule, inputs["weights"],
-                                             [None], config=tc, mesh=mesh)):
-        with pytest.raises(NotImplementedError, match="item 8b"):
+                                             [None], config=step_config(), mesh=mesh)):
+        with pytest.raises(NotImplementedError, match="item 8c"):
             make()
     with pytest.raises(ValueError, match="not in"):
-        tts.make_train_step(model, schedule, tc,
+        tts.make_train_step(model, schedule, step_config(),
                             mesh=tpar.make_mesh((2,), devices=[1, 2]))
 
 
